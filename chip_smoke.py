@@ -12,10 +12,22 @@ Phases, one or more lines each:
   4. small render: the whole render path on a small scene, CUDA (kernels)
      against CPU (the plain versions the parity tests hold to the JAX
      package);
-  5. the slice: the bench scene (1584x1040, 300K base + 32K env surfels)
-     rendered through forward_envgs for 3 camera poses — no truncation,
-     finite non-degenerate rgb, each kernel launched exactly once per
-     render — then render fps and per-stage device ms.
+  5. the render slice: the bench scene (1584x1040, 300K base + 32K env
+     surfels) rendered through forward_envgs for 3 camera poses — no
+     truncation, finite non-degenerate rgb, each kernel launched exactly
+     once per render — then render fps and per-stage device ms;
+  6. training kernels: K5, K1 and K3 in training mode, K2 and K4 against
+     their plain versions on the train bench scene's own inputs (random
+     cotangents for the backward kernels), errors against stated bounds,
+     median ms of each;
+  7. small train step: one make_train_step on a small scene from one
+     numpy-made state, CUDA (kernels) against CPU (plain versions): loss,
+     every gradient, the new params and moments, densification stats;
+  8. the train slice: the train bench scene (1558x1038, 500K base + 131K
+     env surfels, it=25000) — one warm-up step, then 10 timed steps: finite
+     loss and params, no pair overflow and no dropped trace slots, each of
+     K1-K5 launched exactly once per step; train steps/s, forward /
+     backward / optimizer device ms, peak device memory.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -37,6 +49,22 @@ KERNEL_ATOL = 1e-4
 # CUDA against CPU on the small scene: two blends in a row plus the
 # reflected-ray chain, the tolerance the parity tests hold against JAX
 SMALL_ATOL = 1e-4
+# backward kernels against their plain versions, per gradient column (and
+# per ray-gradient row): max|d| / max|ref|. The kernels sum each pair's
+# column over the tile's pixels with warp shuffles and add a splat's pairs
+# with atomics, in another order than the plain versions' torch sums (and
+# from run to run); the terms are the same
+GRAD_RTOL = 1e-4
+# the small train step, CUDA against CPU: loss terms (float32 sums in
+# another order, two blends and the reflected-ray chain) and arrays derived
+# from gradients (per array max|d| / max|ref|, the JAX package's gradient
+# budget); env splats that meet a ray only at the 1/255 alpha floor may
+# flip visibility with last-bit ray differences: at most FLIP_MAX, each
+# with an accumulated weight below 1e-3, left out of elementwise checks
+LOSS_RTOL = 1e-4
+STEP_RTOL = 5e-4
+FLIP_MAX = 2
+RENDER_KERNELS = ("raster_blend_fwd", "trace_blend_fwd")
 
 
 def cuda_ms(fn, n):
@@ -69,6 +97,28 @@ def compare(name, got, want, names, atol):
     return worst
 
 
+def rel_err(got, want):
+    """max|got - want| / max|want| (0 for an all-zero reference)."""
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    return err / scale if scale > 0 else err
+
+
+def compare_columns(name, got, want, cols, rtol):
+    """Per-column relative error of a gradient table; raises past rtol.
+    Returns (max abs error, worst relative error)."""
+    rels = [rel_err(got[:, k], want[:, k]) for k in cols]
+    err = float((got[:, cols] - want[:, cols]).abs().max())
+    scale = float(want[:, cols].abs().max())
+    print(f"[kernels] {name} max_abs_err {err:.3g} (largest |value| "
+          f"{scale:.3g}), worst column max|d|/max|ref| {max(rels):.3g} "
+          f"(bound {rtol:g})", flush=True)
+    if not max(rels) <= rtol:
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{dict(zip(cols, rels))}")
+    return err, max(rels)
+
+
 def small_scene(device):
     """A 64x64 render of 300 base and 400 env surfels (seeded numpy)."""
     from envgs_tpu_torch.models.envgs import EnvGSConfig
@@ -94,6 +144,116 @@ def small_scene(device):
     return base, env, cam, cfg
 
 
+def small_train(device):
+    """One train step of the small scene from one numpy-made mid-run state
+    (random Adam moments at step 10, so updates are smooth in the
+    gradients): (start state, new state, stats, gradients)."""
+    from envgs_tpu_torch.models.gaussians import GaussianParams
+    from envgs_tpu_torch.train.optimizer import AdamState, LRConfig
+    from envgs_tpu_torch.train.supervisor import LossConfig
+    from envgs_tpu_torch.train.trainer import (
+        Batch,
+        init_train_state,
+        make_train_step,
+    )
+
+    base, env, cam, cfg = small_scene(device)
+    rng = np.random.default_rng(5)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    def mid_run(params):
+        return AdamState(
+            GaussianParams(*(t(rng.normal(size=p.shape) * 1e-3)
+                             for p in params)),
+            GaussianParams(*(t(rng.random(p.shape) * 1e-5 + 1e-6)
+                             for p in params)),
+            torch.tensor(10, dtype=torch.int32, device=device))
+
+    state = init_train_state(base, env)._replace(
+        opt_base=mid_run(base.params), opt_env=mid_run(env.params))
+    batch = Batch(t(rng.random((cam.H, cam.W, 3))),
+                  t(rng.random((cam.H, cam.W, 1)) > 0.1),
+                  t(rng.random((cam.H, cam.W, 3))))
+    loss_cfg = LossConfig(perc_loss_weight=0.0, gs_dist_loss_weight=0.01,
+                          gs_dist_loss_start_iter=0,
+                          env_opacity_loss_weight=0.01, msk_loss_weight=0.1,
+                          msk_loss_start_iter=0)  # every term on
+    step = make_train_step(cam, cfg._replace(render_mode=False), loss_cfg,
+                           LRConfig(), LRConfig(), has_norm=True)
+    grads = {}
+    new, stats = step(state, batch, cam.K, cam.R, cam.T, 25_000,
+                      grads_out=grads)
+    return state, new, stats, grads
+
+
+def compare_small_train(got, want):
+    """Phase 7's checks of a CUDA step (got) against a CPU step (want)."""
+    s0, g_new, g_stats, g_grads = got
+    _, w_new, w_stats, w_grads = want
+    cpu = lambda x: x.detach().cpu()  # noqa: E731
+    worst = {}
+    for k, w in w_stats.items():
+        g = cpu(g_stats[k])
+        if w.dtype.is_floating_point:
+            worst[f"stat {k}"] = abs(float(g) - float(w)) / max(abs(float(w)),
+                                                               1e-30)
+            if not worst[f"stat {k}"] <= LOSS_RTOL:
+                raise AssertionError(f"small train: {k} {float(g)} vs "
+                                     f"{float(w)}")
+        elif int(g) != int(w):
+            raise AssertionError(f"small train: {k} {int(g)} vs {int(w)}")
+    for k in ("base", "env"):
+        for f, g, w in zip(w_grads[k]._fields, g_grads[k], w_grads[k]):
+            worst[f"grad {k} {f}"] = rel_err(cpu(g), w)
+    for k in ("means2d", "env_means3d"):
+        worst[f"grad {k}"] = rel_err(cpu(g_grads[k]), w_grads[k])
+    bad = {k: v for k, v in worst.items()
+           if k.startswith("grad") and not v <= STEP_RTOL}
+    if bad:
+        raise AssertionError(f"small train gradients: {bad}")
+    for k in ("wet_base", "wet_env"):
+        g, w = cpu(g_grads[k]), w_grads[k]
+        if not torch.allclose(g, w, rtol=1e-2, atol=1e-3):
+            raise AssertionError(f"small train {k}: {rel_err(g, w)}")
+    for name in ("base", "env"):
+        g_pool, w_pool = getattr(g_new, name), getattr(w_new, name)
+        flip = cpu(g_pool.stats.denom) != w_pool.stats.denom
+        light = ((cpu(g_pool.stats.weight_accum)[flip] < 1e-3).all()
+                 and (w_pool.stats.weight_accum[flip] < 1e-3).all())
+        if int(flip.sum()) > FLIP_MAX or not light or (
+                name == "base" and flip.any()):
+            raise AssertionError(f"small train {name}: {int(flip.sum())} "
+                                 "splats flip visibility")
+        keep = ~flip
+        start = getattr(s0, name)
+        opt0 = getattr(s0, "opt_" + name)
+        pairs = [(f"param {name} {f}", g, w, p0) for f, g, w, p0 in zip(
+            w_pool.params._fields, g_pool.params, w_pool.params,
+            start.params)]
+        for m in ("mu", "nu"):
+            pairs += [(f"{m} {name} {f}", g, w, p0) for f, g, w, p0 in zip(
+                w_pool.params._fields, getattr(getattr(g_new, "opt_" + name), m),
+                getattr(getattr(w_new, "opt_" + name), m),
+                getattr(opt0, m))]
+        for key, g, w, p0 in pairs:
+            p0 = cpu(p0)
+            worst[key] = rel_err((cpu(g) - p0)[keep], (w - p0)[keep])
+            if not worst[key] <= STEP_RTOL:
+                raise AssertionError(f"small train {key}: {worst[key]}")
+        gs, ws = g_pool.stats, w_pool.stats
+        if not (torch.equal(cpu(gs.max_radii2d)[keep], ws.max_radii2d[keep])
+                and torch.equal(cpu(gs.denom)[keep], ws.denom[keep])):
+            raise AssertionError(f"small train {name}: visit counts or radii")
+        worst[f"grad_accum {name}"] = rel_err(cpu(gs.grad_accum)[keep],
+                                              ws.grad_accum[keep])
+        if not worst[f"grad_accum {name}"] <= STEP_RTOL:
+            raise AssertionError(f"small train {name} grad_accum")
+        worst[f"flips {name}"] = int(flip.sum())
+    return worst
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -101,8 +261,19 @@ def main():
         sys.exit(1)
     from envgs_tpu_torch import bench, kernels
     from envgs_tpu_torch.models.envgs import forward_envgs
-    from envgs_tpu_torch.ops.raster_blend import blend_tiles_torch, out_rows
-    from envgs_tpu_torch.ops.trace_blend import trace_blend_torch
+    from envgs_tpu_torch.ops.fill_forward import fill_forward_torch
+    from envgs_tpu_torch.ops.raster_blend import (
+        blend_tiles_bwd_torch,
+        blend_tiles_torch,
+        out_rows,
+        rows,
+    )
+    from envgs_tpu_torch.ops.trace_blend import rows as trace_rows
+    from envgs_tpu_torch.ops.trace_blend import (
+        trace_blend_bwd_torch,
+        trace_blend_torch,
+    )
+    from envgs_tpu_torch.train.trainer import init_train_state
 
     # ---- 1. device ----
     smi = subprocess.run(
@@ -184,9 +355,10 @@ def main():
               f"{n_pairs}/{cfg.pair_cap}, env slots {env_slots}/"
               f"{cfg.env_pair_cap}, rgb std {std:.4f}, launches {rose}",
               flush=True)
-        if any(v != 1 for v in rose.values()):
-            raise AssertionError(f"a kernel did not run exactly once: {rose}")
-    launches = dict(kernels.LAUNCHES)
+        # the render path runs K1 and K3 once each and no training kernel
+        if any(v != (k in RENDER_KERNELS) for k, v in rose.items()):
+            raise AssertionError(f"render launches off: {rose}")
+    render_launches = dict(kernels.LAUNCHES)
     fps = bench.render_fps(base, env, cam, cfg, n=10)
     print(f"[slice] render fps over 10 renders: {fps:.3f}", flush=True)
     stages = bench.stage_times(base, env, cam, cfg)
@@ -196,17 +368,178 @@ def main():
     print(f"[slice] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
 
+    del base, env, out
+
+    # ---- 6. training kernels against their plain versions ----
+    t0 = time.perf_counter()
+    tbase, tenv, tcam, tcfg, tbatch = bench.make_train_scene("cuda")
+    print(f"[train] train bench scene built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ins = bench.train_blend_inputs(tbase, tenv, tcam, tcfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    marks, valid = ins["k5"]
+    got, want = kernels.fill_forward(marks, valid), fill_forward_torch(marks,
+                                                                      valid)
+    k5_err = int((got != want).sum())
+    print(f"[kernels] fill_forward over {marks.shape[1]} slots, "
+          f"{int(valid.sum())} markers: {k5_err} positions differ (bound 0)",
+          flush=True)
+    if k5_err:
+        raise AssertionError("fill_forward disagrees with its plain version")
+    k5_ms = cuda_ms(lambda: kernels.fill_forward(marks, valid), 20)
+    k5_plain_ms = cuda_ms(lambda: fill_forward_torch(marks, valid), 10)
+    print(f"[kernels] fill_forward {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} "
+          "ms", flush=True)
+
+    k1 = ins["k1"]
+    packed, gauss_idx, bounds, C, tiles_x, tiles_y = k1
+    print(f"[kernels] K1/K2 training inputs: {tiles_x * tiles_y} tiles, "
+          f"{int(bounds[-1])} aligned pair slots of {gauss_idx.numel()}",
+          flush=True)
+    r = rows(C)
+    out1 = kernels.raster_blend_fwd(*k1, 0, True)
+    k1t_err = compare(
+        "raster_blend_fwd (train)", out1, blend_tiles_torch(*k1, 0, True),
+        {"color": slice(0, C), "depth": r["depth"], "alpha": r["alpha"],
+         "normal": slice(r["normal"], r["normal"] + 3), "med": r["med"],
+         "dist": r["dist"], "T": r["trans"], "d1": r["d1"], "d2": r["d2"],
+         "last": r["last"]}, KERNEL_ATOL)
+    k1t_ms = cuda_ms(lambda: kernels.raster_blend_fwd(*k1, 0, True), 20)
+    k1t_plain_ms = cuda_ms(lambda: blend_tiles_torch(*k1, 0, True), 3)
+    print(f"[kernels] raster_blend_fwd (train) {k1t_ms:.4f} ms, plain "
+          f"{k1t_plain_ms:.2f} ms", flush=True)
+    g1 = torch.randn(out1.shape, generator=gen, device="cuda")
+    k2_args = (packed, gauss_idx, bounds, out1, g1, C, tiles_x, tiles_y)
+    got = kernels.raster_blend_bwd(*k2_args)
+    want = blend_tiles_bwd_torch(*k2_args)
+    k2_err, k2_rel = compare_columns(
+        "raster_blend_bwd", got, want, list(range(15 + C)) + [31], GRAD_RTOL)
+    k2_ms = cuda_ms(lambda: kernels.raster_blend_bwd(*k2_args), 20)
+    k2_plain_ms = cuda_ms(lambda: blend_tiles_bwd_torch(*k2_args), 3)
+    print(f"[kernels] raster_blend_bwd {k2_ms:.4f} ms, plain "
+          f"{k2_plain_ms:.2f} ms", flush=True)
+    del k1, k2_args, out1, g1, got, want
+
+    k3 = ins["k3"]
+    packed, gauss_idx, rays, bounds, tiles_x, tiles_y = k3
+    print(f"[kernels] K3/K4 training inputs: {tiles_x * tiles_y} tiles, "
+          f"{int(bounds[-1])} candidate slots of {gauss_idx.numel()}",
+          flush=True)
+    r = trace_rows(0)
+    out3 = kernels.trace_blend_fwd(*k3, True, 0)
+    k3t_err = compare(
+        "trace_blend_fwd (train)", out3, trace_blend_torch(*k3, True, 0),
+        {"rgb": slice(0, 3), "dpt": r["dpt"], "acc": r["acc"],
+         "normal": slice(r["normal"], r["normal"] + 3), "dist": r["dist"],
+         "T": r["trans"], "d1": r["d1"], "d2": r["d2"], "last": r["last"]},
+        KERNEL_ATOL)
+    k3t_ms = cuda_ms(lambda: kernels.trace_blend_fwd(*k3, True, 0), 20)
+    k3t_plain_ms = cuda_ms(lambda: trace_blend_torch(*k3, True, 0), 3)
+    print(f"[kernels] trace_blend_fwd (train) {k3t_ms:.4f} ms, plain "
+          f"{k3t_plain_ms:.2f} ms", flush=True)
+    g3 = torch.randn(out3.shape, generator=gen, device="cuda")
+    k4_args = (packed, gauss_idx, rays, bounds, out3, g3, tiles_x, tiles_y)
+    got, got_rays = kernels.trace_blend_bwd(*k4_args)
+    want, want_rays = trace_blend_bwd_torch(*k4_args)
+    k4_err, k4_rel = compare_columns(
+        "trace_blend_bwd", got, want, list(range(16)) + [31], GRAD_RTOL)
+    per_row = lambda x: x[:, :6].transpose(0, 1).reshape(6, -1).T  # noqa: E731
+    k4r_err, k4r_rel = compare_columns(
+        "trace_blend_bwd (rays)", per_row(got_rays), per_row(want_rays),
+        list(range(6)), GRAD_RTOL)
+    k4_ms = cuda_ms(lambda: kernels.trace_blend_bwd(*k4_args), 20)
+    k4_plain_ms = cuda_ms(lambda: trace_blend_bwd_torch(*k4_args), 3)
+    print(f"[kernels] trace_blend_bwd {k4_ms:.4f} ms, plain "
+          f"{k4_plain_ms:.2f} ms", flush=True)
+    del ins, k3, k4_args, out3, g3, got, want, got_rays, want_rays
+    del packed, gauss_idx, rays, bounds, marks, valid
+
+    # ---- 7. small train step: CUDA kernels against the CPU plain path ----
+    worst = compare_small_train(small_train("cuda"), small_train("cpu"))
+    print("[small-train] cuda vs cpu "
+          + json.dumps({k: (v if isinstance(v, int) else float(f"{v:.3g}"))
+                        for k, v in worst.items()}), flush=True)
+    print(f"[small-train] bounds: loss terms rel {LOSS_RTOL:g}, gradients, "
+          f"params, moments and grad_accum max|d|/max|ref| {STEP_RTOL:g}, "
+          f"wet rtol 1e-2 atol 1e-3, <= {FLIP_MAX} env visibility flips",
+          flush=True)
+
+    # ---- 8. the train slice: the train bench scene, 1 + 10 steps ----
+    step = bench.make_bench_step(tcam, tcfg)
+    state = init_train_state(tbase, tenv)
+    del tbase, tenv
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    per_step, all_stats = [], []
+    n_steps = 10
+    for i in range(n_steps + 1):
+        before = dict(kernels.LAUNCHES)
+        if i == 1:  # after the warm-up step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, stats = step(state, tbatch, tcam.K, tcam.R, tcam.T,
+                            bench.TRAIN_IT)
+        per_step.append({k: kernels.LAUNCHES[k] - before[k] for k in before})
+        all_stats.append(stats)
+    torch.cuda.synchronize()
+    sps = n_steps / (time.perf_counter() - t0)
+    train_launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, (rose, stats) in enumerate(zip(per_step, all_stats)):
+        loss = float(stats["loss"])
+        of, dr = int(stats["pair_overflow"]), int(stats["trace_dropped"])
+        if i in (0, 1, n_steps):
+            print(f"[train] step {i}: loss {loss:.6f}, psnr "
+                  f"{float(stats['psnr']):.4f}, pair_overflow {of}, "
+                  f"trace_dropped {dr}, launches {rose}", flush=True)
+        if any(v != 1 for v in rose.values()):
+            raise AssertionError(f"step {i}: a kernel did not run exactly "
+                                 f"once: {rose}")
+        if not np.isfinite(loss) or of or dr:
+            raise AssertionError(f"step {i}: loss {loss}, pair_overflow {of}"
+                                 f", trace_dropped {dr}")
+    for pool in (state.base, state.env):
+        for name, p in zip(pool.params._fields, pool.params):
+            if not bool(torch.isfinite(p).all()):
+                raise AssertionError(f"non-finite {name} after training")
+    print(f"[train] train steps/s over {n_steps} steps: {sps:.4f} "
+          f"({1e3 / sps:.1f} ms per step); peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+    stages = bench.train_stage_times(step, state, tbatch, tcam, reps=3)
+    print("[train] stage ms (median of 3, CUDA events): "
+          + json.dumps({k: round(v, 3) for k, v in stages.items()}),
+          flush=True)
+
+    def entry(name, src, replaces, err, ms, plain_ms, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"envgs_tpu_torch/kernels/csrc/{src}",
+                "replaces": replaces,
+                "launches": render_launches[name] + train_launches[name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "launches_by_path": {"render": render_launches[name],
+                                     "train": train_launches[name]},
+                **extra}
+
     print(json.dumps({"kernels": [
-        {"name": "raster_blend_fwd", "route": "cuda",
-         "source": "envgs_tpu_torch/kernels/csrc/raster_blend_fwd.cu",
-         "replaces": "envgs_tpu/ops/raster_pallas.py:241",
-         "launches": launches["raster_blend_fwd"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "trace_blend_fwd", "route": "cuda",
-         "source": "envgs_tpu_torch/kernels/csrc/trace_blend_fwd.cu",
-         "replaces": "envgs_tpu/ops/tracer.py:645",
-         "launches": launches["trace_blend_fwd"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
+        entry("raster_blend_fwd", "raster_blend_fwd.cu",
+              "envgs_tpu/ops/raster_pallas.py:241", max(k1_err, k1t_err),
+              k1t_ms, k1t_plain_ms, render_ms=k1_ms,
+              render_plain_ms=k1_plain_ms),
+        entry("raster_blend_bwd", "raster_blend_bwd.cu",
+              "envgs_tpu/ops/raster_pallas.py:456", k2_err, k2_ms,
+              k2_plain_ms, max_rel_err=k2_rel),
+        entry("trace_blend_fwd", "trace_blend_fwd.cu",
+              "envgs_tpu/ops/tracer.py:645", max(k3_err, k3t_err), k3t_ms,
+              k3t_plain_ms, render_ms=k3_ms, render_plain_ms=k3_plain_ms),
+        entry("trace_blend_bwd", "trace_blend_bwd.cu",
+              "envgs_tpu/ops/tracer.py:799", max(k4_err, k4r_err), k4_ms,
+              k4_plain_ms, max_rel_err=max(k4_rel, k4r_rel)),
+        entry("fill_forward", "fill_forward.cu",
+              "envgs_tpu/ops/fill_forward.py:55", k5_err, k5_ms,
+              k5_plain_ms),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,8 +1,12 @@
-"""Render benchmark of the port: the EnvGS bench scene of the JAX package
-(bench.py::make_render_scene) at 1584x1040 with 300K base and 32K env
-surfels, rendered through `forward_envgs` on one CUDA card.
+"""Benchmarks of the port on one CUDA card, the JAX package's bench scenes:
 
-    python -m envgs_tpu_torch.bench     # one JSON line: render fps
+- render: bench.py::make_render_scene, 1584x1040, 300K base + 32K env
+  surfels, rendered through `forward_envgs` (render fps);
+- train: bench.py::main_train, 1558x1038, 500K base + 131K env surfels,
+  one EnvGS train step (`make_train_step`) at it=25000 (train steps/s).
+
+    python -m envgs_tpu_torch.bench           # one JSON line: render fps
+    python -m envgs_tpu_torch.bench train     # one JSON line: steps/s
 
 Needs a CUDA card; without one it raises instead of timing the CPU.
 """
@@ -10,6 +14,7 @@ from __future__ import annotations
 
 import json
 import statistics
+import sys
 import time
 
 import numpy as np
@@ -24,7 +29,7 @@ from envgs_tpu_torch.models.envgs import (
     _pool_colors_at,
 )
 from envgs_tpu_torch.models.gaussians import create_pool, logit
-from envgs_tpu_torch.ops.binning import bin_splats
+from envgs_tpu_torch.ops.binning import _ALIGN_N, aligned_markers, bin_splats
 from envgs_tpu_torch.ops.common import ROWCULL_LOWPASS_R, prepare_splats
 from envgs_tpu_torch.ops.raster import _pack_table
 from envgs_tpu_torch.ops.raster_blend import CHUNK, TILE, blend_tiles
@@ -37,10 +42,24 @@ from envgs_tpu_torch.ops.tracer import (
     splat_radius3,
 )
 from envgs_tpu_torch.ops.tracer_ref import prepare_trace_scene
+from envgs_tpu_torch.train.optimizer import LRConfig
+from envgs_tpu_torch.train.supervisor import LossConfig
+from envgs_tpu_torch.train.trainer import (
+    Batch,
+    init_train_state,
+    make_train_step,
+)
 from envgs_tpu_torch.utils.camera import Camera, make_camera
 
 H, W = 1040, 1584
 P_BASE, P_ENV = 300_000, 32_768
+TRAIN_H, TRAIN_W = 1038, 1558
+TRAIN_P_BASE, TRAIN_P_ENV = 500_000, 131_072
+TRAIN_IT = 25_000
+# caps of the train scene that drop nothing: the JAX bench's 2^21 env cap
+# cuts about a quarter of its ~2.8M env slots (bench.py::main_train)
+TRAIN_PAIR_CAP = 2 ** 21
+TRAIN_ENV_PAIR_CAP = 2 ** 22
 
 
 def make_render_scene(device):
@@ -152,6 +171,43 @@ def blend_inputs(base, env, cam, cfg):
     return k1, k3
 
 
+def train_blend_inputs(base, env, cam, cfg) -> dict:
+    """The kernel arguments of a training forward of (base, env, cam):
+    k1 (K1 training mode, aligned layout), k3 (K3 training mode) and k5
+    (the fill-forward markers of the aligned layout), for comparing each
+    training kernel with its plain version on real inputs. The reflected
+    rays come from the render-mode base pass, equal to the training one up
+    to the last bits."""
+    colors = torch.cat([_pool_colors(base, cam.center), base.get_specular,
+                        base.get_roughness], dim=-1)
+    prep = prepare_splats(base.params.xyz, base.params.rotation,
+                          base.get_scaling, base.get_opacity[:, 0], colors,
+                          cam, active=base.stats.active)
+    bins = bin_splats(prep, cam.H, cam.W, TILE, cfg.pair_cap, align=CHUNK,
+                      lowpass_r=ROWCULL_LOWPASS_R, aligned=True)
+    k1 = (_pack_table(prep, bins.order), bins.gauss_idx, bins.tile_bounds,
+          colors.shape[-1], bins.tiles_x, bins.tiles_y)
+    raw = bin_splats(prep, cam.H, cam.W, TILE, cfg.pair_cap, align=CHUNK,
+                     lowpass_r=ROWCULL_LOWPASS_R)
+    pair_cap = -(-cfg.pair_cap // _ALIGN_N) * _ALIGN_N
+    marks, valid, _ = aligned_markers(raw.tile_bounds, pair_cap,
+                                      bins.tiles_x * bins.tiles_y, CHUNK)
+    ref_o, ref_d = reflect_rays(
+        cam, render_base(base, cam, cfg._replace(render_mode=True)))
+    scene = prepare_trace_scene(
+        env.params.xyz, env.params.rotation, env.get_scaling,
+        env.get_opacity[:, 0], _pool_colors_at(env, ref_o),
+        active=env.stats.active)
+    tiles = build_ray_tiles(ref_o, ref_d)
+    gidx, bounds, _ = cull_and_sort(
+        tiles, scene, splat_radius3(scene),
+        per_tile_cap=default_per_tile_cap(scene.mean.shape[0]),
+        total_pair_cap=cfg.env_pair_cap)
+    k3 = (_pack_scene_table(scene), gidx, tiles.rays, bounds,
+          -(-cam.W // TILE), -(-cam.H // TILE))
+    return dict(k1=k1, k3=k3, k5=(marks, valid))
+
+
 def stage_times(base, env, cam, cfg, reps: int = 5) -> dict:
     """Median device ms of each render stage, timed with CUDA events around
     the calls forward_envgs makes; each stage is fed the real output of the
@@ -202,6 +258,90 @@ def stage_times(base, env, cam, cfg, reps: int = 5) -> dict:
             for k, v in events.items()}
 
 
+def make_train_scene(device):
+    """(base, env, cam, cfg, batch) of the train bench scene: the same numpy
+    draws, in the same default_rng(0) order, as the JAX package's
+    bench.py::main_train, the batch image included; caps that drop
+    nothing."""
+    rng = np.random.default_rng(0)
+    P, Pe, Ht, Wt = TRAIN_P_BASE, TRAIN_P_ENV, TRAIN_H, TRAIN_W
+    xyz = np.concatenate(
+        [rng.normal(size=(P, 2)) * 1.5,
+         rng.random((P, 1)) * 5 + 2.0], -1).astype(np.float32)
+    base = create_pool(xyz, rng.random((P, 3)).astype(np.float32), cap=P,
+                       sh_degree=3, init_opacity=0.8, device=device)
+    full = lambda n, k, v: torch.full((n, k), v, dtype=torch.float32,  # noqa: E731
+                                      device=device)
+    base = base._replace(params=base.params._replace(
+        scaling=full(P, 2, float(np.log(0.012))),
+        specular=full(P, 1, float(logit(0.3)))))
+    dirs = rng.normal(size=(Pe, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    env = create_pool((dirs * 20).astype(np.float32),
+                      rng.random((Pe, 3)).astype(np.float32), cap=Pe,
+                      sh_degree=3, init_opacity=0.8, device=device)
+    env = env._replace(params=env.params._replace(
+        scaling=full(Pe, 2, float(np.log(0.5)))))
+    f = 0.9 * Wt
+    K = np.array([[f, 0, Wt / 2], [0, f, Ht / 2], [0, 0, 1]], np.float32)
+    cam = make_camera(Ht, Wt, K, np.eye(3, dtype=np.float32),
+                      np.zeros(3, np.float32), 0.02, 100.0, device=device)
+    cfg = EnvGSConfig(pair_cap=TRAIN_PAIR_CAP,
+                      env_pair_cap=TRAIN_ENV_PAIR_CAP, reflection_start_iter=0)
+    batch = Batch(
+        rgb=torch.tensor(rng.random((Ht, Wt, 3)).astype(np.float32),
+                         device=device),
+        msk=torch.ones((Ht, Wt, 1), device=device),
+        norm=torch.zeros((Ht, Wt, 3), device=device))
+    return base, env, cam, cfg, batch
+
+
+def make_bench_step(cam: Camera, cfg: EnvGSConfig):
+    """The train bench's step: every default loss but LPIPS, the default
+    LR tables, the monocular normal prior on (bench.py::main_train)."""
+    return make_train_step(cam, cfg, LossConfig(perc_loss_weight=0.0),
+                           LRConfig(), LRConfig(), has_norm=True)
+
+
+def train_steps_per_sec(step, state, batch, cam: Camera, n: int = 10,
+                        it: int = TRAIN_IT):
+    """(steps/s, state, stats of the last step) over n synchronized steps,
+    after one warm-up step. The state advances through all of them."""
+    state, stats = step(state, batch, cam.K, cam.R, cam.T, it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, stats = step(state, batch, cam.K, cam.R, cam.T, it)
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0), state, stats
+
+
+def train_stage_times(step, state, batch, cam: Camera, reps: int = 5,
+                      it: int = TRAIN_IT) -> dict:
+    """Median device ms of the step's stages (forward with the losses,
+    backward, optimizer with the densification statistics) over reps
+    steps after one warm-up, from CUDA events recorded between them."""
+    marks = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks[-1].append((name, e))
+
+    for _ in range(reps + 1):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        marks.append([("start", e0)])
+        state, _ = step(state, batch, cam.K, cam.R, cam.T, it, mark=mark)
+    torch.cuda.synchronize()
+    times = {}
+    for run in marks[1:]:
+        for (_, a), (name, b) in zip(run, run[1:]):
+            times.setdefault(name, []).append(a.elapsed_time(b))
+        times.setdefault("step", []).append(run[0][1].elapsed_time(run[-1][1]))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
 def main() -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("the render benchmark needs a CUDA card")
@@ -212,5 +352,19 @@ def main() -> dict:
             "unit": "fps", "device": torch.cuda.get_device_name(0)}
 
 
+def main_train() -> dict:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the train benchmark needs a CUDA card")
+    base, env, cam, cfg, batch = make_train_scene("cuda")
+    sps, _, stats = train_steps_per_sec(make_bench_step(cam, cfg),
+                                        init_train_state(base, env), batch,
+                                        cam)
+    return {"metric": "envgs_train_steps_per_sec_1558x1038", "value": sps,
+            "unit": "steps/s", "loss": float(stats["loss"]),
+            "pair_overflow": int(stats["pair_overflow"]),
+            "trace_dropped": int(stats["trace_dropped"]),
+            "device": torch.cuda.get_device_name(0)}
+
+
 if __name__ == "__main__":
-    print(json.dumps(main()))
+    print(json.dumps(main_train() if sys.argv[1:] == ["train"] else main()))

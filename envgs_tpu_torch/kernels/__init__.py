@@ -20,11 +20,13 @@ from pathlib import Path
 
 import torch
 
-LAUNCHES = {"raster_blend_fwd": 0, "trace_blend_fwd": 0}
+LAUNCHES = {"raster_blend_fwd": 0, "raster_blend_bwd": 0,
+            "trace_blend_fwd": 0, "trace_blend_bwd": 0, "fill_forward": 0}
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[1] / "_build"
-_SOURCES = ("raster_blend_fwd.cu", "trace_blend_fwd.cu")
+_SOURCES = ("raster_blend_fwd.cu", "raster_blend_bwd.cu",
+            "trace_blend_fwd.cu", "trace_blend_bwd.cu", "fill_forward.cu")
 # -fmad=false: the kernels round every product and sum on its own, as the
 # plain PyTorch versions' elementwise ops do, so the two agree to the last
 # bits on the card instead of only to a tolerance. No fast math: expf, IEEE
@@ -35,11 +37,23 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     # packed, n_rows, gauss_idx, n_idx, bounds, C, tiles_x, tiles_y,
-    # row_off, out, stream
-    "raster_blend_fwd": [_VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _VP, _VP],
+    # row_off, train, out, stream
+    "raster_blend_fwd": [_VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _VP,
+                         _VP],
+    # packed, n_rows, gauss_idx, n_idx, bounds, C, tiles_x, tiles_y,
+    # row_off, fwd, gout, gpacked, stream
+    "raster_blend_bwd": [_VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _VP, _VP,
+                         _VP, _VP],
     # packed, n_rows, gauss_idx, n_idx, rays, bounds, tiles_x, tiles_y,
-    # out, stream
-    "trace_blend_fwd": [_VP, _I, _VP, _I, _VP, _VP, _I, _I, _VP, _VP],
+    # train, A, out, stream
+    "trace_blend_fwd": [_VP, _I, _VP, _I, _VP, _VP, _I, _I, _I, _I, _VP,
+                        _VP],
+    # packed, n_rows, gauss_idx, n_idx, rays, bounds, tiles_x, tiles_y, A,
+    # fwd, gout, gpacked, grays, stream
+    "trace_blend_bwd": [_VP, _I, _VP, _I, _VP, _VP, _I, _I, _I, _VP, _VP,
+                        _VP, _VP, _VP],
+    # vals, valid, n, C, block_last, out, stream
+    "fill_forward": [_VP, _VP, _I, _I, _VP, _VP, _VP],
 }
 _lib = None
 
@@ -52,9 +66,22 @@ def _nvcc() -> str:
     return path
 
 
+def _nvcc_all(cmds):
+    """Run the nvcc commands at once; raise on the first that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
     """Compile the kernels (if this exact source set is not built yet) and
-    return the shared library's path."""
+    return the shared library's path. Each source compiles in its own nvcc
+    process, all started together; one more links them."""
     srcs = [_CSRC / s for s in _SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
@@ -62,12 +89,18 @@ def build() -> Path:
     lib = _BUILD / f"libenvgs_kernels_{h.hexdigest()[:16]}.so"
     if not lib.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        tag = f"{os.getpid()}.tmp"
+        objs = [lib.with_name(f"{s.stem}.{tag}.o") for s in srcs]
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        try:
+            _nvcc_all([[_nvcc(), *compile_flags, "-c", "-o", str(o), str(s)]
+                       for s, o in zip(srcs, objs)])
+            tmp = lib.with_suffix(f".{tag}")
+            _nvcc_all([[_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                        *map(str, objs)]])
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
         os.replace(tmp, lib)
     return lib
 
@@ -121,39 +154,119 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def raster_blend_fwd(packed, gauss_idx, tile_bounds, C: int, tiles_x: int,
-                     tiles_y: int, row_off: int = 0) -> torch.Tensor:
+                     tiles_y: int, row_off: int = 0,
+                     train: bool = False) -> torch.Tensor:
     """Kernel K1 (csrc/raster_blend_fwd.cu) -> (C + 6, tiles_y*16,
-    tiles_x*16) f32; see ops/raster_blend.py for the contract."""
+    tiles_x*16) f32, or (C + 11, ...) with `train`; see ops/raster_blend.py
+    for the contract."""
     T = tiles_x * tiles_y
     _check_table(packed)
     _check("gauss_idx", gauss_idx, torch.int32, packed)
     _check("tile_bounds", tile_bounds, torch.int32, packed, (T + 1,))
     if not 1 <= C <= 7:
         raise ValueError(f"C={C}: the blend carries 1..7 color channels")
-    out = torch.empty((C + 6, tiles_y * 16, tiles_x * 16),
+    out = torch.empty((C + (11 if train else 6), tiles_y * 16, tiles_x * 16),
                       dtype=torch.float32, device=packed.device)
     if T:
         _launch("raster_blend_fwd", packed.device, packed.data_ptr(),
                 packed.shape[0], gauss_idx.data_ptr(), gauss_idx.numel(),
                 tile_bounds.data_ptr(), C, tiles_x, tiles_y, row_off,
-                out.data_ptr(), _stream(packed))
+                int(train), out.data_ptr(), _stream(packed))
     return out
 
 
+def raster_blend_bwd(packed, gauss_idx, tile_bounds, fwd, g_out, C: int,
+                     tiles_x: int, tiles_y: int,
+                     row_off: int = 0) -> torch.Tensor:
+    """Kernel K2 (csrc/raster_blend_bwd.cu): training planes `fwd` of K1 and
+    their cotangents `g_out` -> (P+1, 32) f32 table gradient, per-splat wet
+    in column 31; see ops/raster_blend.py for the contract."""
+    T = tiles_x * tiles_y
+    _check_table(packed)
+    _check("gauss_idx", gauss_idx, torch.int32, packed)
+    _check("tile_bounds", tile_bounds, torch.int32, packed, (T + 1,))
+    planes = (C + 11, tiles_y * 16, tiles_x * 16)
+    _check("fwd", fwd, torch.float32, packed, planes)
+    _check("g_out", g_out, torch.float32, packed, planes)
+    if not 1 <= C <= 7:
+        raise ValueError(f"C={C}: the blend carries 1..7 color channels")
+    g_packed = torch.zeros_like(packed)
+    if T:
+        _launch("raster_blend_bwd", packed.device, packed.data_ptr(),
+                packed.shape[0], gauss_idx.data_ptr(), gauss_idx.numel(),
+                tile_bounds.data_ptr(), C, tiles_x, tiles_y, row_off,
+                fwd.data_ptr(), g_out.data_ptr(), g_packed.data_ptr(),
+                _stream(packed))
+    return g_packed
+
+
+def _trace_planes(train: bool, A: int) -> int:
+    if not 0 <= A <= 2:
+        raise ValueError(f"A={A}: the traced blend carries 0..2 aux channels")
+    return 13 + A if train else 5
+
+
 def trace_blend_fwd(packed, gauss_idx, rays, tile_bounds, tiles_x: int,
-                    tiles_y: int) -> torch.Tensor:
+                    tiles_y: int, train: bool = False,
+                    A: int = 0) -> torch.Tensor:
     """Kernel K3 (csrc/trace_blend_fwd.cu) -> (5, tiles_y*16, tiles_x*16)
-    f32: rgb, acc, T; see ops/trace_blend.py for the contract."""
+    f32: rgb, acc, T, or with `train` (13 + A, ...) in the JAX row order;
+    see ops/trace_blend.py for the contract."""
     T = tiles_x * tiles_y
     _check_table(packed)
     _check("gauss_idx", gauss_idx, torch.int32, packed)
     _check("rays", rays, torch.float32, packed, (T, 8, 256))
     _check("tile_bounds", tile_bounds, torch.int32, packed, (T + 1,))
-    out = torch.empty((5, tiles_y * 16, tiles_x * 16), dtype=torch.float32,
-                      device=packed.device)
+    out = torch.empty((_trace_planes(train, A), tiles_y * 16, tiles_x * 16),
+                      dtype=torch.float32, device=packed.device)
     if T:
         _launch("trace_blend_fwd", packed.device, packed.data_ptr(),
                 packed.shape[0], gauss_idx.data_ptr(), gauss_idx.numel(),
                 rays.data_ptr(), tile_bounds.data_ptr(), tiles_x, tiles_y,
-                out.data_ptr(), _stream(packed))
+                int(train), A, out.data_ptr(), _stream(packed))
+    return out
+
+
+def trace_blend_bwd(packed, gauss_idx, rays, tile_bounds, fwd, g_out,
+                    tiles_x: int, tiles_y: int, A: int = 0):
+    """Kernel K4 (csrc/trace_blend_bwd.cu): training planes `fwd` of K3 and
+    their cotangents -> ((P+1, 32) table gradient with the per-splat wet in
+    column 31, (T, 8, 256) ray gradient); see ops/trace_blend.py."""
+    T = tiles_x * tiles_y
+    _check_table(packed)
+    _check("gauss_idx", gauss_idx, torch.int32, packed)
+    _check("rays", rays, torch.float32, packed, (T, 8, 256))
+    _check("tile_bounds", tile_bounds, torch.int32, packed, (T + 1,))
+    planes = (_trace_planes(True, A), tiles_y * 16, tiles_x * 16)
+    _check("fwd", fwd, torch.float32, packed, planes)
+    _check("g_out", g_out, torch.float32, packed, planes)
+    g_packed = torch.zeros_like(packed)
+    g_rays = torch.empty_like(rays)
+    if T:
+        _launch("trace_blend_bwd", packed.device, packed.data_ptr(),
+                packed.shape[0], gauss_idx.data_ptr(), gauss_idx.numel(),
+                rays.data_ptr(), tile_bounds.data_ptr(), tiles_x, tiles_y, A,
+                fwd.data_ptr(), g_out.data_ptr(), g_packed.data_ptr(),
+                g_rays.data_ptr(), _stream(packed))
+    return g_packed, g_rays
+
+
+def fill_forward(vals, valid) -> torch.Tensor:
+    """Kernel K5 (csrc/fill_forward.cu): vals (C, N) int32, valid (N,) int32
+    -> (C, N) int32, each position the values of the last marker at or
+    before it (0 before the first). Three launches, counted as one."""
+    _check("vals", vals, torch.int32)
+    if vals.dim() != 2:
+        raise ValueError(f"vals: expected (C, N), got {tuple(vals.shape)}")
+    C, N = vals.shape
+    _check("valid", valid, torch.int32, vals, (N,))
+    if N >= 2 ** 31 - 1024:
+        raise ValueError(f"N={N}: positions must fit int32")
+    out = torch.empty_like(vals)
+    scratch = torch.empty(-(-N // 1024), dtype=torch.int32,
+                          device=vals.device)
+    if N:
+        _launch("fill_forward", vals.device, vals.data_ptr(),
+                valid.data_ptr(), N, C, scratch.data_ptr(), out.data_ptr(),
+                _stream(vals))
     return out

@@ -1,10 +1,14 @@
-// Kernel K1: per-tile front-to-back blend of 2DGS surfels, render mode.
+// Kernel K1: per-tile front-to-back blend of 2DGS surfels.
 //
-// Replaces: envgs_tpu/ops/raster_pallas.py::_fwd_kernel (Pallas, TPU) in its
-// render configuration: surfel geometry, the unaligned pair layout, and the
-// distortion / median-depth / per-pair-wet outputs off. It also absorbs the
-// per-pair row gather of raster_pallas.py::gather_blend_tiles: rows are read
-// straight from the per-splat table, no (pairs, 128) array is built.
+// Replaces: envgs_tpu/ops/raster_pallas.py::_fwd_kernel (Pallas, TPU) with
+// surfel geometry, in two configurations: render (unaligned pair layout;
+// distortion, median depth and per-pair wet off; C + 6 planes) and training
+// (aligned layout; C + 11 planes in the JAX row order: colors, depth*w,
+// alpha, normal, median depth, distortion, T, D1, D2, last contributing
+// rank). The per-pair wet is not written: the backward kernel K2 delivers
+// it. It also absorbs the per-pair row gather of
+// raster_pallas.py::gather_blend_tiles: rows are read straight from the
+// per-splat table, no (pairs, 128) array is built.
 //
 // What bounds it on the card: arithmetic. Every (pair, pixel) of a tile is
 // evaluated: a ray-plane intersection through the 3x3 screen transform (two
@@ -21,8 +25,11 @@
 // floor and the near plane and T*(1-a) >= 1e-4; within a window, the first
 // pair that fails the transmittance test ends the window for that pixel.
 // The block stops early once no pixel can take any further pair
-// (T*(1 - 1/255) < 1e-4 for all), decided with __syncthreads_or. Built with
-// -fmad=false so each operation rounds as the plain PyTorch version's does.
+// (T*(1 - 1/255) < 1e-4 for all), decided with __syncthreads_or. The
+// training outputs are running sums in registers beside the render ones
+// (distortion from the running alpha and moments before each pair, as the
+// JAX kernel's exclusive prefix sums give them). Built with -fmad=false so
+// each operation rounds as the plain PyTorch version's does.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,12 +48,19 @@ constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
 constexpr float T_CUTOFF = (float)1e-4;
 constexpr float NEAR_PLANE = (float)0.2;
 constexpr float FILTER_INV_SQUARE = 2.0f;
+constexpr float FAR_PLANE = (float)100.0;
+constexpr float FAR_M_NEAR = (float)(100.0 - 0.2);
+
+__device__ __forceinline__ float map_depth(float z) {
+  const float zc = fmaxf(z, 1e-6f);
+  return (FAR_PLANE * (zc - NEAR_PLANE)) / (FAR_M_NEAR * zc);
+}
 
 __global__ void __launch_bounds__(NPIX)
 raster_blend_fwd_kernel(const float* __restrict__ packed, int n_rows,
                         const int32_t* __restrict__ gauss_idx, int n_idx,
                         const int32_t* __restrict__ bounds, int C,
-                        int tiles_x, int tiles_y, int row_off,
+                        int tiles_x, int tiles_y, int row_off, int train,
                         float* __restrict__ out) {
   __shared__ float rows[CHUNK][LO];
   const int t = blockIdx.x;
@@ -62,6 +76,7 @@ raster_blend_fwd_kernel(const float* __restrict__ packed, int n_rows,
 #pragma unroll
   for (int c = 0; c < MAXC; ++c) col[c] = 0.f;
   float dep = 0.f, alp = 0.f, n0 = 0.f, n1 = 0.f, n2 = 0.f, T = 1.f;
+  float dist = 0.f, d1 = 0.f, d2 = 0.f, med = 0.f, last = -1.f;
 
   for (int win = 0; win < nwin; ++win) {
     const int base = wstart + win * CHUNK;
@@ -105,6 +120,15 @@ raster_blend_fwd_kernel(const float* __restrict__ packed, int n_rows,
         continue;
       }
       const float w = a * T;
+      if (train) {
+        const float m = map_depth(z);
+        const float wm = w * m;
+        dist += w * (m * m * alp + d2 - 2.f * m * d1);
+        d1 += wm;
+        d2 += wm * m;
+        if (T > 0.5f) med = z;
+        last = (float)(win * CHUNK + j);
+      }
 #pragma unroll
       for (int c = 0; c < MAXC; ++c)
         if (c < C) col[c] += w * d[C_COLOR + c];
@@ -131,21 +155,31 @@ raster_blend_fwd_kernel(const float* __restrict__ packed, int n_rows,
   o[(C + 2) * plane] = n0;
   o[(C + 3) * plane] = n1;
   o[(C + 4) * plane] = n2;
-  o[(C + 5) * plane] = T;
+  if (train) {
+    o[(C + 5) * plane] = med;
+    o[(C + 6) * plane] = dist;
+    o[(C + 7) * plane] = T;
+    o[(C + 8) * plane] = d1;
+    o[(C + 9) * plane] = d2;
+    o[(C + 10) * plane] = last;
+  } else {
+    o[(C + 5) * plane] = T;
+  }
 }
 
 }  // namespace
 
 // Launches K1 on `stream`; returns cudaGetLastError() (0 = launched).
-// out: (C + 6, tiles_y*16, tiles_x*16) f32, every element written.
+// out: (C + 6, tiles_y*16, tiles_x*16) f32 (train = 0) or (C + 11, ...)
+// (train = 1), every element written.
 extern "C" int raster_blend_fwd(const float* packed, int n_rows,
                                 const int32_t* gauss_idx, int n_idx,
                                 const int32_t* bounds, int C, int tiles_x,
-                                int tiles_y, int row_off, float* out,
-                                void* stream) {
+                                int tiles_y, int row_off, int train,
+                                float* out, void* stream) {
   raster_blend_fwd_kernel<<<tiles_x * tiles_y, NPIX, 0,
                             (cudaStream_t)stream>>>(
       packed, n_rows, gauss_idx, n_idx, bounds, C, tiles_x, tiles_y, row_off,
-      out);
+      train, out);
   return (int)cudaGetLastError();
 }

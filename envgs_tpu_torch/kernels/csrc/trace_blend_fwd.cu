@@ -1,9 +1,12 @@
-// Kernel K3: per-tile front-to-back blend of 2DGS surfels along rays,
-// render mode.
+// Kernel K3: per-tile front-to-back blend of 2DGS surfels along rays.
 //
-// Replaces: envgs_tpu/ops/tracer.py::_fwd_kernel (Pallas, TPU) in its render
-// configuration: need_geo, need_dist and need_wet off (outputs rgb, acc and
-// T). It also absorbs the per-slot row gather of
+// Replaces: envgs_tpu/ops/tracer.py::_fwd_kernel (Pallas, TPU) in two
+// configurations: render (need_geo, need_dist and need_wet off; 5 planes:
+// rgb, acc, T) and training (need_geo and need_dist on; 13 + A planes in
+// the JAX row order: rgb, depth*w, acc, ray-facing normal, distortion, aux
+// (A <= 2), T, D1, D2, last contributing rank). The per-slot wet is not
+// written: the backward kernel K4 delivers it. It also absorbs the
+// per-slot row gather of
 // tracer.py::_gather_blend_trace: rows are read straight from the per-splat
 // scene table, no (slots, 128) array is built.
 //
@@ -23,8 +26,10 @@
 // the first candidate that fails the transmittance test ends the chunk for
 // that ray. The block stops early once no ray can take any further
 // candidate (T*(1 - 1/255) < 1e-4 for all), decided with __syncthreads_or.
-// Built with -fmad=false so each operation rounds as the plain PyTorch
-// version's does.
+// The training outputs are running sums in registers (distortion with
+// m = t / (1 + |t|) from the running acc and moments before each
+// candidate). Built with -fmad=false so each operation rounds as the plain
+// PyTorch version's does.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,7 +41,8 @@ constexpr int CHUNK = 64;
 constexpr int LO = 32;  // packed row width
 // packed columns (ops/trace_blend.py)
 constexpr int C_MEAN = 0, C_TU = 3, C_TV = 6, C_N = 9, C_OPAC = 12,
-              C_COLOR = 13;
+              C_COLOR = 13, C_AUX = 16;
+constexpr int MAXA = 2;
 // the JAX package's constants, rounded to float32 as JAX rounds them
 constexpr float ALPHA_MAX = (float)0.99;
 constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
@@ -48,7 +54,8 @@ trace_blend_fwd_kernel(const float* __restrict__ packed, int n_rows,
                        const int32_t* __restrict__ gauss_idx, int n_idx,
                        const float* __restrict__ rays,
                        const int32_t* __restrict__ bounds, int tiles_x,
-                       int tiles_y, float* __restrict__ out) {
+                       int tiles_y, int train, int A,
+                       float* __restrict__ out) {
   __shared__ float rows[CHUNK][LO];
   const int t = blockIdx.x;
   const int lane = threadIdx.x;
@@ -59,6 +66,9 @@ trace_blend_fwd_kernel(const float* __restrict__ packed, int n_rows,
   const int nchunk = (end - start) / CHUNK;
 
   float r0 = 0.f, r1 = 0.f, r2 = 0.f, acc = 0.f, T = 1.f;
+  float dpt = 0.f, n0 = 0.f, n1 = 0.f, n2 = 0.f, dist = 0.f, d1 = 0.f,
+        d2 = 0.f, last = -1.f;
+  float aux[MAXA] = {0.f, 0.f};
   for (int ch = 0; ch < nchunk; ++ch) {
     const int base = start + ch * CHUNK;
     for (int e = lane; e < CHUNK * LO; e += NRAY) {
@@ -96,6 +106,22 @@ trace_blend_fwd_kernel(const float* __restrict__ packed, int n_rows,
         continue;
       }
       const float w = a * T;
+      if (train) {
+        const float flip = dn > 0.f ? -1.f : 1.f;
+        const float m = tt / (1.f + fabsf(tt));
+        const float wm = w * m;
+        dist += w * (m * m * acc + d2 - 2.f * m * d1);
+        d1 += wm;
+        d2 += wm * m;
+        n0 += w * (d[C_N] * flip);
+        n1 += w * (d[C_N + 1] * flip);
+        n2 += w * (d[C_N + 2] * flip);
+#pragma unroll
+        for (int i = 0; i < MAXA; ++i)
+          if (i < A) aux[i] += w * d[C_AUX + i];
+        dpt += w * tt;
+        last = (float)(ch * CHUNK + j);
+      }
       r0 += w * d[C_COLOR];
       r1 += w * d[C_COLOR + 1];
       r2 += w * d[C_COLOR + 2];
@@ -114,21 +140,39 @@ trace_blend_fwd_kernel(const float* __restrict__ packed, int n_rows,
   o[0] = r0;
   o[plane] = r1;
   o[2 * plane] = r2;
-  o[3 * plane] = acc;
-  o[4 * plane] = T;
+  if (train) {  // JAX rows: rgb, dpt, acc, normal, dist, aux, T, D1, D2, last
+    o[3 * plane] = dpt;
+    o[4 * plane] = acc;
+    o[5 * plane] = n0;
+    o[6 * plane] = n1;
+    o[7 * plane] = n2;
+    o[8 * plane] = dist;
+#pragma unroll
+    for (int i = 0; i < MAXA; ++i)
+      if (i < A) o[(9 + i) * plane] = aux[i];
+    o[(9 + A) * plane] = T;
+    o[(10 + A) * plane] = d1;
+    o[(11 + A) * plane] = d2;
+    o[(12 + A) * plane] = last;
+  } else {
+    o[3 * plane] = acc;
+    o[4 * plane] = T;
+  }
 }
 
 }  // namespace
 
 // Launches K3 on `stream`; returns cudaGetLastError() (0 = launched).
-// out: (5, tiles_y*16, tiles_x*16) f32 = rgb, acc, T; every element written.
+// out: (5, tiles_y*16, tiles_x*16) f32 = rgb, acc, T (train = 0) or
+// (13 + A, ...) (train = 1); every element written.
 extern "C" int trace_blend_fwd(const float* packed, int n_rows,
                                const int32_t* gauss_idx, int n_idx,
                                const float* rays, const int32_t* bounds,
-                               int tiles_x, int tiles_y, float* out,
-                               void* stream) {
+                               int tiles_x, int tiles_y, int train, int A,
+                               float* out, void* stream) {
   trace_blend_fwd_kernel<<<tiles_x * tiles_y, NRAY, 0,
                            (cudaStream_t)stream>>>(
-      packed, n_rows, gauss_idx, n_idx, rays, bounds, tiles_x, tiles_y, out);
+      packed, n_rows, gauss_idx, n_idx, rays, bounds, tiles_x, tiles_y,
+      train, A, out);
   return (int)cudaGetLastError();
 }

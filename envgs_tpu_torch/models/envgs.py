@@ -7,9 +7,12 @@ envgs_tpu/models/envgs.py, render path).
     -> environment pass (surfel tracer)
     -> rgb = (1 - specular) * rgb_base + specular * rgb_env
 
-Ported: the render configuration (`render_mode=True`), the rasterized base
-pass and a single env trace. Base tracing, multi-bounce tracing, the exact
-per-ray tracer order and the training outputs raise until their slices.
+Ported: the render configuration (`render_mode=True`) and the training
+configuration (`render_mode=False` with the four zeros hooks the train step
+passes: `means2d_zero`, `env_means3d_zero`, `wet_zero`, `env_wet_zero`),
+the rasterized base pass and a single env trace. Base tracing,
+multi-bounce tracing and the exact per-ray tracer order raise until their
+slices. The reflection gate is a Python `if` on the iteration.
 """
 from __future__ import annotations
 
@@ -37,6 +40,9 @@ class EnvGSConfig(NamedTuple):
     depth_ratio: float = 0.0
     bg_brightness: float = 0.0
     env_bg_brightness: float = 0.0
+    # stop the env loss's gradient at the reflected rays (no gradient from
+    # the env pass into the base pass through ref_o / ref_d)
+    detach_reflection: bool = False
     scale_modifier: float = 1.0
     pair_cap: int = 2 ** 21
     env_pair_cap: int = 2 ** 20
@@ -84,8 +90,12 @@ def _pool_colors_at(pool: GaussianPool, ref_o: torch.Tensor) -> torch.Tensor:
     return _pool_colors(pool, torch.mean(bm, dim=0))
 
 
-def render_base(pool: GaussianPool, cam: Camera, cfg: EnvGSConfig) -> RenderOutput:
-    """Rasterize the base (diffuse + specular-mask) surfel set."""
+def render_base(pool: GaussianPool, cam: Camera, cfg: EnvGSConfig,
+                means2d_zero: torch.Tensor | None = None,
+                wet_zero: torch.Tensor | None = None) -> RenderOutput:
+    """Rasterize the base (diffuse + specular-mask) surfel set. On the
+    training path, per-splat wet is the gradient of the (P,) zeros hook
+    `wet_zero` and RenderOutput.wet is exact zeros."""
     colors = _pool_colors(pool, cam.center)
     if cfg.render_reflection:
         colors = torch.cat([colors, pool.get_specular, pool.get_roughness],
@@ -99,7 +109,9 @@ def render_base(pool: GaussianPool, cam: Camera, cfg: EnvGSConfig) -> RenderOutp
                     device=colors.device)
     train = not cfg.render_mode
     out = rasterize(prep, cam, bg, pair_cap=cfg.pair_cap,
-                    needs=(train, train or cfg.depth_ratio > 0, train))
+                    means2d_zero=means2d_zero,
+                    needs=(train, train or cfg.depth_ratio > 0, train),
+                    wet_zero=wet_zero)
     return render_decode(
         out, cam,
         specular_channels=cfg.specular_channels if cfg.render_reflection else 0,
@@ -117,12 +129,19 @@ def reflect_rays(cam: Camera, base: RenderOutput):
 
 
 def render_env(env: GaussianPool, ref_o: torch.Tensor, ref_d: torch.Tensor,
-               cfg: EnvGSConfig, ray_mask: torch.Tensor | None = None
-               ) -> TraceOutput:
-    """Trace the environment surfel set along the reflected rays."""
+               cfg: EnvGSConfig,
+               env_means3d_zero: torch.Tensor | None = None,
+               ray_mask: torch.Tensor | None = None,
+               wet_zero: torch.Tensor | None = None) -> TraceOutput:
+    """Trace the environment surfel set along the reflected rays;
+    env_means3d_zero (Pe, 3) zeros is added to the env means, so its
+    gradient is the world-space densification gradient."""
+    xyz = env.params.xyz
+    if env_means3d_zero is not None:
+        xyz = xyz + env_means3d_zero
     colors = _pool_colors_at(env, ref_o)
     scene = prepare_trace_scene(
-        env.params.xyz, env.params.rotation, env.get_scaling,
+        xyz, env.params.rotation, env.get_scaling,
         env.get_opacity[:, 0], colors, active=env.stats.active,
         scale_modifier=cfg.scale_modifier,
     )
@@ -132,6 +151,7 @@ def render_env(env: GaussianPool, ref_o: torch.Tensor, ref_d: torch.Tensor,
     return tracer.trace_rays(scene, ref_o, ref_d, bg,
                              total_pair_cap=cfg.env_pair_cap,
                              ray_mask=ray_mask, needs=(train, train, train),
+                             wet_zero=wet_zero,
                              exact_order=cfg.tracer_exact_order)
 
 
@@ -163,18 +183,29 @@ class EnvGSOutput(NamedTuple):
 
 
 def forward_envgs(base: GaussianPool, env: GaussianPool, cam: Camera,
-                  it: int, cfg: EnvGSConfig) -> EnvGSOutput:
-    """One EnvGS render at iteration `it` (the reflection and filtering
-    gates compare against it)."""
+                  it: int, cfg: EnvGSConfig,
+                  means2d_zero: torch.Tensor | None = None,
+                  env_means3d_zero: torch.Tensor | None = None,
+                  wet_zero: torch.Tensor | None = None,
+                  env_wet_zero: torch.Tensor | None = None) -> EnvGSOutput:
+    """One EnvGS forward at iteration `it` (the reflection and filtering
+    gates compare against it).
+
+    The zeros hooks, (P, 2), (Pe, 3), (P,), (Pe,): their gradients are the
+    screen-space and world-space densification gradients and the base and
+    env per-splat wet (base_wet / env_wet are then exact zeros). The
+    training configuration (`render_mode=False`) needs the two wet hooks."""
     if cfg.use_base_tracing or cfg.max_trace_depth > 0:
         raise NotImplementedError(
             "base tracing and multi-bounce tracing are not ported yet")
-    b = render_base(base, cam, cfg)
+    b = render_base(base, cam, cfg, means2d_zero, wet_zero)
     H, W = cam.H, cam.W
     dev = b.rgb.device
     spec = b.specular if b.specular is not None else b.rgb.new_zeros((H, W, 1))
     rough = b.roughness if b.roughness is not None else b.rgb.new_zeros((H, W, 1))
     ref_o, ref_d = reflect_rays(cam, b)
+    if cfg.detach_reflection:
+        ref_o, ref_d = ref_o.detach(), ref_d.detach()
 
     ref_msk = None
     if cfg.specular_filtering_start_iter > 0:
@@ -191,7 +222,8 @@ def forward_envgs(base: GaussianPool, env: GaussianPool, cam: Camera,
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     active = cfg.render_reflection and it >= cfg.reflection_start_iter
     if active:
-        e = render_env(env, ref_o, ref_d, cfg, ray_mask=ref_msk)
+        e = render_env(env, ref_o, ref_d, cfg, env_means3d_zero,
+                       ray_mask=ref_msk, wet_zero=env_wet_zero)
         env_rgb, env_dpt, env_acc = e.rgb, e.dpt[..., None], e.acc[..., None]
         env_wet, env_dropped, env_num_pairs = (e.wet, e.dropped_pairs,
                                                e.num_pairs)

@@ -1,5 +1,7 @@
-"""Fixed-capacity padded Gaussian-surfel pool (port of the render-path part
-of envgs_tpu/models/gaussians.py).
+"""Fixed-capacity padded Gaussian-surfel pool (port of the render and
+train-step parts of envgs_tpu/models/gaussians.py: the pool, its weight
+bridge, densification-statistic accumulation and the SH degree bump;
+densify/prune and the resets come with the maintenance slice).
 
 The pool keeps the JAX package's layout: raw (pre-activation) parameter
 tensors of a static capacity `cap` plus an `active` mask, so masked arrays
@@ -179,3 +181,32 @@ def sh_degree_mask(active_deg: torch.Tensor, max_deg: int) -> torch.Tensor:
     idx = torch.arange(K, device=active_deg.device)
     deg_of = torch.floor(torch.sqrt(idx.to(torch.float32))).to(torch.int32)
     return (deg_of <= active_deg).to(torch.float32)
+
+
+def oneup_sh_degree(pool: GaussianPool) -> GaussianPool:
+    new = torch.clamp(pool.stats.sh_degree + 1, max=pool.max_sh_degree)
+    return pool._replace(stats=pool.stats._replace(sh_degree=new))
+
+
+def accumulate_stats(
+    stats: GaussianStats,
+    screen_grad: torch.Tensor,  # (N, 2 or 3) gradient of the position hook
+    visibility: torch.Tensor,  # (N,) bool
+    weight: torch.Tensor | None = None,  # (N,) per-splat blend weight sums
+    radii: torch.Tensor | None = None,  # (N,) screen radii
+) -> GaussianStats:
+    """add_densification_stats: visible active splats count one more view
+    and add their position-gradient norm, blend weight and max radius."""
+    vis = visibility & stats.active
+    gnorm = torch.linalg.vector_norm(screen_grad, dim=-1)
+    stats = stats._replace(
+        denom=stats.denom + vis.to(torch.float32),
+        grad_accum=stats.grad_accum + torch.where(vis, gnorm, 0.0),
+    )
+    if weight is not None:
+        stats = stats._replace(
+            weight_accum=stats.weight_accum + torch.where(vis, weight, 0.0))
+    if radii is not None:
+        stats = stats._replace(max_radii2d=torch.where(
+            vis, torch.maximum(stats.max_radii2d, radii), stats.max_radii2d))
+    return stats

@@ -1,12 +1,22 @@
-"""Tile binning for the surfel rasterizer (port of envgs_tpu/ops/binning.py,
-render layout).
+"""Tile binning for the surfel rasterizer (port of envgs_tpu/ops/binning.py).
 
 Splats are depth-sorted once (index order == blend order), expanded into
 (splat, tile) pairs over their snug AABB, pairs outside the splat's per-row
 alpha-floor footprint are retargeted to the sentinel tile, and one sort by
-(tile, depth rank) orders the pairs. Only the unaligned render layout is
-ported: the chunk-aligned training layout needs the fill-forward kernel
-(K5) and arrives with the train step.
+(tile, depth rank) orders the pairs. Two layouts:
+
+- unaligned (render): raw per-tile pair ranges, the blend masks each
+  window's rows outside its tile;
+- aligned (training): each tile's range padded to a multiple of `align`
+  (padding -> sentinel P), built with the fill-forward kernel K5 and one
+  near-identity gather, as the JAX package builds it.
+
+The JAX training layout also carries a pre-sort transpose plan (`pre_idx`,
+`seg_starts`, `seg_counts`) for its pair-gradient transpose
+(segsum.presort_transpose). The port's backward kernels add each pair's
+gradient row straight into the per-splat table with atomics, so the plan
+is not built; without it the pre-sort slot payload of the JAX sort is not
+needed either (it does not change the order of the splat indices).
 """
 from __future__ import annotations
 
@@ -15,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from envgs_tpu_torch.ops.common import PreparedSplats, snug_row_interval
+from envgs_tpu_torch.ops.fill_forward import fill_forward
 
 LANES = 128
 BROWS = 256
@@ -22,10 +33,12 @@ _ALIGN_N = LANES * BROWS  # pair-cap granularity of the JAX layout
 
 
 class BinnedPairs(NamedTuple):
-    gauss_idx: torch.Tensor  # (pair_cap + align,) int32 depth-order splat
-    #   per pair, sentinel P past each tile's range and in the tail
+    gauss_idx: torch.Tensor  # int32 depth-order splat per pair slot,
+    #   sentinel P in padding: (pair_cap + align,) unaligned, (cap_aligned,)
+    #   aligned
     order: torch.Tensor  # (P,) int64 depth order -> pool index
     tile_bounds: torch.Tensor  # (num_tiles + 1,) int32 pair range offsets
+    #   (multiples of `align` in the aligned layout)
     num_pairs: torch.Tensor  # () int32 requested pairs (before the cap)
     tiles_x: int
     tiles_y: int
@@ -58,15 +71,12 @@ def bin_splats(
     prep: PreparedSplats, H: int, W: int, tile: int, pair_cap: int,
     align: int = 64, lowpass_r: float = 0.0, aligned: bool = False,
 ) -> BinnedPairs:
-    """Expand splats into (splat, tile) pairs sorted by (tile, depth).
+    """Expand splats into (splat, tile) pairs sorted by (tile, depth); with
+    `aligned`, each tile's range is padded to a multiple of `align`.
 
     Pairs beyond `pair_cap` (rounded up to the JAX layout's granularity)
     drop deterministically, farthest splats first; `num_pairs` reports the
     count before the cap."""
-    if aligned:
-        raise NotImplementedError(
-            "the chunk-aligned training layout needs the fill-forward "
-            "kernel (K5); it is ported with the train-step slice")
     dev = prep.depth.device
     tx_n, ty_n = tile_dims(H, W, tile)
     num_tiles = tx_n * ty_n
@@ -132,10 +142,15 @@ def bin_splats(
     bounds = torch.searchsorted(
         tid_s, torch.arange(num_tiles + 1, dtype=torch.int32, device=dev),
         side="left").to(torch.int32)
-    gauss_pad = torch.cat(
-        [gauss_s, torch.full((align,), P, dtype=torch.int32, device=dev)])
+    if aligned:
+        gauss_idx, bounds = _align_tiles(gauss_s, bounds, P, pair_cap,
+                                         num_tiles, align)
+    else:
+        # one sentinel window of padding absorbs the last tile's overrun
+        gauss_idx = torch.cat(
+            [gauss_s, torch.full((align,), P, dtype=torch.int32, device=dev)])
     return BinnedPairs(
-        gauss_idx=gauss_pad,
+        gauss_idx=gauss_idx,
         order=order,
         tile_bounds=bounds,
         num_pairs=total.to(torch.int32),
@@ -143,3 +158,43 @@ def bin_splats(
         tiles_y=ty_n,
         tile=tile,
     )
+
+
+def aligned_markers(bounds: torch.Tensor, pair_cap: int, num_tiles: int,
+                    align: int):
+    """The fill-forward input of the aligned layout: (marks (3, cap_aligned)
+    int32, valid (cap_aligned,) int32, poffs (T+1,) int32). Each tile's
+    marker (source start, aligned start, source end) sits at its aligned
+    start; empty tiles share an aligned start with the next tile, and the
+    scatter keeps the largest marker there (the last such tile's), as the
+    JAX package's scatter-max does. pair_cap: the rounded cap of the
+    sorted pairs."""
+    dev = bounds.device
+    counts = bounds[1:] - bounds[:-1]
+    padded = (counts + (align - 1)) // align * align
+    poffs = torch.cat([bounds.new_zeros(1),
+                       torch.cumsum(padded, 0, dtype=torch.int32)])
+    cap_aligned = _round_up(pair_cap + num_tiles * align, _ALIGN_N)
+    at = poffs[:-1].to(torch.int64)
+    marks = torch.zeros((3, cap_aligned), dtype=torch.int32, device=dev)
+    marks.scatter_reduce_(1, at.expand(3, -1),
+                          torch.stack([bounds[:-1], poffs[:-1], bounds[1:]]),
+                          reduce="amax")
+    valid = torch.zeros(cap_aligned, dtype=torch.int32, device=dev)
+    valid[at] = 1
+    return marks, valid, poffs
+
+
+def _align_tiles(gauss_s: torch.Tensor, bounds: torch.Tensor, P: int,
+                 pair_cap: int, num_tiles: int, align: int):
+    """Chunk-aligned layout: (gauss_idx (cap_aligned,), poffs (T+1,)):
+    fill-forward (K5) broadcasts each tile's marker over its aligned slots,
+    and one near-identity gather reads the sorted pairs."""
+    marks, valid, poffs = aligned_markers(bounds, pair_cap, num_tiles, align)
+    tstart, pstart, limit = fill_forward(marks, valid)
+    j = torch.arange(marks.shape[1], dtype=torch.int32, device=bounds.device)
+    src = tstart + (j - pstart)
+    valid_dst = src < limit
+    src = torch.where(valid_dst, torch.clamp(src, 0, pair_cap - 1), 0)
+    gauss_idx = torch.where(valid_dst, gauss_s[src.to(torch.int64)], P)
+    return gauss_idx.to(torch.int32), poffs

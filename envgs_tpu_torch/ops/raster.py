@@ -1,10 +1,18 @@
-"""Rasterizer API (port of envgs_tpu/ops/raster.py, render path).
+"""Rasterizer API (port of envgs_tpu/ops/raster.py).
 
-`rasterize` runs binning (unaligned render layout) and the tile blend —
-kernel K1 on CUDA tensors, its plain PyTorch version on CPU tensors — and
-decodes to the JAX package's RasterOutput contract. The training outputs
-(distortion, median depth, per-splat wet) and their autodiff arrive with
-the train-step slice: asking for them raises.
+`rasterize` runs binning and the tile blend — kernel K1 (forward) and K2
+(backward) on CUDA tensors, their plain PyTorch versions on CPU tensors —
+and decodes to the JAX package's RasterOutput contract. Two paths:
+
+- render (`needs` all False): the unaligned layout, no training outputs;
+- training (`needs` all True with a `wet_zero` hook): the chunk-aligned
+  layout, distortion, median depth (detached), the distortion moments
+  d1/d2, and autodiff through the blend's reverse walk. Per-splat wet
+  arrives as the gradient of `wet_zero`, and screen-space densification
+  gradients as the gradient of `means2d_zero`.
+
+The JAX package's other combinations (forward wet through a segment sum,
+`needs[2]` without the hook) are not ported: they raise.
 """
 from __future__ import annotations
 
@@ -19,10 +27,25 @@ from envgs_tpu_torch.ops.raster_blend import (
     LO,
     TILE,
     blend_tiles,
+    blend_tiles_train,
     out_rows,
+    rows,
 )
 from envgs_tpu_torch.ops.raster_ref import RasterOutput
 from envgs_tpu_torch.utils.camera import Camera
+
+
+def _shift_tmat(prep: PreparedSplats,
+                means2d_zero: torch.Tensor | None) -> PreparedSplats:
+    """Shift splats on screen by means2d_zero pixels (zero in practice: the
+    hook's gradient is d(loss)/d(pixel-space splat translation))."""
+    if means2d_zero is None:
+        return prep
+    z = means2d_zero
+    row2 = prep.tmat[:, 2, :]
+    tmat = torch.stack([prep.tmat[:, 0, :] + z[:, 0:1] * row2,
+                        prep.tmat[:, 1, :] + z[:, 1:2] * row2, row2], dim=1)
+    return prep._replace(tmat=tmat, center_pix=prep.center_pix + z)
 
 
 def _pack_table(prep: PreparedSplats,
@@ -51,39 +74,56 @@ def rasterize(
     cam: Camera,
     bg_color: torch.Tensor,
     pair_cap: int = 2 ** 21,
+    means2d_zero: torch.Tensor | None = None,
     needs: tuple = (False, False, False),
+    wet_zero: torch.Tensor | None = None,
 ) -> RasterOutput:
-    """Rasterize prepared splats into the raw output maps (render path:
-    needs = (need_dist, need_med, need_wet) all False)."""
-    if any(needs):
+    """Rasterize prepared splats into the raw output maps.
+
+    needs = (need_dist, need_med, need_wet): all False is the render path;
+    all True with the (P,) zeros hook `wet_zero` is the training path, whose
+    RasterOutput.wet is exact zeros (wet is the hook's gradient)."""
+    train = all(needs) and wet_zero is not None
+    if any(needs) and not train:
         raise NotImplementedError(
-            f"rasterize needs={needs}: distortion, median depth and wet are "
-            "training outputs, ported with the train-step slice")
+            f"rasterize needs={needs}, wet_zero given: {wet_zero is not None}"
+            ": the train path needs all three outputs and the wet_zero hook "
+            "(forward wet through a segment sum is not ported)")
+    prep = _shift_tmat(prep, means2d_zero)
     C = prep.color.shape[-1]
     H, W = cam.H, cam.W
+    P = prep.depth.shape[0]
     bins = bin_splats(prep, H, W, TILE, pair_cap, align=CHUNK,
-                      lowpass_r=ROWCULL_LOWPASS_R, aligned=False)
+                      lowpass_r=ROWCULL_LOWPASS_R, aligned=train)
     packed = _pack_table(prep, bins.order)
-    img = blend_tiles(packed, bins.gauss_idx, bins.tile_bounds, C,
-                      bins.tiles_x, bins.tiles_y)[:, :H, :W]
-    r = out_rows(C)
+    if train:
+        wz = torch.nn.functional.pad(wet_zero[bins.order], (0, 1))
+        img = blend_tiles_train(packed, wz, bins.gauss_idx, bins.tile_bounds,
+                                C, bins.tiles_x, bins.tiles_y)
+        r = rows(C)
+    else:
+        img = blend_tiles(packed, bins.gauss_idx, bins.tile_bounds, C,
+                          bins.tiles_x, bins.tiles_y)
+        r = out_rows(C)
+    img = img[:, :H, :W]
     trans = img[r["trans"]]
     bg = torch.zeros(C, dtype=torch.float32, device=img.device)
     bg[: bg_color.shape[0]] = bg_color
     rgb = img[:C].permute(1, 2, 0) + trans[..., None] * bg
     zeros = torch.zeros_like(trans)
-    P = prep.depth.shape[0]
     return RasterOutput(
         rgb=rgb,
         depth_expected=img[r["depth"]],
         alpha=img[r["alpha"]],
         normal=img[r["normal"]:r["normal"] + 3].permute(1, 2, 0),
-        depth_median=zeros,
-        distortion=zeros,
+        depth_median=img[r["med"]].detach() if train else zeros,
+        distortion=img[r["dist"]] if train else zeros,
         wet=torch.zeros(P, dtype=torch.float32, device=img.device),
         radii=prep.radius,
         trans=trans,
         num_pairs=bins.num_pairs,
+        d1=img[r["d1"]] if train else None,
+        d2=img[r["d2"]] if train else None,
     )
 
 
@@ -146,7 +186,7 @@ def render_decode(
     depth_e = torch.nan_to_num(out.depth_expected / safe_alpha)[..., None]
     depth_m = torch.nan_to_num(out.depth_median)[..., None]
     surf_depth = depth_e * (1.0 - depth_ratio) + depth_m * depth_ratio
-    surf_normal = depth_to_normal(cam, surf_depth[..., 0]) * alpha
+    surf_normal = depth_to_normal(cam, surf_depth[..., 0]) * alpha.detach()
     return RenderOutput(
         rgb=rgb,
         specular=spec,

@@ -1,5 +1,5 @@
 """Surfel ray tracer: ray-tile cone culling + the traced blend (port of
-envgs_tpu/ops/tracer.py, render path).
+envgs_tpu/ops/tracer.py: the render path and the training path).
 
 Per frame: 16x16 ray tiles become cones with direction-space probe boxes
 (`build_ray_tiles`); splats are Morton-chunked (`build_chunk_index`); each
@@ -9,6 +9,12 @@ sorts the kept candidates by quantized radial distance from the tile apex
 (`cull_and_sort`); the traced blend (kernel K3 on CUDA tensors) composites
 each tile's candidates front to back. Blend order is the per-tile radial
 order, the JAX package's documented deviation from per-ray order.
+
+The training path (`needs` all True with a `wet_zero` hook) blends in
+training mode (kernels K3 and K4): the cull stays integer and carries no
+gradient; the gradient reaches the scene table and, through the ray tiles
+(`ray_planes`, plain differentiable torch ops), the ray origins and
+directions.
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ import torch
 
 from envgs_tpu_torch.ops.common import ALPHA_MIN
 from envgs_tpu_torch.ops.raster_blend import CHUNK, LO
-from envgs_tpu_torch.ops.trace_blend import trace_blend
+from envgs_tpu_torch.ops.trace_blend import rows, trace_blend, trace_blend_train
 from envgs_tpu_torch.ops.tracer_ref import TraceOutput, TraceScene
 
 RTH = 16  # tile height in rays
@@ -47,22 +53,26 @@ class RayTiles(NamedTuple):
     probe_ok: torch.Tensor  # (T,) bool
 
 
-def build_ray_tiles(ray_o: torch.Tensor, ray_d: torch.Tensor) -> RayTiles:
-    """Group an (H, W) ray grid into RTW x RTH cones (H, W edge-padded)."""
+def ray_planes(ray_o: torch.Tensor, ray_d: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) origins and directions -> the kernels' ray tiles (T, 8,
+    NRAY): rows ox oy oz dx dy dz 0 0, (H, W) edge-padded to whole 16x16
+    tiles. Plain torch indexing, so differentiable in both inputs."""
     H, W = ray_o.shape[:2]
     dev = ray_o.device
-    Hp = -(-H // RTH) * RTH
-    Wp = -(-W // RTW) * RTW
+    ty, tx = -(-H // RTH), -(-W // RTW)
     od = torch.cat([ray_o, ray_d], dim=-1)  # (H, W, 6)
-    rows = torch.clamp(torch.arange(Hp, device=dev), max=H - 1)
-    cols = torch.clamp(torch.arange(Wp, device=dev), max=W - 1)
-    od = od[rows][:, cols]
-    ty, tx = Hp // RTH, Wp // RTW
-    T = ty * tx
-    planes = (od.reshape(ty, RTH, tx, RTW, 6).permute(0, 2, 4, 1, 3)
-              .reshape(T, 6, NRAY))
-    rays = torch.cat([planes, planes.new_zeros((T, 2, NRAY))], dim=1)
-    ox, oy, oz, dx, dy, dz = planes.unbind(1)  # (T, NRAY)
+    r = torch.clamp(torch.arange(ty * RTH, device=dev), max=H - 1)
+    c = torch.clamp(torch.arange(tx * RTW, device=dev), max=W - 1)
+    planes = (od[r][:, c].reshape(ty, RTH, tx, RTW, 6).permute(0, 2, 4, 1, 3)
+              .reshape(ty * tx, 6, NRAY))
+    return torch.cat([planes, planes.new_zeros((ty * tx, 2, NRAY))], dim=1)
+
+
+def build_ray_tiles(ray_o: torch.Tensor, ray_d: torch.Tensor) -> RayTiles:
+    """Group an (H, W) ray grid into RTW x RTH cones (H, W edge-padded)."""
+    rays = ray_planes(ray_o, ray_d)
+    T = rays.shape[0]
+    ox, oy, oz, dx, dy, dz = rays[:, :6].unbind(1)  # (T, NRAY)
     dinv = torch.rsqrt(torch.clamp(dx * dx + dy * dy + dz * dz, min=1e-18))
     dnx, dny, dnz = dx * dinv, dy * dinv, dz * dinv
 
@@ -380,37 +390,62 @@ def trace_rays(
     total_pair_cap: int | None = 2 ** 21,
     ray_mask: torch.Tensor | None = None,
     needs: tuple = (False, False, False),
+    wet_zero: torch.Tensor | None = None,
     exact_order: bool = False,
 ) -> TraceOutput:
-    """Tiled tracer over an (H, W) ray grid, render path.
+    """Tiled tracer over an (H, W) ray grid.
 
-    needs = (need_dist, need_wet, need_geo): the render path runs with all
-    three off, so depth, normal, aux, distortion and wet come back zero, as
-    in the JAX package's render mode. ray_mask (H, W) bool culls whole ray
-    tiles with no masked-in ray."""
-    if any(needs) or exact_order:
+    needs = (need_dist, need_wet, need_geo): all False is the render path
+    (depth, normal, aux, distortion and wet come back zero, as in the JAX
+    package's render mode); all True with the (P,) zeros hook `wet_zero` is
+    the training path (TraceOutput.wet exact zeros: wet is the hook's
+    gradient). ray_mask (H, W) bool culls whole ray tiles with no
+    masked-in ray."""
+    train = all(needs) and wet_zero is not None
+    if (any(needs) and not train) or exact_order:
         raise NotImplementedError(
-            f"trace_rays needs={needs} exact_order={exact_order}: only the "
-            "render blend (rgb, acc, T) is ported; the geometry, training "
-            "and exact-order outputs arrive with later slices")
+            f"trace_rays needs={needs} wet_zero given: {wet_zero is not None}"
+            f" exact_order={exact_order}: the render path and the train path"
+            " (all needs with the wet_zero hook) are ported; forward wet and"
+            " the exact per-ray order are not")
     H, W = ray_o.shape[:2]
     dev = ray_o.device
     P = scene.mean.shape[0]
     A = scene.aux.shape[-1]
-    tiles = build_ray_tiles(ray_o, ray_d)
-    radius3 = splat_radius3(scene)
     K = per_tile_cap or default_per_tile_cap(P)
     ty, tx = -(-H // RTH), -(-W // RTW)
-    tile_mask = None
-    if ray_mask is not None:
-        m = torch.nn.functional.pad(ray_mask.to(torch.bool),
-                                    (0, tx * RTW - W, 0, ty * RTH - H))
-        tile_mask = (m.reshape(ty, RTH, tx, RTW).permute(0, 2, 1, 3)
-                     .reshape(tiles.n_tiles, NRAY).any(dim=1))
-    gauss_idx, bounds, dropped = cull_and_sort(
-        tiles, scene, radius3, per_tile_cap=K, total_pair_cap=total_pair_cap,
-        tile_mask=tile_mask)
+    with torch.no_grad():  # the cull is integer and carries no gradient
+        tiles = build_ray_tiles(ray_o, ray_d)
+        tile_mask = None
+        if ray_mask is not None:
+            m = torch.nn.functional.pad(ray_mask.to(torch.bool),
+                                        (0, tx * RTW - W, 0, ty * RTH - H))
+            tile_mask = (m.reshape(ty, RTH, tx, RTW).permute(0, 2, 1, 3)
+                         .reshape(tiles.n_tiles, NRAY).any(dim=1))
+        gauss_idx, bounds, dropped = cull_and_sort(
+            tiles, scene, splat_radius3(scene), per_tile_cap=K,
+            total_pair_cap=total_pair_cap, tile_mask=tile_mask)
     packed = _pack_scene_table(scene)
+    wet = torch.zeros(P, dtype=torch.float32, device=dev)
+    if train:
+        img = trace_blend_train(packed, ray_planes(ray_o, ray_d),
+                                torch.nn.functional.pad(wet_zero, (0, 1)),
+                                gauss_idx, bounds, tx, ty, A)[:, :H, :W]
+        r = rows(A)
+        acc, trans = img[r["acc"]], img[r["trans"]]
+        return TraceOutput(
+            rgb=img[:3].permute(1, 2, 0) + trans[..., None] * bg_color,
+            dpt=torch.where(acc > 1e-8,
+                            img[r["dpt"]] / torch.clamp(acc, min=1e-8), 0.0),
+            acc=acc,
+            norm=img[r["normal"]:r["normal"] + 3].permute(1, 2, 0),
+            dist=img[r["dist"]],
+            aux=img[r["aux"]:r["aux"] + A].permute(1, 2, 0),
+            wet=wet,
+            trans=trans,
+            dropped_pairs=dropped,
+            num_pairs=bounds[-1],
+        )
     img = trace_blend(packed, gauss_idx, tiles.rays, bounds, tx, ty)[:, :H, :W]
     acc, trans = img[3], img[4]
     zeros = torch.zeros_like(acc)
@@ -421,7 +456,7 @@ def trace_rays(
         norm=zeros[..., None].expand(H, W, 3),
         dist=zeros,
         aux=zeros[..., None].expand(H, W, A),
-        wet=torch.zeros(P, dtype=torch.float32, device=dev),
+        wet=wet,
         trans=trans,
         dropped_pairs=dropped,
         num_pairs=bounds[-1],

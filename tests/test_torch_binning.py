@@ -63,7 +63,17 @@ def test_bin_splats_matches_jax(case):
 
 
 def test_aligned_layout_is_not_ported():
+    """What of the JAX aligned layout is not ported: its pre-sort transpose
+    plan (pre_idx, seg_starts, seg_counts), which only the JAX pair-gradient
+    transpose reads; the port's backward kernels add pair gradients into
+    the table with atomics. The layout itself is ported and held to JAX in
+    tests/test_torch_fill_forward.py."""
     tp = PreparedSplats(*(torch.tensor(np.asarray(x))
                           for x in _prep(32, 32, 20, 0.2, seed=0)))
-    with pytest.raises(NotImplementedError, match="K5"):
-        tbin.bin_splats(tp, 32, 32, 16, 1024, aligned=True)
+    tb = tbin.bin_splats(tp, 32, 32, 16, 1024, aligned=True)
+    assert not {"pre_idx", "seg_starts", "seg_counts",
+                "pre_cap"} & set(tb._fields)
+    assert {"pre_idx", "seg_starts", "seg_counts"} <= set(
+        jbin.BinnedPairs._fields)
+    assert (tb.tile_bounds % 64 == 0).all()
+    assert tb.gauss_idx.shape[0] % (128 * 256) == 0

@@ -105,6 +105,47 @@ def test_make_render_scene_matches_jax():
         jcfg.pair_cap, jcfg.env_pair_cap, jcfg.render_mode)
 
 
+def test_make_train_scene_matches_jax():
+    """The port's train bench scene holds the arrays of the JAX package's
+    bench.py::main_train: its numpy draws, in its order (the pools, then the
+    batch image), repeated here on the JAX side; no step is run. The caps
+    are the port's non-truncating ones."""
+    from envgs_tpu.models.gaussians import logit
+
+    H, W, P, Pe = 1038, 1558, 500_000, 131_072
+    rng = np.random.default_rng(0)
+    xyz = np.concatenate([rng.normal(size=(P, 2)) * 1.5,
+                          rng.random((P, 1)) * 5 + 2.0], -1).astype(np.float32)
+    jbase = create_pool(xyz, rng.random((P, 3)).astype(np.float32), cap=P,
+                        sh_degree=3, init_opacity=0.8)
+    jbase = jbase._replace(params=jbase.params._replace(
+        scaling=jnp.full((P, 2), np.log(0.012)),
+        specular=jnp.full((P, 1), float(logit(jnp.asarray(0.3))))))
+    dirs = rng.normal(size=(Pe, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    jenv = create_pool((dirs * 20).astype(np.float32),
+                       rng.random((Pe, 3)).astype(np.float32), cap=Pe,
+                       sh_degree=3, init_opacity=0.8)
+    jenv = jenv._replace(params=jenv.params._replace(
+        scaling=jnp.full((Pe, 2), np.log(0.5))))
+    rgb = rng.random((H, W, 3)).astype(np.float32)
+
+    tbase, tenv_, tcam_, tcfg, batch = tbench.make_train_scene("cpu")
+    for jp, tp in ((jbase, tbase), (jenv, tenv_)):
+        for k in tp.params._fields:
+            np.testing.assert_allclose(getattr(tp.params, k).numpy(),
+                                       np.asarray(getattr(jp.params, k)),
+                                       atol=1e-6, err_msg=k)
+        np.testing.assert_array_equal(tp.stats.active.numpy(),
+                                      np.asarray(jp.stats.active))
+    np.testing.assert_array_equal(batch.rgb.numpy(), rgb)
+    assert float(batch.msk.min()) == 1.0 and float(batch.norm.abs().max()) == 0
+    assert (tcam_.H, tcam_.W) == (H, W)
+    np.testing.assert_allclose(tcam_.K.numpy()[0, 0], 0.9 * W)
+    assert (tcfg.pair_cap, tcfg.env_pair_cap) == (2 ** 21, 2 ** 22)
+    assert tcfg.reflection_start_iter == 0 and not tcfg.render_mode
+
+
 def test_port_imports_no_jax():
     """envgs_tpu_torch and all its submodules import neither jax nor the
     JAX package."""

@@ -11,8 +11,19 @@ import torch
 from envgs_tpu_torch import bench, kernels
 from envgs_tpu_torch.models.envgs import EnvGSConfig
 from envgs_tpu_torch.models.gaussians import create_pool
-from envgs_tpu_torch.ops.raster_blend import blend_tiles, blend_tiles_torch
-from envgs_tpu_torch.ops.trace_blend import trace_blend, trace_blend_torch
+from envgs_tpu_torch.ops.fill_forward import fill_forward, fill_forward_torch
+from envgs_tpu_torch.ops.raster_blend import (
+    blend_tiles,
+    blend_tiles_bwd,
+    blend_tiles_bwd_torch,
+    blend_tiles_torch,
+)
+from envgs_tpu_torch.ops.trace_blend import (
+    trace_blend,
+    trace_blend_bwd,
+    trace_blend_bwd_torch,
+    trace_blend_torch,
+)
 from envgs_tpu_torch.utils.camera import make_camera
 
 pytestmark = pytest.mark.cuda
@@ -20,6 +31,11 @@ pytestmark = pytest.mark.cuda
 # what is left is expf / division ulps moving a pixel across the 1e-4
 # transmittance test, bounded by T ~ 1e-4 times a channel value
 ATOL = 1e-4
+# backward kernels: per gradient column, max|d| / max|ref|. The kernels sum
+# each pair's column over the tile's pixels with warp shuffles and add the
+# pairs of a splat with atomics, in another order than the plain versions'
+# torch sums (and from run to run); the terms are the same
+GRAD_RTOL = 1e-4
 
 
 @pytest.fixture
@@ -29,9 +45,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(device, H=80, W=104):
-    """K1 and K3 arguments of a small render (seeded numpy); W is not a
-    multiple of 16."""
+def _scene(device, H=80, W=104):
+    """A small scene (seeded numpy); W is not a multiple of 16."""
     rng = np.random.default_rng(7)
     P, Pe = 600, 800
     xyz = np.concatenate([rng.normal(size=(P, 2)) * 0.7,
@@ -49,7 +64,25 @@ def _inputs(device, H=80, W=104):
                       np.zeros(3, np.float32), device=device)
     cfg = EnvGSConfig(pair_cap=2 ** 15, env_pair_cap=2 ** 16,
                       reflection_start_iter=0, render_mode=True)
-    return bench.blend_inputs(base, env, cam, cfg)
+    return base, env, cam, cfg
+
+
+def _inputs(device):
+    """K1 and K3 arguments of a small render."""
+    return bench.blend_inputs(*_scene(device))
+
+
+def _cotangent(like, seed):
+    g = torch.Generator(device=like.device).manual_seed(seed)
+    return torch.randn(like.shape, generator=g, device=like.device)
+
+
+def _close_columns(got, want, rtol=GRAD_RTOL):
+    """Per column of a gradient table (or row of a ray gradient)."""
+    for k in range(want.shape[1]):
+        scale = float(want[:, k].abs().max())
+        err = float((got[:, k] - want[:, k]).abs().max())
+        assert err <= rtol * scale, (k, err, scale)
 
 
 def test_raster_blend_kernel_matches_plain(cuda):
@@ -87,3 +120,61 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
                                 bounds, 1, 1)
     out = kernels.raster_blend_fwd(packed, idx, bounds, 3, 1, 1)
     assert float(out[-1].min()) == 1.0  # empty tile: T stays 1
+
+
+def test_fill_forward_kernel_matches_plain(cuda):
+    """K5 integer-equal to its plain version: a length that is no multiple
+    of the kernel's 1024-position blocks, random markers, a marker-free
+    stretch longer than a block, and an empty marker set."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    N = 1024 * 37 + 5
+    vals = torch.randint(-2 ** 30, 2 ** 30, (3, N), generator=g,
+                         device=cuda, dtype=torch.int32)
+    valid = torch.rand(N, generator=g, device=cuda) < 0.002
+    valid[3000:9000] = False
+    for v in (valid, torch.zeros_like(valid)):
+        n = kernels.LAUNCHES["fill_forward"]
+        got = fill_forward(vals, v)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["fill_forward"] == n + 1
+        assert torch.equal(got, fill_forward_torch(vals, v))
+    assert not got.any()
+
+
+def test_train_raster_kernels_match_plain(cuda):
+    """K1 in training mode (aligned layout) and K2 on the same inputs and a
+    random cotangent of every plane."""
+    args = bench.train_blend_inputs(*_scene(cuda))["k1"]
+    out = blend_tiles(*args, train=True)
+    want = blend_tiles_torch(*args, train=True)
+    assert float((out - want).abs().max()) <= ATOL
+    g_out = _cotangent(out, 1)
+    n = kernels.LAUNCHES["raster_blend_bwd"]
+    got = blend_tiles_bwd(*args[:3], out, g_out, *args[3:])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["raster_blend_bwd"] == n + 1
+    ref = blend_tiles_bwd_torch(*args[:3], out, g_out, *args[3:])
+    C = args[3]
+    cols = list(range(15 + C)) + [31]  # the gradient columns and the wet
+    _close_columns(got[:, cols], ref[:, cols])
+    assert float(ref[:, 31].max()) > 1.0  # wet: splats cover many pixels
+
+
+def test_train_trace_kernels_match_plain(cuda):
+    """K3 in training mode and K4 (table and ray gradients) on the same
+    inputs and a random cotangent of every plane."""
+    args = bench.train_blend_inputs(*_scene(cuda))["k3"]
+    out = trace_blend(*args, train=True)
+    want = trace_blend_torch(*args, train=True)
+    assert float((out - want).abs().max()) <= ATOL
+    g_out = _cotangent(out, 2)
+    n = kernels.LAUNCHES["trace_blend_bwd"]
+    got, got_rays = trace_blend_bwd(*args[:4], out, g_out, *args[4:])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["trace_blend_bwd"] == n + 1
+    ref, ref_rays = trace_blend_bwd_torch(*args[:4], out, g_out, *args[4:])
+    _close_columns(got[:, list(range(16)) + [31]],
+                   ref[:, list(range(16)) + [31]])
+    _close_columns(got_rays[:, :6].transpose(0, 1).reshape(6, -1).T,
+                   ref_rays[:, :6].transpose(0, 1).reshape(6, -1).T)
+    assert float(ref_rays.abs().max()) > 0

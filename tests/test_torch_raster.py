@@ -116,6 +116,9 @@ def test_rasterize_matches_jax():
 
 
 def test_training_outputs_raise():
+    """The training outputs come only with the wet_zero hook (forward wet
+    through a segment sum is not ported; tests/test_torch_train_raster.py
+    covers the training path)."""
     tc = tcam.make_camera(16, 16, _K(16, 16), np.eye(3, dtype=np.float32),
                           np.zeros(3, np.float32))
     prep = tcommon.prepare_splats(*map(torch.tensor, _scene(P=8, C=3)), tc)
@@ -133,4 +136,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.trace_blend_fwd(packed, idx, torch.zeros(1, 8, 256), bounds,
                                 1, 1)
-    assert kernels.LAUNCHES == {"raster_blend_fwd": 0, "trace_blend_fwd": 0}
+    planes = torch.zeros(14, 16, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.raster_blend_bwd(packed, idx, bounds, planes, planes, 3, 1, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.trace_blend_bwd(packed, idx, torch.zeros(1, 8, 256), bounds,
+                                planes[:13], planes[:13], 1, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fill_forward(torch.zeros(3, 64, dtype=torch.int32), idx)
+    assert set(kernels.LAUNCHES) == {"raster_blend_fwd", "raster_blend_bwd",
+                                     "trace_blend_fwd", "trace_blend_bwd",
+                                     "fill_forward"}
+    assert not any(kernels.LAUNCHES.values())
