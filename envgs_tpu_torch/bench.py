@@ -3,10 +3,15 @@
 - render: bench.py::make_render_scene, 1584x1040, 300K base + 32K env
   surfels, rendered through `forward_envgs` (render fps);
 - train: bench.py::main_train, 1558x1038, 500K base + 131K env surfels,
-  one EnvGS train step (`make_train_step`) at it=25000 (train steps/s).
+  one EnvGS train step (`make_train_step`) at it=25000 (train steps/s);
+- gaussiant: the train scene's base draws recast as 500K full 3D
+  Gaussians (plain 3DGS, `models/gaussiant.py`) in a pool of 2^20 slots,
+  1558x1038, SH degree 3, the train scene's target image (render fps and
+  train steps/s).
 
-    python -m envgs_tpu_torch.bench           # one JSON line: render fps
-    python -m envgs_tpu_torch.bench train     # one JSON line: steps/s
+    python -m envgs_tpu_torch.bench             # one JSON line: render fps
+    python -m envgs_tpu_torch.bench train       # one JSON line: steps/s
+    python -m envgs_tpu_torch.bench gaussiant   # one JSON line: fps, steps/s
 
 Needs a CUDA card; without one it raises instead of timing the CPU.
 """
@@ -28,10 +33,19 @@ from envgs_tpu_torch.models.envgs import (
     _pool_colors,
     _pool_colors_at,
 )
-from envgs_tpu_torch.models.gaussians import create_pool, logit
+from envgs_tpu_torch.models.gaussians import DensifyConfig, create_pool, logit
+from envgs_tpu_torch.models.gaussiant import (
+    GaussianTConfig,
+    init_gaussiant_state,
+    make_gaussiant_train_step,
+    pool_colors,
+    prepare_gaussiant,
+    render_gaussiant,
+)
 from envgs_tpu_torch.ops.binning import _ALIGN_N, aligned_markers, bin_splats
 from envgs_tpu_torch.ops.common import ROWCULL_LOWPASS_R, prepare_splats
 from envgs_tpu_torch.ops.raster import _pack_table
+from envgs_tpu_torch.ops.raster3d import bin_and_pack
 from envgs_tpu_torch.ops.raster_blend import CHUNK, TILE, blend_tiles
 from envgs_tpu_torch.ops.trace_blend import trace_blend
 from envgs_tpu_torch.ops.tracer import (
@@ -60,6 +74,11 @@ TRAIN_IT = 25_000
 # cuts about a quarter of its ~2.8M env slots (bench.py::main_train)
 TRAIN_PAIR_CAP = 2 ** 21
 TRAIN_ENV_PAIR_CAP = 2 ** 22
+# the 3DGS scene: the pool leaves densification about as many free slots
+# as it has Gaussians; a pair cap that drops nothing, before or after the
+# densification of chip_smoke.py
+GAUSSIANT_CAP = 2 ** 20
+GAUSSIANT_PAIR_CAP = 2 ** 22
 
 
 def make_render_scene(device):
@@ -342,6 +361,118 @@ def train_stage_times(step, state, batch, cam: Camera, reps: int = 5,
     return {k: statistics.median(v) for k, v in times.items()}
 
 
+def make_gaussiant_scene(device):
+    """(state, cam, cfg, dcfg, target) of the 3DGS bench scene: the train
+    scene's draws in its default_rng(0) order (the env pool's draws taken
+    and dropped, so the target is the train scene's image) as 500K 3D
+    Gaussians, random rotations, three scale axes at 0.012, opacity 0.8,
+    in a pool of GAUSSIANT_CAP slots; dcfg: the 3DGS densification
+    defaults at spatial scale 1 (so these Gaussians split)."""
+    rng = np.random.default_rng(0)
+    P, Pe, Ht, Wt = TRAIN_P_BASE, TRAIN_P_ENV, TRAIN_H, TRAIN_W
+    xyz = np.concatenate(
+        [rng.normal(size=(P, 2)) * 1.5,
+         rng.random((P, 1)) * 5 + 2.0], -1).astype(np.float32)
+    rgb = rng.random((P, 3)).astype(np.float32)
+    rng.normal(size=(Pe, 3))
+    rng.random((Pe, 3))
+    target = torch.tensor(rng.random((Ht, Wt, 3)).astype(np.float32),
+                          device=device)
+    cfg = GaussianTConfig(sh_degree=3, pair_cap=GAUSSIANT_PAIR_CAP)
+    pool = create_pool(xyz, rgb, cap=GAUSSIANT_CAP, sh_degree=3,
+                       init_opacity=0.8,
+                       init_scales=np.full((P, 3), np.log(0.012), np.float32),
+                       scale_axes=3, device=device)
+    f = 0.9 * Wt
+    K = np.array([[f, 0, Wt / 2], [0, f, Ht / 2], [0, 0, 1]], np.float32)
+    cam = make_camera(Ht, Wt, K, np.eye(3, dtype=np.float32),
+                      np.zeros(3, np.float32), 0.02, 100.0, device=device)
+    dcfg = DensifyConfig(spatial_scale=1.0, max_gs=GAUSSIANT_CAP)
+    return init_gaussiant_state(pool), cam, cfg, dcfg, target
+
+
+def gaussiant_blend_inputs(pool, cam, cfg: GaussianTConfig):
+    """The arguments render_gaussiant hands K1 (gauss3d mode; aligned
+    layout) for (pool, cam): (packed, gauss_idx, tile_bounds, C, tiles_x,
+    tiles_y), and the pairs before the cap."""
+    prep = prepare_gaussiant(pool, cam, cfg, pool_colors(pool, cam.center))
+    packed, bins = bin_and_pack(prep, cam, cfg.pair_cap)
+    return ((packed, bins.gauss_idx, bins.tile_bounds, prep.color.shape[-1],
+             bins.tiles_x, bins.tiles_y), int(bins.num_pairs))
+
+
+def check_gaussiant(out, cfg: GaussianTConfig):
+    """No pair past the cap, finite non-degenerate rgb -> (pairs, std)."""
+    n_pairs = int(out.num_pairs)
+    if n_pairs > cfg.pair_cap:
+        raise AssertionError(f"3DGS render truncated: {n_pairs} pairs > "
+                             f"pair_cap {cfg.pair_cap}")
+    if not bool(torch.isfinite(out.rgb).all()):
+        raise AssertionError("non-finite rgb")
+    std = float(out.rgb.std())
+    if not std > 0.01:
+        raise AssertionError(f"degenerate rgb (std {std})")
+    return n_pairs, std
+
+
+def gaussiant_render_fps(pool, cam, cfg: GaussianTConfig, n: int = 10):
+    """Frames per second over n synchronized renders (one warm-up), without
+    autograd, as a viewer renders."""
+    with torch.no_grad():
+        render_gaussiant(pool, cam, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            render_gaussiant(pool, cam, cfg)
+        torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def gaussiant_stage_times(pool, cam, cfg: GaussianTConfig,
+                          reps: int = 5) -> dict:
+    """Median device ms of each stage of a 3DGS render (no autograd), CUDA
+    events around the calls render_gaussiant makes, each fed the real
+    output of the one before it."""
+    events = {}
+
+    def timed(name, fn):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = fn()
+        e1.record()
+        events.setdefault(name, []).append((e0, e1))
+        return res
+
+    with torch.no_grad():
+        for _ in range(reps + 1):  # the first pass warms up
+            timed("total", lambda: render_gaussiant(pool, cam, cfg))
+            colors = timed("sh_colors", lambda: pool_colors(pool, cam.center))
+            prep = timed("prepare",
+                         lambda: prepare_gaussiant(pool, cam, cfg, colors))
+            packed, bins = timed("bin_pack", lambda: bin_and_pack(
+                prep, cam, cfg.pair_cap))
+            timed("raster_blend", lambda: blend_tiles(
+                packed, bins.gauss_idx, bins.tile_bounds, colors.shape[-1],
+                bins.tiles_x, bins.tiles_y, train=True, mode="gauss3d",
+                wet=True))
+    torch.cuda.synchronize()
+    return {k: statistics.median(e0.elapsed_time(e1) for e0, e1 in v[1:])
+            for k, v in events.items()}
+
+
+def gaussiant_steps_per_sec(step, state, cam: Camera, target, n: int = 10):
+    """(steps/s, state, aux of the last step) over n synchronized steps,
+    after one warm-up step. The state advances through all of them."""
+    state, aux = step(state, cam.K, cam.R, cam.T, target)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, aux = step(state, cam.K, cam.R, cam.T, target)
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0), state, aux
+
+
 def main() -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("the render benchmark needs a CUDA card")
@@ -366,5 +497,23 @@ def main_train() -> dict:
             "device": torch.cuda.get_device_name(0)}
 
 
+def main_gaussiant() -> dict:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the 3DGS benchmark needs a CUDA card")
+    state, cam, cfg, _, target = make_gaussiant_scene("cuda")
+    with torch.no_grad():
+        n_pairs, _ = check_gaussiant(render_gaussiant(state.pool, cam, cfg),
+                                     cfg)
+    fps = gaussiant_render_fps(state.pool, cam, cfg)
+    sps, _, aux = gaussiant_steps_per_sec(
+        make_gaussiant_train_step(cfg, cam), state, cam, target)
+    return {"metric": "gaussiant_render_fps_1558x1038", "value": fps,
+            "unit": "fps", "train_steps_per_sec": sps,
+            "loss": float(aux["loss"]), "pairs": n_pairs,
+            "pair_overflow": int(aux["pair_overflow"]),
+            "device": torch.cuda.get_device_name(0)}
+
+
 if __name__ == "__main__":
-    print(json.dumps(main_train() if sys.argv[1:] == ["train"] else main()))
+    mains = {"train": main_train, "gaussiant": main_gaussiant}
+    print(json.dumps(mains[sys.argv[1]]() if sys.argv[1:] else main()))

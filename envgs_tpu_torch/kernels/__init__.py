@@ -6,8 +6,10 @@ under `envgs_tpu_torch/_build/` (keyed by a hash of the sources and flags,
 so an edit rebuilds) and loads it with ctypes. Importing this module
 touches neither nvcc nor the card.
 
-`LAUNCHES` counts launches per kernel; each wrapper adds one where it
-launches its kernel and nowhere else.
+`LAUNCHES` counts launches per kernel, and per geometry mode for the
+raster blends (the surfel launches under the kernel's name, the gauss3d
+ones under `<name>_gauss3d`); each wrapper adds one where it launches its
+kernel and nowhere else.
 """
 from __future__ import annotations
 
@@ -20,8 +22,10 @@ from pathlib import Path
 
 import torch
 
-LAUNCHES = {"raster_blend_fwd": 0, "raster_blend_bwd": 0,
+LAUNCHES = {"raster_blend_fwd": 0, "raster_blend_fwd_gauss3d": 0,
+            "raster_blend_bwd": 0, "raster_blend_bwd_gauss3d": 0,
             "trace_blend_fwd": 0, "trace_blend_bwd": 0, "fill_forward": 0}
+MODES = {"surfel": 0, "gauss3d": 1}  # geometry of the raster blends
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[1] / "_build"
@@ -37,12 +41,12 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     # packed, n_rows, gauss_idx, n_idx, bounds, C, tiles_x, tiles_y,
-    # row_off, train, out, stream
-    "raster_blend_fwd": [_VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _VP,
-                         _VP],
+    # row_off, train, mode, out, wet, stream
+    "raster_blend_fwd": [_VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _I, _VP,
+                         _VP, _VP],
     # packed, n_rows, gauss_idx, n_idx, bounds, C, tiles_x, tiles_y,
-    # row_off, fwd, gout, gpacked, stream
-    "raster_blend_bwd": [_VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _VP, _VP,
+    # row_off, mode, fwd, gout, gpacked, stream
+    "raster_blend_bwd": [_VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _VP, _VP,
                          _VP, _VP],
     # packed, n_rows, gauss_idx, n_idx, rays, bounds, tiles_x, tiles_y,
     # train, A, out, stream
@@ -141,12 +145,21 @@ def _check_table(packed: torch.Tensor):
                          f"got {tuple(packed.shape)}")
 
 
-def _launch(name: str, device: torch.device, *args):
+def _launch(name: str, device: torch.device, *args, count: str | None = None):
+    """Call the library's `name` and count the launch under `count`
+    (default: `name`)."""
     with torch.cuda.device(device):  # the runtime launches on its current card
         err = getattr(_load(), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[count or name] += 1
+
+
+def _mode(name: str, mode: str):
+    """(mode's int code, LAUNCHES key) of a raster blend launch."""
+    if mode not in MODES:
+        raise ValueError(f"mode={mode!r}: one of {sorted(MODES)}")
+    return MODES[mode], name if mode == "surfel" else f"{name}_{mode}"
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -154,12 +167,14 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def raster_blend_fwd(packed, gauss_idx, tile_bounds, C: int, tiles_x: int,
-                     tiles_y: int, row_off: int = 0,
-                     train: bool = False) -> torch.Tensor:
+                     tiles_y: int, row_off: int = 0, train: bool = False,
+                     mode: str = "surfel", wet: bool = False):
     """Kernel K1 (csrc/raster_blend_fwd.cu) -> (C + 6, tiles_y*16,
-    tiles_x*16) f32, or (C + 11, ...) with `train`; see ops/raster_blend.py
-    for the contract."""
+    tiles_x*16) f32, or (C + 11, ...) with `train`; with `wet`, also the
+    per-pair wet (gauss_idx.numel(),) f32. See ops/raster_blend.py for the
+    contract."""
     T = tiles_x * tiles_y
+    code, key = _mode("raster_blend_fwd", mode)
     _check_table(packed)
     _check("gauss_idx", gauss_idx, torch.int32, packed)
     _check("tile_bounds", tile_bounds, torch.int32, packed, (T + 1,))
@@ -167,21 +182,26 @@ def raster_blend_fwd(packed, gauss_idx, tile_bounds, C: int, tiles_x: int,
         raise ValueError(f"C={C}: the blend carries 1..7 color channels")
     out = torch.empty((C + (11 if train else 6), tiles_y * 16, tiles_x * 16),
                       dtype=torch.float32, device=packed.device)
+    wet_pairs = (torch.zeros(gauss_idx.numel(), dtype=torch.float32,
+                             device=packed.device) if wet else None)
     if T:
         _launch("raster_blend_fwd", packed.device, packed.data_ptr(),
                 packed.shape[0], gauss_idx.data_ptr(), gauss_idx.numel(),
                 tile_bounds.data_ptr(), C, tiles_x, tiles_y, row_off,
-                int(train), out.data_ptr(), _stream(packed))
-    return out
+                int(train), code, out.data_ptr(),
+                wet_pairs.data_ptr() if wet else None, _stream(packed),
+                count=key)
+    return (out, wet_pairs) if wet else out
 
 
 def raster_blend_bwd(packed, gauss_idx, tile_bounds, fwd, g_out, C: int,
-                     tiles_x: int, tiles_y: int,
-                     row_off: int = 0) -> torch.Tensor:
+                     tiles_x: int, tiles_y: int, row_off: int = 0,
+                     mode: str = "surfel") -> torch.Tensor:
     """Kernel K2 (csrc/raster_blend_bwd.cu): training planes `fwd` of K1 and
     their cotangents `g_out` -> (P+1, 32) f32 table gradient, per-splat wet
     in column 31; see ops/raster_blend.py for the contract."""
     T = tiles_x * tiles_y
+    code, key = _mode("raster_blend_bwd", mode)
     _check_table(packed)
     _check("gauss_idx", gauss_idx, torch.int32, packed)
     _check("tile_bounds", tile_bounds, torch.int32, packed, (T + 1,))
@@ -194,9 +214,9 @@ def raster_blend_bwd(packed, gauss_idx, tile_bounds, fwd, g_out, C: int,
     if T:
         _launch("raster_blend_bwd", packed.device, packed.data_ptr(),
                 packed.shape[0], gauss_idx.data_ptr(), gauss_idx.numel(),
-                tile_bounds.data_ptr(), C, tiles_x, tiles_y, row_off,
+                tile_bounds.data_ptr(), C, tiles_x, tiles_y, row_off, code,
                 fwd.data_ptr(), g_out.data_ptr(), g_packed.data_ptr(),
-                _stream(packed))
+                _stream(packed), count=key)
     return g_packed
 
 

@@ -1,7 +1,10 @@
-// Kernel K2: backward of the per-tile 2DGS surfel blend (K1, training mode).
+// Kernel K2: backward of the per-tile blend (K1, training mode) of 2DGS
+// surfels or 3DGS Gaussians.
 //
 // Replaces: envgs_tpu/ops/raster_pallas.py::_bwd_kernel (Pallas, TPU) with
-// surfel geometry and emit_wet on, together with the pair-gradient
+// emit_wet on, in both geometries (a compile-time MODE here: the surfel
+// chain into the 3x3 screen transform, or the gauss3d chain into the conic,
+// the view depth and the center), together with the pair-gradient
 // transpose that follows it there (ops/segsum.presort_transpose): the TPU
 // kernel writes one (pairs, 128) gradient row per pair and a segmented
 // scan sums them per splat; here each pair's gradient row is summed over
@@ -11,8 +14,8 @@
 // What bounds it on the card: arithmetic and the per-pair reductions. Every
 // (pair, pixel) of a tile up to the last contributor is evaluated again
 // (the forward geometry, a logf/expf pair and the chain into the screen
-// transform, some 200 fp32 operations), and each pair's up to 23 gradient
-// columns are summed over 256 threads.
+// transform or the conic, some 200 (150) fp32 operations), and each pair's
+// up to 23 gradient columns are summed over 256 threads.
 //
 // Design: one block per 16x16 tile, one thread per pixel. The block walks
 // the tile's 64-pair chunks in reverse, starting at the last chunk that
@@ -43,6 +46,7 @@ constexpr int MAXC = 7;
 constexpr int NCOL = 24;  // staged columns: 15 + C (<= 22), wet at NCOL - 1
 constexpr int WET_COL = LO - 1;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int SURFEL = 0, GAUSS3D = 1;  // geometry modes
 // packed columns (ops/raster_blend.py)
 constexpr int C_CX = 9, C_CY = 10, C_OPAC = 11, C_NRM = 12, C_COLOR = 15;
 constexpr float ALPHA_MAX = (float)0.99;
@@ -70,6 +74,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <int MODE>
 __global__ void __launch_bounds__(NPIX)
 raster_blend_bwd_kernel(const float* __restrict__ packed, int n_rows,
                         const int32_t* __restrict__ gauss_idx, int n_idx,
@@ -146,29 +151,43 @@ raster_blend_bwd_kernel(const float* __restrict__ packed, int n_rows,
     for (int j = CHUNK - 1; j >= 0; --j) {
       const float* d = rows[j];
       const float t20 = d[6], t21 = d[7], t22 = d[8];
-      const float kx = d[0] - px * t20;
-      const float ky = d[1] - px * t21;
-      const float kz = d[2] - px * t22;
-      const float lx = d[3] - py * t20;
-      const float ly = d[4] - py * t21;
-      const float lz = d[5] - py * t22;
-      const float qx = ky * lz - kz * ly;
-      const float qy = kz * lx - kx * lz;
-      float qz = kx * ly - ky * lx;
-      if (fabsf(qz) < 1e-12f) qz = 1e-12f;
-      const float u = qx / qz;
-      const float v = qy / qz;
-      const float rho3d = u * u + v * v;
       const float dx = d[C_CX] - px;
       const float dy = d[C_CY] - py;
-      const float rho2d = FILTER_INV_SQUARE * (dx * dx + dy * dy);
-      const bool b3 = rho3d <= rho2d;
-      const float rho = fminf(rho3d, rho2d);
-      const float z = b3 ? u * t20 + v * t21 + t22 : t22;
-      const float G = expf(-0.5f * rho);
+      // surfel intermediates (unused by gauss3d)
+      float kx = 0.f, ky = 0.f, kz = 0.f, lx = 0.f, ly = 0.f, lz = 0.f;
+      float qz = 1.f, u = 0.f, v = 0.f;
+      bool b3 = false, amask;
+      float z, G;
+      if (MODE == GAUSS3D) {
+        const float rho = d[0] * dx * dx + d[2] * dy * dy
+                          + 2.f * d[1] * dx * dy;
+        z = d[3];
+        G = expf(-0.5f * fmaxf(rho, 0.f));
+        amask = rho >= 0.f;
+      } else {
+        kx = d[0] - px * t20;
+        ky = d[1] - px * t21;
+        kz = d[2] - px * t22;
+        lx = d[3] - py * t20;
+        ly = d[4] - py * t21;
+        lz = d[5] - py * t22;
+        const float qx = ky * lz - kz * ly;
+        const float qy = kz * lx - kx * lz;
+        qz = kx * ly - ky * lx;
+        if (fabsf(qz) < 1e-12f) qz = 1e-12f;
+        u = qx / qz;
+        v = qy / qz;
+        const float rho3d = u * u + v * v;
+        const float rho2d = FILTER_INV_SQUARE * (dx * dx + dy * dy);
+        b3 = rho3d <= rho2d;
+        const float rho = fminf(rho3d, rho2d);
+        z = b3 ? u * t20 + v * t21 + t22 : t22;
+        G = expf(-0.5f * rho);
+        amask = true;
+      }
       const float oG = d[C_OPAC] * G;
       const float a_raw = fminf(oG, ALPHA_MAX);
-      const bool contrib = a_raw >= ALPHA_MIN && z >= NEAR_PLANE
+      const bool contrib = amask && a_raw >= ALPHA_MIN && z >= NEAR_PLANE
                            && (float)(ch * CHUNK + j) <= last;
       if (!__any_sync(FULL, contrib)) continue;
 
@@ -216,37 +235,48 @@ raster_blend_bwd_kernel(const float* __restrict__ packed, int n_rows,
         const float g_G = clampm ? g_a * d[C_OPAC] : 0.f;
         const float g_opac = clampm ? g_a * G : 0.f;
         const float g_rho = -0.5f * G * g_G;
-        const float b3f = b3 ? 1.f : 0.f;
-        const float b2f = b3 ? 0.f : 1.f;
-        const float g_u = b3f * (2.f * u * g_rho + g_z * t20);
-        const float g_v = b3f * (2.f * v * g_rho + g_z * t21);
-        const float g_t20 = g_z * u * b3f;
-        const float g_t21 = g_z * v * b3f;
-        const float g_t22 = g_z;
-        const float g_qx = g_u / qz;
-        const float g_qy = g_v / qz;
-        const float g_qzz = -(u * g_u + v * g_v) / qz;
-        const float g_kx = ly * g_qzz - lz * g_qy;
-        const float g_ky = lz * g_qx - lx * g_qzz;
-        const float g_kz = lx * g_qy - ly * g_qx;
-        const float g_lx = g_qy * kz - g_qzz * ky;
-        const float g_ly = g_qzz * kx - g_qx * kz;
-        const float g_lz = g_qx * ky - g_qy * kx;
-        v_out[0] = g_kx;
-        v_out[1] = g_ky;
-        v_out[2] = g_kz;
-        v_out[3] = g_lx;
-        v_out[4] = g_ly;
-        v_out[5] = g_lz;
-        v_out[6] = -px * g_kx - py * g_lx + g_t20;
-        v_out[7] = -px * g_ky - py * g_ly + g_t21;
-        v_out[8] = -px * g_kz - py * g_lz + g_t22;
-        v_out[9] = g_rho * b2f * 2.f * FILTER_INV_SQUARE * dx;
-        v_out[10] = g_rho * b2f * 2.f * FILTER_INV_SQUARE * dy;
-        v_out[11] = g_opac;
-        v_out[12] = g_n0 * w;
-        v_out[13] = g_n1 * w;
-        v_out[14] = g_n2 * w;
+        if (MODE == GAUSS3D) {
+          // rho = a dx^2 + c dy^2 + 2 b dx dy, dx = cx - px; z: column 3
+          v_out[0] = g_rho * dx * dx;
+          v_out[1] = 2.f * g_rho * dx * dy;
+          v_out[2] = g_rho * dy * dy;
+          v_out[3] = g_z;
+          v_out[9] = g_rho * (2.f * d[0] * dx + 2.f * d[1] * dy);
+          v_out[10] = g_rho * (2.f * d[2] * dy + 2.f * d[1] * dx);
+          v_out[11] = g_opac;
+        } else {
+          const float b3f = b3 ? 1.f : 0.f;
+          const float b2f = b3 ? 0.f : 1.f;
+          const float g_u = b3f * (2.f * u * g_rho + g_z * t20);
+          const float g_v = b3f * (2.f * v * g_rho + g_z * t21);
+          const float g_t20 = g_z * u * b3f;
+          const float g_t21 = g_z * v * b3f;
+          const float g_t22 = g_z;
+          const float g_qx = g_u / qz;
+          const float g_qy = g_v / qz;
+          const float g_qzz = -(u * g_u + v * g_v) / qz;
+          const float g_kx = ly * g_qzz - lz * g_qy;
+          const float g_ky = lz * g_qx - lx * g_qzz;
+          const float g_kz = lx * g_qy - ly * g_qx;
+          const float g_lx = g_qy * kz - g_qzz * ky;
+          const float g_ly = g_qzz * kx - g_qx * kz;
+          const float g_lz = g_qx * ky - g_qy * kx;
+          v_out[0] = g_kx;
+          v_out[1] = g_ky;
+          v_out[2] = g_kz;
+          v_out[3] = g_lx;
+          v_out[4] = g_ly;
+          v_out[5] = g_lz;
+          v_out[6] = -px * g_kx - py * g_lx + g_t20;
+          v_out[7] = -px * g_ky - py * g_ly + g_t21;
+          v_out[8] = -px * g_kz - py * g_lz + g_t22;
+          v_out[9] = g_rho * b2f * 2.f * FILTER_INV_SQUARE * dx;
+          v_out[10] = g_rho * b2f * 2.f * FILTER_INV_SQUARE * dy;
+          v_out[11] = g_opac;
+          v_out[12] = g_n0 * w;
+          v_out[13] = g_n1 * w;
+          v_out[14] = g_n2 * w;
+        }
 #pragma unroll
         for (int c = 0; c < MAXC; ++c)
           if (c < C) v_out[15 + c] = g_col[c] * w;
@@ -281,18 +311,24 @@ raster_blend_bwd_kernel(const float* __restrict__ packed, int n_rows,
 }  // namespace
 
 // Launches K2 on `stream`; returns cudaGetLastError() (0 = launched).
-// fwd, gout: (C + 11, tiles_y*16, tiles_x*16) f32 training planes and their
-// cotangents; gpacked: (n_rows, 32) f32, zeroed by the caller, receives the
-// table gradient with the per-splat wet in column 31.
+// mode: 0 surfel, 1 gauss3d. fwd, gout: (C + 11, tiles_y*16, tiles_x*16)
+// f32 training planes and their cotangents; gpacked: (n_rows, 32) f32,
+// zeroed by the caller, receives the table gradient with the per-splat wet
+// in column 31.
 extern "C" int raster_blend_bwd(const float* packed, int n_rows,
                                 const int32_t* gauss_idx, int n_idx,
                                 const int32_t* bounds, int C, int tiles_x,
-                                int tiles_y, int row_off, const float* fwd,
-                                const float* gout, float* gpacked,
-                                void* stream) {
-  raster_blend_bwd_kernel<<<tiles_x * tiles_y, NPIX, 0,
-                            (cudaStream_t)stream>>>(
-      packed, n_rows, gauss_idx, n_idx, bounds, C, tiles_x, tiles_y, row_off,
-      fwd, gout, gpacked);
+                                int tiles_y, int row_off, int mode,
+                                const float* fwd, const float* gout,
+                                float* gpacked, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (mode == GAUSS3D)
+    raster_blend_bwd_kernel<GAUSS3D><<<tiles_x * tiles_y, NPIX, 0, st>>>(
+        packed, n_rows, gauss_idx, n_idx, bounds, C, tiles_x, tiles_y,
+        row_off, fwd, gout, gpacked);
+  else
+    raster_blend_bwd_kernel<SURFEL><<<tiles_x * tiles_y, NPIX, 0, st>>>(
+        packed, n_rows, gauss_idx, n_idx, bounds, C, tiles_x, tiles_y,
+        row_off, fwd, gout, gpacked);
   return (int)cudaGetLastError();
 }

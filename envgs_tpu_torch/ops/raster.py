@@ -5,14 +5,16 @@
 and decodes to the JAX package's RasterOutput contract. Two paths:
 
 - render (`needs` all False): the unaligned layout, no training outputs;
-- training (`needs` all True with a `wet_zero` hook): the chunk-aligned
-  layout, distortion, median depth (detached), the distortion moments
-  d1/d2, and autodiff through the blend's reverse walk. Per-splat wet
-  arrives as the gradient of `wet_zero`, and screen-space densification
-  gradients as the gradient of `means2d_zero`.
+- training (`needs` all True): the chunk-aligned layout, distortion,
+  median depth (detached), the distortion moments d1/d2, and autodiff
+  through the blend's reverse walk. Screen-space densification gradients
+  arrive as the gradient of `means2d_zero`. Per-splat wet arrives as the
+  gradient of the `wet_zero` hook when one is given (RasterOutput.wet is
+  then zeros); without it, K1 writes each pair's wet and a per-splat sum
+  (`index_add_`) gives RasterOutput.wet, as the JAX package's segment sum.
 
-The JAX package's other combinations (forward wet through a segment sum,
-`needs[2]` without the hook) are not ported: they raise.
+The JAX package's partial `needs` (some training outputs without the
+others) are not ported: they raise.
 """
 from __future__ import annotations
 
@@ -69,6 +71,19 @@ def _pack_table(prep: PreparedSplats,
     return torch.nn.functional.pad(packed, (0, LO - packed.shape[1], 0, 1))
 
 
+def splat_wet(wet_pairs: torch.Tensor, gauss_idx: torch.Tensor,
+              order: torch.Tensor) -> torch.Tensor:
+    """Per-pair forward wet -> (P,) per-splat sums in pool order (the JAX
+    package's segment sum over the depth-sorted splat ids, scattered back
+    through the depth order)."""
+    P = order.shape[0]
+    sums = torch.zeros(P + 1, dtype=torch.float32, device=wet_pairs.device)
+    sums.index_add_(0, gauss_idx.to(torch.int64), wet_pairs)
+    wet = torch.zeros(P, dtype=torch.float32, device=wet_pairs.device)
+    wet[order] = sums[:P]
+    return wet
+
+
 def rasterize(
     prep: PreparedSplats,
     cam: Camera,
@@ -80,15 +95,15 @@ def rasterize(
 ) -> RasterOutput:
     """Rasterize prepared splats into the raw output maps.
 
-    needs = (need_dist, need_med, need_wet): all False is the render path;
-    all True with the (P,) zeros hook `wet_zero` is the training path, whose
-    RasterOutput.wet is exact zeros (wet is the hook's gradient)."""
-    train = all(needs) and wet_zero is not None
+    needs = (need_dist, need_med, need_wet): all False is the render path,
+    all True the training path. With the (P,) zeros hook `wet_zero` the
+    per-splat wet is the hook's gradient and RasterOutput.wet is exact
+    zeros; without it RasterOutput.wet is the forward wet (detached)."""
+    train = all(needs)
     if any(needs) and not train:
         raise NotImplementedError(
-            f"rasterize needs={needs}, wet_zero given: {wet_zero is not None}"
-            ": the train path needs all three outputs and the wet_zero hook "
-            "(forward wet through a segment sum is not ported)")
+            f"rasterize needs={needs}: the train path computes all three "
+            "training outputs")
     prep = _shift_tmat(prep, means2d_zero)
     C = prep.color.shape[-1]
     H, W = cam.H, cam.W
@@ -96,10 +111,15 @@ def rasterize(
     bins = bin_splats(prep, H, W, TILE, pair_cap, align=CHUNK,
                       lowpass_r=ROWCULL_LOWPASS_R, aligned=train)
     packed = _pack_table(prep, bins.order)
+    wet = torch.zeros(P, dtype=torch.float32, device=packed.device)
     if train:
-        wz = torch.nn.functional.pad(wet_zero[bins.order], (0, 1))
-        img = blend_tiles_train(packed, wz, bins.gauss_idx, bins.tile_bounds,
-                                C, bins.tiles_x, bins.tiles_y)
+        wz = (None if wet_zero is None
+              else torch.nn.functional.pad(wet_zero[bins.order], (0, 1)))
+        img, wet_pairs = blend_tiles_train(
+            packed, wz, bins.gauss_idx, bins.tile_bounds, C, bins.tiles_x,
+            bins.tiles_y, fwd_wet=wet_zero is None)
+        if wet_zero is None:
+            wet = splat_wet(wet_pairs, bins.gauss_idx, bins.order)
         r = rows(C)
     else:
         img = blend_tiles(packed, bins.gauss_idx, bins.tile_bounds, C,
@@ -118,7 +138,7 @@ def rasterize(
         normal=img[r["normal"]:r["normal"] + 3].permute(1, 2, 0),
         depth_median=img[r["med"]].detach() if train else zeros,
         distortion=img[r["dist"]] if train else zeros,
-        wet=torch.zeros(P, dtype=torch.float32, device=img.device),
+        wet=wet,
         radii=prep.radius,
         trans=trans,
         num_pairs=bins.num_pairs,

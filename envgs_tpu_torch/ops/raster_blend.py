@@ -1,10 +1,16 @@
-"""Per-tile surfel blend of the rasterizer and its backward: the plain
-PyTorch versions and the wrappers of their CUDA kernels K1 (forward) and K2
+"""Per-tile blend of the rasterizer and its backward: the plain PyTorch
+versions and the wrappers of their CUDA kernels K1 (forward) and K2
 (backward) (the two blend kernels of envgs_tpu/ops/raster_pallas.py).
 
 Both directions take the depth-permuted per-splat table `packed` ((P+1, LO)
 f32, last row the zero sentinel; column layout below), the per-pair splat
-indices of `ops/binning.py::bin_splats` and the per-tile pair ranges.
+indices of `ops/binning.py::bin_splats` and the per-tile pair ranges. Two
+geometries (`mode`), as in the JAX kernels' `_splat_pixel_terms`:
+- "surfel" (2DGS): a ray-plane intersection through the 3x3 screen
+  transform in columns 0-8, floored by the 2D low-pass circle;
+- "gauss3d" (3DGS, EWA): the screen conic (a, b, c) in columns 0-2 and
+  the splat's view depth in column 3 (columns 4-8 and the normal columns
+  zero), rho = a dx^2 + c dy^2 + 2 b dx dy.
 
 Forward, image-layout planes (F, tiles_y*16, tiles_x*16):
 - render mode (`train=False`, unaligned layout): F = C + 6, planes C
@@ -14,6 +20,9 @@ Forward, image-layout planes (F, tiles_y*16, tiles_x*16):
   depth, distortion, final T, the distortion moments D1 = sum w m and
   D2 = sum w m^2 of m = map_depth(z), and `last`, the rank (pair offset
   within the tile) of the last contributing pair, -1 if none.
+With `wet`, the forward also returns the per-pair blend weight ("wet", the
+sum over the tile's pixels of the pair's w), one value per pair slot of
+`gauss_idx` (zero outside the tiles' ranges and past a tile's early stop).
 
 Blend rule (the JAX kernel's, kept exactly): each tile walks its pairs in
 64-pair windows that start at `start - start % 8` (in the aligned layout,
@@ -28,9 +37,10 @@ Backward (`blend_tiles_bwd`, the reverse walk of raster_pallas._bwd_kernel):
 per tile, windows in reverse from the last one holding a contributor; the
 contributing set is the JAX backward's, `amask & (rank <= last)`, with T
 rebuilt as T_fin * exp(-suffix sum of log(1 - a)). It returns the
-gradient of the per-splat table (P+1, LO): each pair's gradient row (tmat
-9, center 2, opacity, normal 3, colors C) is added into its splat's row,
-and the pair's forward-exact blend weight ("wet": its w where the forward's
+gradient of the per-splat table (P+1, LO): each pair's gradient row
+(surfel: tmat 9, center 2, opacity, normal 3, colors C; gauss3d: conic 3,
+depth, center 2, opacity, colors C) is added into its splat's row, and
+the pair's forward-exact blend weight ("wet": its w where the forward's
 own transmittance test passes) into column WET_COL. The plain version is
 that reverse loop written out, not autograd of the plain forward (which
 would differentiate a different contributing set).
@@ -55,7 +65,8 @@ CHUNK = 64
 LO = 32  # packed row width
 WET_COL = LO - 1  # gradient column carrying each splat's summed wet
 # packed column layout (shared with envgs_tpu.ops.raster_pallas)
-_C_TMAT = 0  # 9 floats, row-major (x-row, y-row, w-row over (u, v, 1))
+_C_TMAT = 0  # surfel: 9 floats, row-major (x-row, y-row, w-row over
+#   (u, v, 1)); gauss3d: conic (a, b, c) at 0-2, view depth at 3
 _C_CX = 9
 _C_CY = 10
 _C_OPAC = 11
@@ -118,6 +129,27 @@ def _window_index(gauss_idx, start, end, base, P, live=None):
     return torch.where(inb, g.to(torch.int64), P)
 
 
+def _gauss3d_terms(col, px, py):
+    """The JAX kernel's `_splat_pixel_terms` (gauss3d mode), as
+    _surfel_terms; z is the splat's view depth, (T, 1)."""
+    ca, cb, cc, z = col[0], col[1], col[2], col[3]
+    dx = col[_C_CX] - px
+    dy = col[_C_CY] - py
+    rho = ca * dx * dx + cc * dy * dy + 2.0 * cb * dx * dy
+    G = torch.exp(-0.5 * torch.clamp(rho, min=0.0))
+    oG = col[_C_OPAC] * G
+    a = torch.clamp(oG, max=ALPHA_MAX)
+    amask = (a >= ALPHA_MIN) & (rho >= 0.0) & (z >= NEAR_PLANE)
+    return dict(a=a, amask=amask, clampm=oG < ALPHA_MAX, G=G, z=z, dx=dx,
+                dy=dy)
+
+
+def _terms(mode: str):
+    if mode not in ("surfel", "gauss3d"):
+        raise ValueError(f"mode={mode!r}: 'surfel' or 'gauss3d'")
+    return _surfel_terms if mode == "surfel" else _gauss3d_terms
+
+
 def _surfel_terms(col, px, py):
     """The JAX kernel's `_splat_pixel_terms` (surfel mode) for one pair per
     tile: col is the LO columns, each (T, 1); px, py (T, NPIX)."""
@@ -150,12 +182,28 @@ def _surfel_terms(col, px, py):
                 l=(lx, ly, lz))
 
 
+def _pixel_sum(x: torch.Tensor) -> torch.Tensor:
+    """(T, NPIX) -> (T,) sums over each tile's pixels in K1's order: a
+    halving tree within each 32-pixel warp (its shuffles), then the warps'
+    sums one after another, so kernel and plain version agree to the bit."""
+    x = x.reshape(x.shape[0], NPIX // 32, 32)
+    for o in (16, 8, 4, 2, 1):
+        x = x[..., :o] + x[..., o:2 * o]
+    s = x[:, 0, 0]
+    for k in range(1, NPIX // 32):
+        s = s + x[:, k, 0]
+    return s
+
+
 def blend_tiles_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
                       tile_bounds: torch.Tensor, C: int, tiles_x: int,
                       tiles_y: int, row_off: int = 0,
-                      train: bool = False) -> torch.Tensor:
+                      train: bool = False, mode: str = "surfel",
+                      wet: bool = False):
     """Plain PyTorch version of kernel K1, vectorized over tiles and pixels
-    with a loop over windows and the pairs of a window."""
+    with a loop over windows and the pairs of a window. -> planes, or
+    (planes, per-pair wet (gauss_idx.numel(),)) with `wet`."""
+    terms = _terms(mode)
     dev = packed.device
     T = tiles_x * tiles_y
     P = packed.shape[0] - 1
@@ -170,19 +218,25 @@ def blend_tiles_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
     dep, alp, dist, d1, d2, med = (zeros() for _ in range(6))
     last = torch.full((T, NPIX), -1.0, device=dev)
     trans = torch.ones((T, NPIX), dtype=torch.float32, device=dev)
+    wet_pairs = torch.zeros(gauss_idx.shape[0], dtype=torch.float32,
+                            device=dev)
     for c in range(nwin):
         rows_c = packed[_window_index(gauss_idx, start, end,
                                       wstart + c * CHUNK, P)]
         fail = torch.zeros((T, NPIX), dtype=torch.bool, device=dev)
         for j in range(CHUNK):
             col = rows_c[:, j, :, None].unbind(1)  # LO x (T, 1)
-            s = _surfel_terms(col, px, py)
+            s = terms(col, px, py)
             a, z = s["a"], s["z"]
             test = trans * (1.0 - a)
             passed = test >= T_CUTOFF
             contrib = s["amask"] & ~fail & passed
             fail = fail | (s["amask"] & ~passed)
             w = torch.where(contrib, a * trans, 0.0)
+            if wet:
+                i = wstart + c * CHUNK + j
+                inb = (i >= start) & (i < end)
+                wet_pairs[i[inb]] = _pixel_sum(w)[inb]
             if train:
                 m = _map_depth(z)
                 wm = w * m
@@ -202,30 +256,35 @@ def blend_tiles_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
         planes = color + [dep, alp] + nrm + [med, dist, trans, d1, d2, last]
     else:
         planes = color + [dep, alp] + nrm + [trans]
-    return _to_image(torch.stack(planes), tiles_x, tiles_y)
+    img = _to_image(torch.stack(planes), tiles_x, tiles_y)
+    return (img, wet_pairs) if wet else img
 
 
 def blend_tiles(packed: torch.Tensor, gauss_idx: torch.Tensor,
                 tile_bounds: torch.Tensor, C: int, tiles_x: int, tiles_y: int,
-                row_off: int = 0, train: bool = False) -> torch.Tensor:
+                row_off: int = 0, train: bool = False, mode: str = "surfel",
+                wet: bool = False):
     """The tile blend: kernel K1 on a CUDA tensor, the plain version on a
     CPU tensor."""
     if packed.device.type == "cpu":
         return blend_tiles_torch(packed, gauss_idx, tile_bounds, C, tiles_x,
-                                 tiles_y, row_off, train)
+                                 tiles_y, row_off, train, mode, wet)
     return kernels.raster_blend_fwd(packed, gauss_idx, tile_bounds, C,
-                                    tiles_x, tiles_y, row_off, train)
+                                    tiles_x, tiles_y, row_off, train, mode,
+                                    wet)
 
 
 def blend_tiles_bwd_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
                           tile_bounds: torch.Tensor, out: torch.Tensor,
                           g_out: torch.Tensor, C: int, tiles_x: int,
-                          tiles_y: int, row_off: int = 0) -> torch.Tensor:
+                          tiles_y: int, row_off: int = 0,
+                          mode: str = "surfel") -> torch.Tensor:
     """Plain PyTorch version of kernel K2: the reverse walk of the JAX
     backward kernel, vectorized over tiles and pixels, pairs in reverse.
     out / g_out: the training forward's planes and their cotangents
     (C + 11, tiles_y*16, tiles_x*16) -> (P+1, LO) table gradient with the
     per-splat wet in column WET_COL."""
+    terms = _terms(mode)
     dev = packed.device
     T = tiles_x * tiles_y
     r = rows(C)
@@ -255,8 +314,8 @@ def blend_tiles_bwd_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
         grads = torch.zeros((T, CHUNK, LO), dtype=torch.float32, device=dev)
         for j in range(CHUNK - 1, -1, -1):
             col = rows_c[:, j, :, None].unbind(1)  # LO x (T, 1)
-            s = _surfel_terms(col, px, py)
-            z, u, v, qz = s["z"], s["u"], s["v"], s["qz"]
+            s = terms(col, px, py)
+            z = s["z"]
             contrib = s["amask"] & (float(c * CHUNK + j) <= last)
             a = torch.where(contrib, s["a"], 0.0)
             om = 1.0 - a
@@ -294,6 +353,21 @@ def blend_tiles_bwd_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
             g_G = g_a * col[_C_OPAC] * clampm
             g_opac = g_a * s["G"] * clampm
             g_rho = -0.5 * s["G"] * g_G
+            wet = torch.where(T_bef * om >= T_CUTOFF, w, 0.0)
+            g_col = [g[i] * w for i in range(C)]
+            if mode == "gauss3d":
+                ca, cb, cc = col[0], col[1], col[2]
+                dx, dy = s["dx"], s["dy"]
+                zero = torch.zeros_like(w)
+                cols = ([g_rho * dx * dx, 2.0 * g_rho * dx * dy,
+                         g_rho * dy * dy, g_z] + [zero] * 5
+                        + [g_rho * (2.0 * ca * dx + 2.0 * cb * dy),
+                           g_rho * (2.0 * cc * dy + 2.0 * cb * dx), g_opac]
+                        + [zero] * 3 + g_col)
+                grads[:, j, :len(cols)] = torch.stack(cols, -1).sum(1)
+                grads[:, j, WET_COL] = wet.sum(1)
+                continue
+            u, v, qz = s["u"], s["v"], s["qz"]
             cf = contrib.to(torch.float32)
             b3f = s["b3"].to(torch.float32) * cf
             b2f = (1.0 - s["b3"].to(torch.float32)) * cf
@@ -318,10 +392,8 @@ def blend_tiles_bwd_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
                     -px * g_kz - py * g_lz + g_t22)
             g_cx = g_rho * b2f * 2.0 * FILTER_INV_SQUARE * s["dx"]
             g_cy = g_rho * b2f * 2.0 * FILTER_INV_SQUARE * s["dy"]
-            wet = torch.where(T_bef * om >= T_CUTOFF, w, 0.0)
             cols = ([g_kx, g_ky, g_kz, g_lx, g_ly, g_lz, *g_T2, g_cx, g_cy,
-                     g_opac] + [g_nrm[i] * w for i in range(3)]
-                    + [g[i] * w for i in range(C)])
+                     g_opac] + [g_nrm[i] * w for i in range(3)] + g_col)
             grads[:, j, :len(cols)] = torch.stack(cols, -1).sum(1)
             grads[:, j, WET_COL] = wet.sum(1)
         g_packed.index_add_(0, gi.reshape(-1), grads.reshape(-1, LO))
@@ -333,44 +405,53 @@ def blend_tiles_bwd_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
 def blend_tiles_bwd(packed: torch.Tensor, gauss_idx: torch.Tensor,
                     tile_bounds: torch.Tensor, out: torch.Tensor,
                     g_out: torch.Tensor, C: int, tiles_x: int, tiles_y: int,
-                    row_off: int = 0) -> torch.Tensor:
+                    row_off: int = 0, mode: str = "surfel") -> torch.Tensor:
     """The blend backward: kernel K2 on a CUDA tensor, the plain version on
     a CPU tensor."""
     if packed.device.type == "cpu":
         return blend_tiles_bwd_torch(packed, gauss_idx, tile_bounds, out,
-                                     g_out, C, tiles_x, tiles_y, row_off)
+                                     g_out, C, tiles_x, tiles_y, row_off,
+                                     mode)
     return kernels.raster_blend_bwd(packed, gauss_idx, tile_bounds, out,
-                                    g_out, C, tiles_x, tiles_y, row_off)
+                                    g_out, C, tiles_x, tiles_y, row_off,
+                                    mode)
 
 
 class _BlendTrain(torch.autograd.Function):
-    """Training-mode blend with its reverse-walk backward. wet_zero (P+1,)
-    is a zeros hook: the forward ignores it, its gradient is the per-splat
-    wet (the table gradient's column WET_COL, which is a padding column of
-    the table and so dropped by the table's own construction)."""
+    """Training-mode blend with its reverse-walk backward. wet_zero (P+1,),
+    when given, is a zeros hook: the forward ignores it, its gradient is the
+    per-splat wet (the table gradient's column WET_COL, which is a padding
+    column of the table and so dropped by the table's own construction).
+    The forward per-pair wet, when asked for, is not differentiable."""
 
     @staticmethod
     def forward(ctx, packed, wet_zero, gauss_idx, tile_bounds, C, tiles_x,
-                tiles_y):
+                tiles_y, mode, fwd_wet):
         out = blend_tiles(packed, gauss_idx, tile_bounds, C, tiles_x,
-                          tiles_y, train=True)
+                          tiles_y, train=True, mode=mode, wet=fwd_wet)
+        out, wet = out if fwd_wet else (out, packed.new_zeros(0))
+        ctx.mark_non_differentiable(wet)
         ctx.save_for_backward(packed, gauss_idx, tile_bounds, out)
-        ctx.dims = (C, tiles_x, tiles_y)
-        return out
+        ctx.dims = (C, tiles_x, tiles_y, 0, mode)
+        return out, wet
 
     @staticmethod
-    def backward(ctx, g_out):
+    def backward(ctx, g_out, _g_wet):
         packed, gauss_idx, tile_bounds, out = ctx.saved_tensors
         g = blend_tiles_bwd(packed, gauss_idx, tile_bounds, out,
                             g_out.contiguous(), *ctx.dims)
-        return g, g[:, WET_COL], None, None, None, None, None
+        g_wz = g[:, WET_COL] if ctx.needs_input_grad[1] else None
+        return g, g_wz, None, None, None, None, None, None, None
 
 
-def blend_tiles_train(packed: torch.Tensor, wet_zero: torch.Tensor,
+def blend_tiles_train(packed: torch.Tensor, wet_zero: torch.Tensor | None,
                       gauss_idx: torch.Tensor, tile_bounds: torch.Tensor,
-                      C: int, tiles_x: int, tiles_y: int) -> torch.Tensor:
-    """Training-mode tile blend (aligned layout) -> (C + 11, H', W') planes
-    in `rows(C)` order, differentiable in `packed` and (through the wet
-    lane) in the `wet_zero` hook."""
-    return _BlendTrain.apply(packed, wet_zero, gauss_idx, tile_bounds, C,
-                             tiles_x, tiles_y)
+                      C: int, tiles_x: int, tiles_y: int, mode: str = "surfel",
+                      fwd_wet: bool = False):
+    """Training-mode tile blend (aligned layout) -> ((C + 11, H', W')
+    planes in `rows(C)` order, differentiable in `packed` and (through the
+    wet lane) in the `wet_zero` hook; the forward per-pair wet
+    (gauss_idx.numel(),) with `fwd_wet`, else None)."""
+    out, wet = _BlendTrain.apply(packed, wet_zero, gauss_idx, tile_bounds, C,
+                                 tiles_x, tiles_y, mode, fwd_wet)
+    return out, (wet if fwd_wet else None)

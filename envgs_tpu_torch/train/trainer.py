@@ -141,37 +141,41 @@ def _np(x):
     return x.detach().cpu().numpy()
 
 
+def pool_state_to_numpy(pool: G.GaussianPool, opt: AdamState) -> dict:
+    """{"params", "stats", "mu", "nu": {field: array}, "step": int,
+    "max_sh_degree": int} of one pool and its Adam state."""
+    params, stats = G.pool_to_numpy(pool)
+    return dict(params=params, stats=stats,
+                mu={k: _np(v) for k, v in opt.mu._asdict().items()},
+                nu={k: _np(v) for k, v in opt.nu._asdict().items()},
+                step=int(opt.step), max_sh_degree=pool.max_sh_degree)
+
+
+def pool_state_from_numpy(s: dict, device=None):
+    """Inverse of pool_state_to_numpy -> (pool, AdamState). Parameter dicts
+    may carry the JAX package's temporal fields as None (the static
+    families)."""
+    def params(fields):
+        return G.GaussianParams(*(
+            torch.tensor(np.asarray(fields[k]), dtype=torch.float32,
+                         device=device)
+            for k in G.GaussianParams._fields))
+
+    return (G.pool_from_numpy(s["params"], s["stats"], s["max_sh_degree"],
+                              device),
+            AdamState(params(s["mu"]), params(s["nu"]),
+                      torch.tensor(int(s["step"]), dtype=torch.int32,
+                                   device=device)))
+
+
 def state_to_numpy(state: TrainState) -> dict:
-    """{"base"|"env": {"params", "stats", "mu", "nu": {field: array},
-    "step": int, "max_sh_degree": int}}."""
-    out = {}
-    for name, pool, opt in (("base", state.base, state.opt_base),
-                            ("env", state.env, state.opt_env)):
-        params, stats = G.pool_to_numpy(pool)
-        out[name] = dict(
-            params=params, stats=stats,
-            mu={k: _np(v) for k, v in opt.mu._asdict().items()},
-            nu={k: _np(v) for k, v in opt.nu._asdict().items()},
-            step=int(opt.step), max_sh_degree=pool.max_sh_degree)
-    return out
+    """{"base"|"env": pool_state_to_numpy of that pool}."""
+    return {"base": pool_state_to_numpy(state.base, state.opt_base),
+            "env": pool_state_to_numpy(state.env, state.opt_env)}
 
 
 def state_from_numpy(d: dict, device=None) -> TrainState:
-    """Inverse of state_to_numpy. Parameter dicts may carry the JAX
-    package's temporal fields as None (the static families)."""
-    pools, opts = [], []
-    for name in ("base", "env"):
-        s = d[name]
-        pools.append(G.pool_from_numpy(s["params"], s["stats"],
-                                       s["max_sh_degree"], device))
-
-        def params(fields):
-            return G.GaussianParams(*(
-                torch.tensor(np.asarray(fields[k]), dtype=torch.float32,
-                             device=device)
-                for k in G.GaussianParams._fields))
-
-        opts.append(AdamState(params(s["mu"]), params(s["nu"]),
-                              torch.tensor(int(s["step"]), dtype=torch.int32,
-                                           device=device)))
-    return TrainState(pools[0], pools[1], opts[0], opts[1])
+    """Inverse of state_to_numpy."""
+    (base, opt_base), (env, opt_env) = (
+        pool_state_from_numpy(d[k], device) for k in ("base", "env"))
+    return TrainState(base, env, opt_base, opt_env)

@@ -11,6 +11,10 @@ import torch
 from envgs_tpu_torch import bench, kernels
 from envgs_tpu_torch.models.envgs import EnvGSConfig
 from envgs_tpu_torch.models.gaussians import create_pool
+from envgs_tpu_torch.models.gaussiant import (
+    GaussianTConfig,
+    init_gaussiant_pool,
+)
 from envgs_tpu_torch.ops.fill_forward import fill_forward, fill_forward_torch
 from envgs_tpu_torch.ops.raster_blend import (
     blend_tiles,
@@ -178,3 +182,51 @@ def test_train_trace_kernels_match_plain(cuda):
     _close_columns(got_rays[:, :6].transpose(0, 1).reshape(6, -1).T,
                    ref_rays[:, :6].transpose(0, 1).reshape(6, -1).T)
     assert float(ref_rays.abs().max()) > 0
+
+
+def _gaussiant_inputs(device):
+    """K1 arguments (gauss3d, aligned layout) of a small 3DGS render: 600
+    Gaussians with anisotropic scales, 80x104 pixels."""
+    rng = np.random.default_rng(8)
+    P, H, W = 600, 80, 104
+    xyz = np.concatenate([rng.normal(size=(P, 2)) * 0.7,
+                          rng.random((P, 1)) * 2 + 2.0], -1).astype(np.float32)
+    cfg = GaussianTConfig(pair_cap=2 ** 15)
+    pool = init_gaussiant_pool(xyz, rng.random((P, 3)).astype(np.float32), P,
+                               cfg, init_opacity=0.7, device=device)
+    pool = pool._replace(params=pool.params._replace(scaling=torch.tensor(
+        np.log(rng.uniform(0.01, 0.08, (P, 3))).astype(np.float32),
+        device=device)))
+    f = 0.9 * W
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    cam = make_camera(H, W, K, np.eye(3, dtype=np.float32),
+                      np.zeros(3, np.float32), device=device)
+    return bench.gaussiant_blend_inputs(pool, cam, cfg)[0]
+
+
+def test_gauss3d_raster_kernels_match_plain(cuda):
+    """K1 in gauss3d mode with the per-pair forward wet, and K2 in gauss3d
+    mode on a random cotangent of every plane: counted under their own
+    LAUNCHES keys, the surfel keys untouched; K2's tmat columns 4-8 and
+    normal columns 12-14 exactly zero."""
+    args = _gaussiant_inputs(cuda)
+    before = dict(kernels.LAUNCHES)
+    out, wet = blend_tiles(*args, train=True, mode="gauss3d", wet=True)
+    want, want_wet = blend_tiles_torch(*args, train=True, mode="gauss3d",
+                                       wet=True)
+    assert float((out - want).abs().max()) <= ATOL
+    assert float((wet - want_wet).abs().max()) <= ATOL
+    assert float(want_wet.max()) > 1.0 and float(want[args[3] + 1].max()) > 0.9
+    g_out = _cotangent(out, 3)
+    got = blend_tiles_bwd(*args[:3], out, g_out, *args[3:], mode="gauss3d")
+    torch.cuda.synchronize()
+    rose = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    assert rose == {**{k: 0 for k in before}, "raster_blend_fwd_gauss3d": 1,
+                    "raster_blend_bwd_gauss3d": 1}
+    ref = blend_tiles_bwd_torch(*args[:3], out, g_out, *args[3:],
+                                mode="gauss3d")
+    C = args[3]
+    cols = [0, 1, 2, 3, 9, 10, 11] + list(range(15, 15 + C)) + [31]
+    _close_columns(got[:, cols], ref[:, cols])
+    unused = [4, 5, 6, 7, 8, 12, 13, 14]
+    assert not got[:, unused].any() and not ref[:, unused].any()

@@ -115,15 +115,42 @@ def test_rasterize_matches_jax():
                                   np.asarray(jdec.visibility))
 
 
+def test_rasterize_forward_wet_matches_jax():
+    """needs all on and no wet_zero hook: the training outputs and the
+    forward per-splat wet (K1's per-pair wet summed per splat) against JAX
+    rasterize with needs=(True, True, True), from JAX's own prepared
+    splats."""
+    K = _K(H, W)
+    jc = make_camera(H, W, K, np.eye(3, dtype=np.float32),
+                     np.zeros(3, np.float32))
+    tc = tcam.make_camera(H, W, K, np.eye(3, dtype=np.float32),
+                          np.zeros(3, np.float32))
+    bg = np.array([0.2, 0.4, 0.6], np.float32)
+    jp = jax.jit(lambda *a: prepare_splats(*a, jc))(*_scene(C=3, seed=2))
+    jout = jax.jit(lambda p: jraster.rasterize(
+        p, jc, jnp.asarray(bg), backend="pallas_interp", pair_cap=4096,
+        needs=(True, True, True)))(jp)
+    tp = tcommon.PreparedSplats(*(torch.tensor(np.asarray(x)) for x in jp))
+    tout = traster.rasterize(tp, tc, torch.tensor(bg), pair_cap=4096,
+                             needs=(True, True, True))
+    for name in ("rgb", "alpha", "depth_expected", "normal", "depth_median",
+                 "distortion", "trans", "d1", "d2", "wet"):
+        np.testing.assert_allclose(getattr(tout, name).numpy(),
+                                   np.asarray(getattr(jout, name)),
+                                   atol=ATOL, err_msg=name)
+    jwet = np.asarray(jout.wet)
+    assert (jwet > 1.0).sum() > 20 and (jwet == 0).any()
+    np.testing.assert_array_equal(tout.wet.numpy() == 0, jwet == 0)
+
+
 def test_training_outputs_raise():
-    """The training outputs come only with the wet_zero hook (forward wet
-    through a segment sum is not ported; tests/test_torch_train_raster.py
-    covers the training path)."""
+    """The training outputs come all together: a partial `needs` raises
+    (tests/test_torch_train_raster.py covers the training path)."""
     tc = tcam.make_camera(16, 16, _K(16, 16), np.eye(3, dtype=np.float32),
                           np.zeros(3, np.float32))
     prep = tcommon.prepare_splats(*map(torch.tensor, _scene(P=8, C=3)), tc)
     with pytest.raises(NotImplementedError, match="train"):
-        traster.rasterize(prep, tc, torch.zeros(3), needs=(True, True, True))
+        traster.rasterize(prep, tc, torch.zeros(3), needs=(True, False, False))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -144,7 +171,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                 planes[:13], planes[:13], 1, 1)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.fill_forward(torch.zeros(3, 64, dtype=torch.int32), idx)
-    assert set(kernels.LAUNCHES) == {"raster_blend_fwd", "raster_blend_bwd",
-                                     "trace_blend_fwd", "trace_blend_bwd",
-                                     "fill_forward"}
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.raster_blend_fwd(packed, idx, bounds, 3, 1, 1, mode="gauss3d",
+                                 wet=True)
+    assert set(kernels.LAUNCHES) == {
+        "raster_blend_fwd", "raster_blend_fwd_gauss3d", "raster_blend_bwd",
+        "raster_blend_bwd_gauss3d", "trace_blend_fwd", "trace_blend_bwd",
+        "fill_forward"}
     assert not any(kernels.LAUNCHES.values())
