@@ -41,11 +41,30 @@ Phases, one or more lines each:
      gauss3d K1 and K2 once, train steps/s; gaussiant_maintenance at
      it=600 (densify) and it=3000 (SH one-up, densify, opacity reset) on
      the statistics those steps gathered, active counts and ms; 3 more
-     steps with finite loss and params; peak device memory.
+     steps with finite loss and params; peak device memory;
+ 12. K6 (segmented scan) on (2^21, 128) f32 with about 500 000 random
+     segment starts and one segment of 5000 rows, and P1 / P2 (row gathers)
+     at the probe's sizes (a 500 000-row table, 2^21 indices) for bf16 and
+     f32, against their plain versions (K6 rtol 1e-5 / atol 1e-4, P1 / P2
+     bit-equal); median ms of each, of `table[idx]`, the bytes each moved;
+ 13. small run: the compressed 30-iteration schedule (every maintenance
+     event) through the Runner on a small scene, CUDA against CPU: each
+     iteration starts from the CPU run's state and the same draws; the
+     event logs, the state after maintenance (masks exactly) and after the
+     step (phase 7's bounds) compared per iteration;
+ 14. the run at full width: a Runner on the train bench scene with pools
+     a third larger than their surfels, 4 views on an orbit, the compressed
+     schedule: finite loss and params, every event fired, active counts
+     and opacities as the events leave them, K1-K5 once per step (K3/K4
+     from the reflection gate on), nothing dropped or the cap growth
+     printed; save, resume into a fresh runner (state equal); evaluation
+     of two held-out views in exact order (K1 alone) and radial order (K1
+     and K3); steps/s with maintenance, ms per event, render ms, memory.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -78,6 +97,37 @@ GRAD_RTOL = 1e-4
 LOSS_RTOL = 1e-4
 STEP_RTOL = 5e-4
 FLIP_MAX = 2
+# the small run's steps (phase 13). The step's gradients are held per array
+# at STEP_RTOL of the array's largest, past GRAD_FLOOR. A row may miss that
+# where a discrete choice of the blends falls differently on inputs that
+# differ in their last bits between the devices: the surfel footprint is
+# min(exact, low-pass), and a pixel where the two meet sends its gradient to
+# the transform columns or to the centre (the forward is continuous there,
+# the gradient is not); an env surfel met by a single reflected ray follows
+# that ray's last digits. A surfel of a few pixels shows one such pixel. At
+# most BRANCH_ROWS rows of a pool in one step, each within BRANCH_RTOL
+# (H100 80GB HBM3 against the CPU of its host: 2 rows in the 30 steps, the
+# worse at 4.7e-3; a plain K2 that is 5% off on 2% of the splats fails in
+# every step; phase 6 holds the backward kernels to their plain versions on
+# one set of inputs). The optimizer is held apart: Adam on the
+# CPU, fed the card's gradients, must give the card's parameters and moments
+# within ADAM_RTOL of each array's largest change. Parameters are not
+# compared across the two sets of gradients: Adam's quotient turns a
+# gradient of rounding noise into a move of the size of the learning rate
+# wherever the second moment is as small (a child of a densify, a rotation
+# of an isotropic surfel), whatever the gradient's size
+BRANCH_ROWS = 3
+BRANCH_RTOL = 2e-2
+ADAM_RTOL = 1e-6
+# base surfels of a few pixels, as 0.012 gives at the bench's full size
+SMALL_RUN = dict(P=1500, Pe=400, Ht=48, Wt=64, base_scale=0.1)
+# what float32 cannot tell from rounding in the small run's gradients: the
+# losses are means over the image, so a pixel's cotangent is at most about
+# 1 / pixels, and the blends carry accumulators of size 1 (total alpha, the
+# depth moments, prefixes as total minus suffix) to 2^-23 of themselves.
+# After an opacity reset a pool's largest gradient is only some hundred
+# times this
+GRAD_FLOOR = 2.0 ** -23 / (SMALL_RUN["Ht"] * SMALL_RUN["Wt"])
 # densify_and_prune on one input, CUDA against CPU: per array max|d| /
 # max|ref|; masks and slots exactly. Children are offsets R @ (eps * s):
 # a 3x3 product and an exp, rounded alike up to last bits
@@ -88,6 +138,23 @@ TRAIN_KERNELS = ("raster_blend_fwd", "raster_blend_bwd", "trace_blend_fwd",
 GAUSSIANT_RENDER_KERNELS = ("fill_forward", "raster_blend_fwd_gauss3d")
 GAUSSIANT_TRAIN_KERNELS = GAUSSIANT_RENDER_KERNELS + (
     "raster_blend_bwd_gauss3d",)
+# the card's published peaks (H100 SXM, dense, at the 700 W limit): device
+# memory rate and float32 rate outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# float32 operations per evaluated (slot, pixel) or (slot, ray) pair, read
+# off the kernels' sources: the geometry terms every walked slot pays (a
+# transcendental or a division counted as one operation). The backward
+# kernels add one multiply-add per gradient column they produce. A lower
+# count than the kernels execute (blending, tests, reductions are left
+# out), so the bound stays a bound.
+OPS_SURFEL_TERMS = 44  # raster pixel_terms, surfel: 3x3 transform, low-pass
+OPS_GAUSS3D_TERMS = 16  # raster pixel_terms, gauss3d: the EWA conic
+OPS_RAY_TERMS = 41  # trace: plane hit t, local (u, v), alpha
+# K6 against its plain version: the JAX test's own bound. The kernel sums
+# a 1024-row block sequentially in float32 and adds a carry, the plain
+# version rounds a float64 running sum once
+SEG_RTOL, SEG_ATOL = 1e-5, 1e-4
 
 
 def cuda_ms(fn, n):
@@ -177,6 +244,34 @@ def compare_columns_by_size(name, got, want, cols, rtol):
         raise AssertionError(f"{name} disagrees with its plain version "
                              f"within a decade of row size: {table}")
     return worst
+
+
+def bound_ms(n_bytes, n_ops=0.0):
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes moved once over the memory rate and the float32 operations
+    over the peak rate."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def walked(last_plane):
+    """(slot, pixel) pairs a blend must evaluate on these inputs: each
+    pixel's slots up to its last contributing one (`last` plane of the
+    training outputs, -1 where nothing contributes). What a pixel walks
+    after that to learn that nothing more contributes is left out."""
+    return float((last_plane + 1).clamp(min=0).sum())
+
+
+def blend_bound(table, slots, planes_in, planes_out, evals, ops_per_eval,
+                extra_bytes=0):
+    """bound_ms of a blend kernel: the splat table, the walked slots' int32
+    indices, the image planes read and written, `extra_bytes` (rays, the
+    gradient table), against evals * ops_per_eval operations."""
+    n_bytes = (table.numel() * 4 + slots * 4 + extra_bytes
+               + (planes_in + planes_out) * 4)
+    return bound_ms(n_bytes, evals * ops_per_eval)
 
 
 def small_scene(device):
@@ -439,6 +534,462 @@ def compare_small_gaussiant(got, want, g_dens, w_dens):
     return worst
 
 
+def seg_inputs(device, n_rows=2 ** 21, n_starts=500_000, long_at=700_000,
+               long_len=5000):
+    """Phase 12's K6 inputs: (n_rows, 128) standard normals and segment
+    starts at n_starts random rows, none inside one stretch of long_len
+    rows nor at row 0 (seeded numpy)."""
+    rng = np.random.default_rng(0)
+    rows = torch.tensor(rng.standard_normal((n_rows, 128)).astype(np.float32),
+                        device=device)
+    seg = np.zeros(n_rows, np.int32)
+    seg[rng.choice(n_rows, n_starts, replace=False)] = 1
+    seg[long_at:long_at + long_len] = 0
+    seg[0] = 0
+    return rows, torch.tensor(seg, device=device)
+
+
+def run_draws(sched, it, cap_b, cap_e):
+    """The random numbers of iteration `it`'s maintenance events, drawn on
+    the CPU from a generator seeded with `it`, so that runs on two devices
+    use the same ones."""
+    from envgs_tpu_torch.models.gaussians import DensifyConfig
+    from envgs_tpu_torch.train.trainer import due_events
+
+    g = torch.Generator().manual_seed(1000 + it)
+    n_eps = DensifyConfig().split_n + DensifyConfig().weight_split_n
+    draws = {}
+    for name in due_events(sched, it):
+        if name in ("densify_base", "densify_env"):
+            cap = cap_b if name == "densify_base" else cap_e
+            draws[name] = [torch.randn((cap, 3), generator=g)
+                           for _ in range(n_eps)]
+        elif name == "color_sabotage":
+            draws[name] = torch.rand((cap_b, 1, 3), generator=g)
+    return draws
+
+
+def small_run(device, out_root, start_from=None):
+    """Phase 13's run on one device: the compressed schedule through the
+    Runner on a small run scene (SMALL_RUN), from mid-run Adam moments
+    (seeded numpy), the maintenance draws from run_draws. With
+    `start_from` (another run's result), the views take that run's target
+    images (a target rendered on the other device differs in its last
+    digits, enough to turn the sign of an L1 gradient where a render meets
+    it) and every iteration after the first starts from that run's state
+    instead of its own. -> (event log, [state after maintenance], [state
+    after the step], [target images], [the step's gradients], the two
+    LRConfigs), states and gradients as numpy dicts."""
+    from envgs_tpu_torch import bench
+    from envgs_tpu_torch.models.gaussians import (
+        DensifyConfig,
+        GaussianParams,
+    )
+    from envgs_tpu_torch.train.optimizer import AdamState, LRConfig
+    from envgs_tpu_torch.train.runner import Runner
+    from envgs_tpu_torch.train.supervisor import LossConfig
+    from envgs_tpu_torch.train.trainer import (
+        state_from_numpy,
+        state_to_numpy,
+    )
+
+    views, _, base, env, cfg = bench.make_run_scene(device, **SMALL_RUN)
+    if start_from is not None:
+        views = [dict(v, rgb=rgb) for v, rgb in zip(views, start_from[3])]
+    sched = bench.compressed_schedule()
+    runner = Runner(views, base, env,
+                    cfg._replace(pair_cap=2 ** 16, env_pair_cap=2 ** 17,
+                                 reflection_start_iter=(
+                                     sched.reflection_start_iter)),
+                    LossConfig(perc_loss_weight=0.0), sched,
+                    DensifyConfig(**bench.RUN_DENSIFY),
+                    DensifyConfig(**bench.RUN_DENSIFY_ENV),
+                    LRConfig(), LRConfig(), exp_name="small",
+                    out_root=out_root, resume=False, log_every=10)
+    rng = np.random.default_rng(5)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    def mid_run(params):
+        return AdamState(
+            GaussianParams(*(t(rng.normal(size=p.shape) * 1e-3)
+                             for p in params)),
+            GaussianParams(*(t(rng.random(p.shape) * 1e-5 + 1e-6)
+                             for p in params)),
+            torch.tensor(10, dtype=torch.int32, device=device))
+
+    runner.state = runner.state._replace(opt_base=mid_run(base.params),
+                                         opt_env=mid_run(env.params))
+    maintain, after_maint, after_step = runner.maintain, [], []
+
+    def wrapped(st, it, log=None):
+        if it > 0:
+            after_step.append(state_to_numpy(st))
+            if start_from is not None:
+                st = state_from_numpy(start_from[2][it - 1],
+                                      device)._replace(gen=st.gen)
+        st = maintain(st, it, log=log,
+                      draws=run_draws(sched, it, base.cap, env.cap))
+        after_maint.append(state_to_numpy(st))
+        return st
+
+    runner.maintain = wrapped
+    step_for, grads = runner._step_fn, []
+
+    def recording(cam):
+        step = step_for(cam)
+
+        def with_grads(*args):
+            out = {}
+            res = step(*args, grads_out=out)
+            grads.append({name: {k: v.cpu().numpy() for k, v in
+                                 out[name]._asdict().items()}
+                          for name in ("base", "env")})
+            return res
+
+        return with_grads
+
+    runner._step_fn = recording
+    after_step.append(state_to_numpy(runner.train()))
+    return (runner.events, after_maint, after_step,
+            [v["rgb"] for v in views], grads, (runner.lr_base, runner.lr_env))
+
+
+def compare_small_run(got, want):
+    """Phase 13's checks of the CUDA run (got) against the CPU run (want),
+    iteration by iteration (each started from the CPU run's state): events,
+    the state after maintenance, visibility, the step's gradients, and the
+    optimizer on the card against the CPU's on the card's gradients."""
+    from envgs_tpu_torch.train.optimizer import (
+        lr_tree_for,
+        sparse_adam_update,
+    )
+    from envgs_tpu_torch.train.trainer import state_from_numpy
+
+    g_events, g_maint, g_step, _, g_grads, _ = got
+    w_events, w_maint, w_step, _, w_grads, lrs = want
+    if g_events != w_events:
+        raise AssertionError(f"small run: events {g_events} vs {w_events}")
+    worst = {"maintenance": 0.0, "grads": 0.0, "flips": 0, "branch_rows": 0,
+             "branch": 0.0, "adam": 0.0}
+    branch_log, failed = [], []
+    for it, (gm, wm, gs, ws) in enumerate(zip(g_maint, w_maint, g_step,
+                                              w_step)):
+        start = state_from_numpy(gm, "cpu")  # the card's own start
+        for name, lr in zip(("base", "env"), lrs):
+            for k, w in wm[name]["stats"].items():
+                if not np.array_equal(gm[name]["stats"][k], w):
+                    raise AssertionError(
+                        f"small run it {it}: {name} {k} after maintenance")
+            for grp in ("params", "mu", "nu"):
+                for k, w in wm[name][grp].items():
+                    worst["maintenance"] = max(worst["maintenance"], rel_err(
+                        torch.tensor(gm[name][grp][k]), torch.tensor(w)))
+            if not np.array_equal(gs[name]["stats"]["active"],
+                                  ws[name]["stats"]["active"]):
+                raise AssertionError(f"small run it {it}: {name} active")
+            flip = gs[name]["stats"]["denom"] != ws[name]["stats"]["denom"]
+            light = (ws[name]["stats"]["weight_accum"][flip]
+                     - wm[name]["stats"]["weight_accum"][flip] < 1e-3).all()
+            if int(flip.sum()) > FLIP_MAX or not light:
+                raise AssertionError(f"small run it {it}: {int(flip.sum())} "
+                                     f"{name} splats flip visibility")
+            worst["flips"] = max(worst["flips"], int(flip.sum()))
+            # the gradients: per row, the error of every array past
+            # GRAD_FLOOR against the array's largest gradient
+            ratio = np.zeros(flip.shape[0])
+            for k, w in w_grads[it][name].items():
+                scale = float(np.abs(w[~flip]).max())
+                err = np.abs(g_grads[it][name][k] - w).reshape(
+                    flip.shape[0], -1).max(1)
+                ratio = np.maximum(ratio, np.maximum(err - GRAD_FLOOR, 0.0)
+                                   / max(scale, 1e-30))
+            ratio[flip] = 0.0
+            branch = np.nonzero(ratio > STEP_RTOL)[0]
+            for row in branch:
+                branch_log.append((it, name, int(row),
+                                   float(f"{ratio[row]:.3g}")))
+            if len(branch) > BRANCH_ROWS or ratio.max() > BRANCH_RTOL:
+                failed.append((it, name, "gradients", len(branch),
+                               float(ratio.max())))
+            worst["branch_rows"] = max(worst["branch_rows"], len(branch))
+            worst["branch"] = max(worst["branch"], float(ratio.max()))
+            ratio[branch] = 0.0
+            worst["grads"] = max(worst["grads"], float(ratio.max()))
+            # the optimizer: the CPU's Adam from the card's state after
+            # maintenance on the card's gradients, against what it stored
+            pool = getattr(start, name)
+            grads = type(pool.params)(*(torch.tensor(g_grads[it][name][k])
+                                        for k in pool.params._fields))
+            new_p, new_opt = sparse_adam_update(
+                pool.params, grads, getattr(start, "opt_" + name),
+                lr_tree_for(it, lr))
+            for grp, tree in (("params", new_p), ("mu", new_opt.mu),
+                              ("nu", new_opt.nu)):
+                for k, ref in zip(tree._fields, tree):
+                    z = gm[name][grp][k]
+                    d_want = ref.numpy() - z
+                    # in the xyz learning rate's warm-up a step moves a
+                    # position by tens of float32 ulps of the position
+                    # itself: the stored value is allowed two of them
+                    ulps = (2 * float(np.spacing(np.abs(z).max()))
+                            if grp == "params" else 0.0)
+                    err = max(float(np.abs(gs[name][grp][k] - z
+                                           - d_want).max()) - ulps, 0.0)
+                    r = err / max(float(np.abs(d_want).max()), 1e-30)
+                    worst["adam"] = max(worst["adam"], r)
+                    if not r <= ADAM_RTOL:
+                        failed.append((it, name, f"adam {grp}.{k}", 0, r))
+    if branch_log:
+        print("[small-run] rows past the gradient bound (iteration, pool, "
+              f"row, max|d|/max|ref|): {branch_log}", flush=True)
+    if failed:
+        raise AssertionError("small run: (iteration, pool, what, rows past "
+                             f"the bound, worst): {failed}")
+    if not worst["maintenance"] <= DENSIFY_RTOL:
+        raise AssertionError(f"small run: maintenance {worst}")
+    return worst
+
+
+def full_run(device, out_root, kernels, size=None):
+    """Phase 14: the compressed schedule through the Runner on the run
+    scene (full width unless `size` shrinks it), then save, resume and
+    evaluation. Returns (per-path launch counts of the run, figures)."""
+    from envgs_tpu_torch import bench
+    from envgs_tpu_torch.models.gaussians import DensifyConfig
+    from envgs_tpu_torch.train import trainer
+    from envgs_tpu_torch.train.optimizer import LRConfig
+    from envgs_tpu_torch.train.runner import Runner
+    from envgs_tpu_torch.train.supervisor import LossConfig
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    views, eval_views, base, env, cfg = bench.make_run_scene(device,
+                                                             **(size or {}))
+    print(f"[run] scene: {len(views)} + {len(eval_views)} views of "
+          f"{views[0]['camera'].W}x{views[0]['camera'].H}, "
+          f"{int(base.stats.active.sum())} base surfels in {base.cap} slots, "
+          f"{int(env.stats.active.sum())} env in {env.cap}; targets rendered "
+          f"and pools perturbed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # normal propagation once (it=16), not twice: it sets every opacity to
+    # 0.9, and on this scene's ~100 surfel layers per pixel the backward's
+    # T rebuild (an open fault of both packages, see PERF.md) then reaches
+    # 1e20; after a second one at it=24 it passed float32's range on some
+    # surfels and their parameters turned NaN. The last line of this phase
+    # says how far the next normal propagation would go.
+    sched = bench.compressed_schedule(normal_prop_interval=16)
+    cfg = cfg._replace(reflection_start_iter=sched.reflection_start_iter)
+
+    def make_runner(resume):
+        return Runner(
+            views, base, env, cfg, LossConfig(perc_loss_weight=0.0), sched,
+            DensifyConfig(max_gs=base.cap, **bench.RUN_DENSIFY),
+            DensifyConfig(max_gs=env.cap, **bench.RUN_DENSIFY_ENV),
+            LRConfig(),
+            LRConfig(), exp_name="run", out_root=out_root,
+            eval_views=eval_views, resume=resume, log_every=5,
+            save_latest_every=0)
+
+    runner = make_runner(False)
+    maintain = runner.maintain
+    event_ms, per_iter, snaps = {}, [], []
+
+    class TimedLog(list):
+        """The runner's event log; times each event as it is appended."""
+
+        def __init__(self):
+            super().__init__()
+            self.t = 0.0
+
+        def append(self, item):
+            sync()
+            now = time.perf_counter()
+            event_ms.setdefault(item[1], []).append((now - self.t) * 1e3)
+            self.t = now
+            super().append(item)
+
+    runner.events = TimedLog()
+
+    def wrapped(st, it, log=None):
+        sync()
+        snaps.append((time.perf_counter(), dict(kernels.LAUNCHES)))
+        n0 = (int(st.base.stats.active.sum()), int(st.env.stats.active.sum()))
+        log.t = time.perf_counter()
+        st = maintain(st, it, log=log)
+        fired = [e for i, e in log if i == it]
+        n1 = (int(st.base.stats.active.sum()), int(st.env.stats.active.sum()))
+        op = (float(st.base.get_opacity.max()), float(st.env.get_opacity.max()))
+        per_iter.append(dict(it=it, events=fired, before=n0, after=n1,
+                             max_opacity=op,
+                             sh=(int(st.base.stats.sh_degree),
+                                 int(st.env.stats.sh_degree))))
+        if fired:
+            print(f"[run] it {it}: {', '.join(fired)}; active base {n0[0]} -> "
+                  f"{n1[0]}, env {n0[1]} -> {n1[1]}; max opacity base "
+                  f"{op[0]:.4f}, env {op[1]:.4f}; SH degrees "
+                  f"{per_iter[-1]['sh']}", flush=True)
+        return st
+
+    runner.maintain = wrapped
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    cap0 = (runner.model_cfg.pair_cap, runner.model_cfg.env_pair_cap)
+    t_train = time.perf_counter()
+    runner.save = lambda *a, **k: None  # timed apart, below
+    state = runner.train()
+    sync()
+    t_end = time.perf_counter()
+    del runner.save
+    snaps.append((t_end, dict(kernels.LAUNCHES)))
+    run_launches = dict(kernels.LAUNCHES)
+    total = sched.total_iters
+
+    # ---- checks of the run ----
+    fired = {e for _, e in runner.events}
+    if fired != set(trainer.EVENTS):
+        raise AssertionError(f"run: events not fired: "
+                             f"{set(trainer.EVENTS) - fired}")
+    for which, i in (("base", 0), ("env", 1)):
+        moved = [r["it"] for r in per_iter if f"densify_{which}" in r["events"]
+                 and r["before"][i] != r["after"][i]]
+        if not moved:  # (a densify right after a reset may find nothing)
+            raise AssertionError(f"run: no densify_{which} changed the "
+                                 "active count")
+    for rec in per_iter:
+        ev = rec["events"]
+        for which, i in (("base", 0), ("env", 1)):
+            if (f"reset_opacity_{which}" in ev
+                    and not rec["max_opacity"][i] <= 0.0100001):
+                raise AssertionError(f"run it {rec['it']}: max {which} "
+                                     f"opacity {rec['max_opacity'][i]}")
+    if per_iter[-1]["sh"][0] < 3 or per_iter[-1]["sh"][1] < 3:
+        raise AssertionError(f"run: SH degrees {per_iter[-1]['sh']}")
+    for it in range(total):
+        rose = {k: snaps[it + 1][1][k] - snaps[it][1][k]
+                for k in kernels.LAUNCHES}
+        want = TRAIN_KERNELS if it >= sched.reflection_start_iter else (
+            "raster_blend_fwd", "raster_blend_bwd", "fill_forward")
+        if cuda and any(v != (k in want) for k, v in rose.items()):
+            raise AssertionError(f"run it {it}: launches off: {rose}")
+    for pool in (state.base, state.env):
+        for name, p in zip(pool.params._fields, pool.params):
+            if not bool(torch.isfinite(p).all()):
+                raise AssertionError(f"run: non-finite {name}")
+    grown = (runner.model_cfg.pair_cap, runner.model_cfg.env_pair_cap)
+    sps = total / (t_end - t_train)
+    step_ms = [(snaps[i + 1][0] - snaps[i][0]) * 1e3 for i in range(total)]
+    figures = dict(
+        steps_per_s=sps, caps=(cap0, grown),
+        event_ms={k: statistics.median(v) for k, v in event_ms.items()},
+        iter_ms_before_gate=statistics.median(
+            step_ms[1:sched.reflection_start_iter]),
+        iter_ms_after_gate=statistics.median(
+            step_ms[sched.reflection_start_iter:]),
+        active=(per_iter[0]["before"], per_iter[-1]["after"]))
+    print(f"[run] {total} iterations with maintenance: {sps:.4f} steps/s; "
+          f"median iteration {figures['iter_ms_before_gate']:.1f} ms before "
+          f"the reflection gate, {figures['iter_ms_after_gate']:.1f} ms after;"
+          f" pair caps {cap0} -> {grown}"
+          + ("" if grown == cap0 else " (the cap growth fired)")
+          + "; event ms (median): " + json.dumps(
+              {k: round(v, 2) for k, v in figures["event_ms"].items()}),
+          flush=True)
+
+    # ---- save, resume into a fresh runner ----
+    t0 = time.perf_counter()
+    runner.save(total)
+    figures["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = make_runner(True)
+    figures["load_s"] = time.perf_counter() - t0
+    if again.start_iter != total:
+        raise AssertionError(f"resume: iteration {again.start_iter}")
+    for which in ("base", "env"):
+        a, b = getattr(again.state, which), getattr(state, which)
+        act = b.stats.active
+        n = int(act.sum())
+        oa, ob = (getattr(x, "opt_" + which) for x in (again.state, state))
+        if int(a.stats.active.sum()) != n or int(oa.step) != int(ob.step):
+            raise AssertionError(f"resume: {which} counts")
+        for trees in ((a.params, b.params), (oa.mu, ob.mu), (oa.nu, ob.nu)):
+            for x, y in zip(*trees):
+                if not torch.equal(x[:n], y[act]):
+                    raise AssertionError(f"resume: {which} arrays differ")
+    files = sorted(os.listdir(again.model_dir))
+    size_mb = os.path.getsize(os.path.join(again.model_dir,
+                                           "latest.npz")) / 2 ** 20
+    print(f"[run] saved {files} in {figures['save_s']:.1f} s (latest.npz "
+          f"{size_mb:.0f} MiB), resumed into a fresh runner in "
+          f"{figures['load_s']:.1f} s: iteration {again.start_iter}, active "
+          "rows, moments and steps equal", flush=True)
+
+    # ---- evaluation: exact order (K1 alone), radial order (K1 and K3) ----
+    cam = eval_views[0]["camera"]
+    for exact, want in ((True, ("raster_blend_fwd",)),
+                        (False, RENDER_KERNELS)):
+        before = dict(kernels.LAUNCHES)
+        out = again.render_view(cam, exact_order=exact)
+        rose = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        if cuda and any(v != (k in want) for k, v in rose.items()):
+            raise AssertionError(f"eval render exact={exact}: {rose}")
+        if not bool(torch.isfinite(out.rgb_map).all()):
+            raise AssertionError("eval render: non-finite rgb")
+        print(f"[run] render exact_order={exact}: launches "
+              f"{ {k: v for k, v in rose.items() if v} }", flush=True)
+    eval_launches = {k: kernels.LAUNCHES[k] - run_launches[k]
+                     for k in run_launches}
+    exact = again.test(exact_order=True)["summary"]
+    radial = again.test(save_images=False, tag="radial",
+                        exact_order=False)["summary"]
+    for name, sm in (("exact", exact), ("radial", radial)):
+        if not (np.isfinite(sm["psnr_mean"]) and np.isfinite(sm["ssim_mean"])):
+            raise AssertionError(f"eval {name}: {sm}")
+    with open(os.path.join(again.result_dir, "metrics.json")) as f:
+        on_disk = json.load(f)
+    if (on_disk["summary"]["tracer_order"] != "exact"
+            or len(on_disk["frames"]) != len(eval_views)):
+        raise AssertionError("metrics.json is not the exact-order evaluation")
+    figures.update(
+        exact_ms=exact["time_mean"] * 1e3, radial_ms=radial["time_mean"] * 1e3,
+        psnr=(exact["psnr_mean"], radial["psnr_mean"]),
+        peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
+                  else float("nan")))
+    print(f"[run] eval of {len(eval_views)} held-out views: exact order "
+          f"{figures['exact_ms']:.1f} ms per render, psnr "
+          f"{exact['psnr_mean']:.4f}, ssim {exact['ssim_mean']:.4f}; radial "
+          f"order {figures['radial_ms']:.1f} ms, psnr "
+          f"{radial['psnr_mean']:.4f}, ssim {radial['ssim_mean']:.4f}; stage "
+          f"ms {json.dumps({k: round(v, 2) for k, v in exact['stage_ms'].items()})}"
+          f"; peak device memory {figures['peak_gib']:.2f} GiB", flush=True)
+
+    # ---- fault probe: the gradients of a step after one more normal
+    # propagation, on a copy of the final state (nothing is kept) ----
+    from envgs_tpu_torch.models import gaussians as G
+
+    pool = G.enlarge_scaling(*G.enlarge_opacity(state.base, None))[0]
+    grads = {}
+    view = views[0]
+    runner._step_fn(view["camera"])(
+        state._replace(base=pool), runner._batch(view), view["camera"].K,
+        view["camera"].R, view["camera"].T, total, grads_out=grads)
+    g = grads["base"].xyz
+    bad = ~torch.isfinite(g).all(-1)
+    figures["probe_nonfinite"] = int(bad.sum())
+    figures["probe_max"] = float(g[~bad].abs().max())
+    print(f"[run] fault probe: one step after another normal propagation "
+          f"(every opacity 0.9): {figures['probe_nonfinite']} of "
+          f"{int(pool.stats.active.sum())} surfels get a non-finite position "
+          f"gradient, the largest finite one is {figures['probe_max']:.3g} "
+          "(the backward's T rebuild over pairs the forward skipped)",
+          flush=True)
+    return run_launches, eval_launches, figures
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -453,6 +1004,7 @@ def main():
         blend_tiles_torch,
         out_rows,
     )
+    from envgs_tpu_torch.ops.raster_blend import rows as raster_rows
     from envgs_tpu_torch.ops.trace_blend import rows as trace_rows
     from envgs_tpu_torch.ops.trace_blend import (
         trace_blend_bwd_torch,
@@ -492,8 +1044,14 @@ def main():
         KERNEL_ATOL)
     k1_ms = cuda_ms(lambda: kernels.raster_blend_fwd(*k1_args), 20)
     k1_plain_ms = cuda_ms(lambda: blend_tiles_torch(*k1_args), 10)
+    npix = tiles_x * tiles_y * 256
+    k1_bound = blend_bound(
+        packed, int(bounds[-1]), 0, (C + 6) * npix,
+        walked(kernels.raster_blend_fwd(*k1_args, 0, True)[
+            raster_rows(C)["last"]]), OPS_SURFEL_TERMS)
     print(f"[kernels] raster_blend_fwd {k1_ms:.4f} ms, plain "
-          f"{k1_plain_ms:.2f} ms", flush=True)
+          f"{k1_plain_ms:.2f} ms, bound {k1_bound[0]:.4f} ms by "
+          f"{k1_bound[1]}", flush=True)
 
     packed, gauss_idx, rays, bounds, tiles_x, tiles_y = k3_args
     print(f"[kernels] K3 inputs: {tiles_x * tiles_y} tiles, "
@@ -505,8 +1063,15 @@ def main():
         {"rgb": slice(0, 3), "acc": 3, "T": 4}, KERNEL_ATOL)
     k3_ms = cuda_ms(lambda: kernels.trace_blend_fwd(*k3_args), 20)
     k3_plain_ms = cuda_ms(lambda: trace_blend_torch(*k3_args), 10)
+    npix = tiles_x * tiles_y * 256
+    k3_bound = blend_bound(
+        packed, int(bounds[-1]), 0, 5 * npix,
+        walked(kernels.trace_blend_fwd(*k3_args, True, 0)[
+            trace_rows(0)["last"]]), OPS_RAY_TERMS,
+        extra_bytes=rays.numel() * 4)
     print(f"[kernels] trace_blend_fwd {k3_ms:.4f} ms, plain "
-          f"{k3_plain_ms:.2f} ms", flush=True)
+          f"{k3_plain_ms:.2f} ms, bound {k3_bound[0]:.4f} ms by "
+          f"{k3_bound[1]}", flush=True)
     del k1_args, k3_args, packed, gauss_idx, rays, bounds
 
     # ---- 4. small render: CUDA kernels against the CPU plain path ----
@@ -574,8 +1139,15 @@ def main():
         raise AssertionError("fill_forward disagrees with its plain version")
     k5_ms = cuda_ms(lambda: kernels.fill_forward(marks, valid), 20)
     k5_plain_ms = cuda_ms(lambda: fill_forward_torch(marks, valid), 10)
+    pos = torch.arange(marks.shape[1], device="cuda")
+    k5_lib_ms = cuda_ms(
+        lambda: torch.cummax(torch.where(valid.bool(), pos, -1), 0), 20)
+    k5_bound = bound_ms(valid.numel() * 4 + int(valid.sum()) * marks.shape[0]
+                        * 4 + marks.numel() * 4)
     print(f"[kernels] fill_forward {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} "
-          "ms", flush=True)
+          f"ms, torch.cummax of the marker positions {k5_lib_ms:.4f} ms, "
+          f"bound {k5_bound[0]:.4f} ms by {k5_bound[1]}", flush=True)
+    del pos
 
     k1 = ins["k1"]
     packed, gauss_idx, bounds, C, tiles_x, tiles_y = k1
@@ -588,8 +1160,13 @@ def main():
         train_planes(C), KERNEL_ATOL)
     k1t_ms = cuda_ms(lambda: kernels.raster_blend_fwd(*k1, 0, True), 20)
     k1t_plain_ms = cuda_ms(lambda: blend_tiles_torch(*k1, 0, True), 3)
+    npix = tiles_x * tiles_y * 256
+    ev1 = walked(out1[raster_rows(C)["last"]])
+    k1t_bound = blend_bound(packed, int(bounds[-1]), 0, (C + 11) * npix, ev1,
+                            OPS_SURFEL_TERMS)
     print(f"[kernels] raster_blend_fwd (train) {k1t_ms:.4f} ms, plain "
-          f"{k1t_plain_ms:.2f} ms", flush=True)
+          f"{k1t_plain_ms:.2f} ms, bound {k1t_bound[0]:.4f} ms by "
+          f"{k1t_bound[1]} ({ev1:.4g} slot-pixel pairs walked)", flush=True)
     g1 = torch.randn(out1.shape, generator=gen, device="cuda")
     k2_args = (packed, gauss_idx, bounds, out1, g1, C, tiles_x, tiles_y)
     got = kernels.raster_blend_bwd(*k2_args)
@@ -601,8 +1178,12 @@ def main():
         "raster_blend_bwd", got, want, k2_cols, GRAD_RTOL))
     k2_ms = cuda_ms(lambda: kernels.raster_blend_bwd(*k2_args), 20)
     k2_plain_ms = cuda_ms(lambda: blend_tiles_bwd_torch(*k2_args), 3)
+    k2_bound = blend_bound(
+        packed, int(bounds[-1]), 2 * (C + 11) * npix, 0, ev1,
+        OPS_SURFEL_TERMS + 2 * len(k2_cols), extra_bytes=packed.numel() * 4)
     print(f"[kernels] raster_blend_bwd {k2_ms:.4f} ms, plain "
-          f"{k2_plain_ms:.2f} ms", flush=True)
+          f"{k2_plain_ms:.2f} ms, bound {k2_bound[0]:.4f} ms by "
+          f"{k2_bound[1]}", flush=True)
     del k1, k2_args, out1, g1, got, want
 
     k3 = ins["k3"]
@@ -620,8 +1201,13 @@ def main():
         KERNEL_ATOL)
     k3t_ms = cuda_ms(lambda: kernels.trace_blend_fwd(*k3, True, 0), 20)
     k3t_plain_ms = cuda_ms(lambda: trace_blend_torch(*k3, True, 0), 3)
+    npix = tiles_x * tiles_y * 256
+    ev3 = walked(out3[r["last"]])
+    k3t_bound = blend_bound(packed, int(bounds[-1]), 0, 13 * npix, ev3,
+                            OPS_RAY_TERMS, extra_bytes=rays.numel() * 4)
     print(f"[kernels] trace_blend_fwd (train) {k3t_ms:.4f} ms, plain "
-          f"{k3t_plain_ms:.2f} ms", flush=True)
+          f"{k3t_plain_ms:.2f} ms, bound {k3t_bound[0]:.4f} ms by "
+          f"{k3t_bound[1]} ({ev3:.4g} slot-ray pairs walked)", flush=True)
     g3 = torch.randn(out3.shape, generator=gen, device="cuda")
     k4_args = (packed, gauss_idx, rays, bounds, out3, g3, tiles_x, tiles_y)
     got, got_rays = kernels.trace_blend_bwd(*k4_args)
@@ -634,8 +1220,13 @@ def main():
         list(range(6)), GRAD_RTOL)
     k4_ms = cuda_ms(lambda: kernels.trace_blend_bwd(*k4_args), 20)
     k4_plain_ms = cuda_ms(lambda: trace_blend_bwd_torch(*k4_args), 3)
+    k4_bound = blend_bound(
+        packed, int(bounds[-1]), 2 * 13 * npix, 0, ev3,
+        OPS_RAY_TERMS + 2 * (17 + 6),
+        extra_bytes=(packed.numel() + 2 * rays.numel()) * 4)
     print(f"[kernels] trace_blend_bwd {k4_ms:.4f} ms, plain "
-          f"{k4_plain_ms:.2f} ms", flush=True)
+          f"{k4_plain_ms:.2f} ms, bound {k4_bound[0]:.4f} ms by "
+          f"{k4_bound[1]}", flush=True)
     del ins, k3, k4_args, out3, g3, got, want, got_rays, want_rays
     del packed, gauss_idx, rays, bounds, marks, valid
 
@@ -726,8 +1317,14 @@ def main():
         lambda: kernels.raster_blend_fwd(*k1g, 0, True, "gauss3d", True), 20)
     k1g_plain_ms = cuda_ms(
         lambda: blend_tiles_torch(*k1g, 0, True, "gauss3d", True), 3)
+    npix = tiles_x * tiles_y * 256
+    ev1g = walked(out1[raster_rows(C)["last"]])
+    k1g_bound = blend_bound(packed, int(bounds[-1]), 0, (C + 11) * npix, ev1g,
+                            OPS_GAUSS3D_TERMS,
+                            extra_bytes=int(bounds[-1]) * 4)  # per-pair wet
     print(f"[kernels] raster_blend_fwd (gauss3d) {k1g_ms:.4f} ms, plain "
-          f"{k1g_plain_ms:.2f} ms", flush=True)
+          f"{k1g_plain_ms:.2f} ms, bound {k1g_bound[0]:.4f} ms by "
+          f"{k1g_bound[1]} ({ev1g:.4g} slot-pixel pairs walked)", flush=True)
     g1 = torch.randn(out1.shape, generator=gen, device="cuda")
     k2g_args = (packed, gauss_idx, bounds, out1, g1, C, tiles_x, tiles_y, 0,
                 "gauss3d")
@@ -746,8 +1343,13 @@ def main():
         raise AssertionError("gauss3d K2 wrote a tmat or normal column")
     k2g_ms = cuda_ms(lambda: kernels.raster_blend_bwd(*k2g_args), 20)
     k2g_plain_ms = cuda_ms(lambda: blend_tiles_bwd_torch(*k2g_args), 3)
+    k2g_bound = blend_bound(
+        packed, int(bounds[-1]), 2 * (C + 11) * npix, 0, ev1g,
+        OPS_GAUSS3D_TERMS + 2 * len(g3d_cols),
+        extra_bytes=packed.numel() * 4)
     print(f"[kernels] raster_blend_bwd (gauss3d) {k2g_ms:.4f} ms, plain "
-          f"{k2g_plain_ms:.2f} ms", flush=True)
+          f"{k2g_plain_ms:.2f} ms, bound {k2g_bound[0]:.4f} ms by "
+          f"{k2g_bound[1]}", flush=True)
     del k1g, k2g_args, out1, wet1, want1, want_wet, g1, got, want
     del packed, gauss_idx, bounds
 
@@ -879,40 +1481,179 @@ def main():
           f"{ {k: v for k, v in gaussiant_launches.items() if v} }",
           flush=True)
 
-    paths = {"render": render_launches, "train": train_launches,
-             "gaussiant": gaussiant_launches}
+    del gstate, gtarget
 
-    def entry(name, src, replaces, err, ms, plain_ms, **extra):
+    # ---- 12. K6, P1, P2 against their plain versions, the probes' sizes ----
+    from envgs_tpu_torch.ops.gather import (
+        gather_rows_torch,
+        gather_rows_win8_torch,
+    )
+    from envgs_tpu_torch.ops.segsum import segmented_inclusive_sum_torch
+    from envgs_tpu_torch.probes import dmagather
+
+    rows, seg = seg_inputs("cuda")
+    got = kernels.segscan(rows, seg)
+    torch.cuda.synchronize()
+    want = segmented_inclusive_sum_torch(rows, seg)
+    k6_err = float((got - want).abs().max())
+    k6_ok = bool(torch.allclose(got, want, rtol=SEG_RTOL, atol=SEG_ATOL))
+    starts = torch.nonzero(seg)[:, 0]
+    print(f"[kernels] segscan over {tuple(rows.shape)} f32, "
+          f"{starts.numel()} segment starts, longest segment "
+          f"{int((starts[1:] - starts[:-1]).max())} rows, none at row 0: "
+          f"max_abs_err {k6_err:.3g} at largest |sum| "
+          f"{float(want.abs().max()):.4g} (bound rtol {SEG_RTOL:g} / atol "
+          f"{SEG_ATOL:g}: {'within' if k6_ok else 'OUTSIDE'})", flush=True)
+    if not k6_ok:
+        raise AssertionError("segscan disagrees with its plain version")
+    k6_ms = cuda_ms(lambda: kernels.segscan(rows, seg), 20)
+    k6_plain_ms = cuda_ms(lambda: segmented_inclusive_sum_torch(rows, seg), 3)
+    k6_bytes = 2 * rows.numel() * 4 + seg.numel() * 4
+    k6_bound = bound_ms(k6_bytes, rows.numel())
+    print(f"[kernels] segscan {k6_ms:.4f} ms, plain {k6_plain_ms:.2f} ms, "
+          f"bound {k6_bound[0]:.4f} ms by {k6_bound[1]} "
+          f"({k6_bytes / 2 ** 30:.3f} GiB read + written once)", flush=True)
+    del got, want, starts
+
+    tbf16, t32, idx = dmagather.probe_inputs("cuda")
+    long_idx = idx.to(torch.int64)
+    gathers = {}
+    for label, table in (("bf16", tbf16), ("f32", t32)):
+        ref = table[long_idx]
+        # each input byte once: the distinct rows idx names (it repeats
+        # rows about four times over), the indices, the output
+        moved = dmagather.least_bytes(table, idx)
+        lib_ms = cuda_ms(lambda: table[long_idx], 20)
+        for name, fn, plain in (
+                ("gather_rows", kernels.gather_rows, gather_rows_torch),
+                ("gather_rows_win8", kernels.gather_rows_win8,
+                 gather_rows_win8_torch)):
+            out = fn(table, idx)
+            torch.cuda.synchronize()
+            want = plain(table, idx)
+            n_bad = int((out.view(torch.int16) != want.view(torch.int16))
+                        .sum())
+            if n_bad or not torch.equal(want, ref):
+                raise AssertionError(f"{name} {label}: {n_bad} values differ")
+            ms = cuda_ms(lambda: fn(table, idx), 20)
+            plain_ms = cuda_ms(lambda: plain(table, idx), 10)
+            b = bound_ms(moved)
+            gathers[(name, label)] = dict(ms=ms, plain_ms=plain_ms,
+                                          library_ms=lib_ms, bound=b)
+            print(f"[kernels] {name} {label}: {tuple(table.shape)} table, "
+                  f"{idx.numel()} indices, bit-equal to its plain version "
+                  f"and to table[idx]; {ms:.4f} ms ({ms / idx.numel() * 1e6:.3f}"
+                  f" ns/row), plain {plain_ms:.4f} ms, table[idx] "
+                  f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms by {b[1]} "
+                  f"({moved / 2 ** 30:.3f} GiB: {int(idx.unique().numel())} "
+                  "distinct rows and the indices read once, the output "
+                  "written once)", flush=True)
+        del ref, out, want
+    del tbf16, t32, idx, long_idx
+    # the three kernels' own entry points, driven as a user would: no path
+    # of the system reaches them
+    from envgs_tpu_torch.ops.segsum import segmented_inclusive_sum
+
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    out = segmented_inclusive_sum(rows, seg)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("segmented_inclusive_sum: non-finite sums")
+    del rows, seg, out
+    dmagather.main(n=3)
+    probe_launches = dict(kernels.LAUNCHES)
+    if not all(probe_launches[k] for k in ("segscan", "gather_rows",
+                                           "gather_rows_win8")):
+        raise AssertionError(f"probe launches: {probe_launches}")
+    print(f"[probe] entry points launched "
+          f"{ {k: v for k, v in probe_launches.items() if v} }", flush=True)
+
+    # ---- 13. small run: the compressed schedule, CUDA against CPU ----
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        want = small_run("cpu", os.path.join(tmp, "cpu"))
+        t1 = time.perf_counter()
+        got = small_run("cuda", os.path.join(tmp, "cuda"), start_from=want)
+        worst = compare_small_run(got, want)
+    print(f"[small-run] {len(want[1])} iterations, {len(want[0])} events "
+          f"(all {len({e for _, e in want[0]})} kinds) equal on both devices; "
+          f"cuda vs cpu per iteration: after maintenance masks and "
+          f"statistics equal, arrays max|d|/max|ref| "
+          f"{worst['maintenance']:.3g} (bound {DENSIFY_RTOL:g}); the step's "
+          f"gradients {worst['grads']:.3g} (bound {STEP_RTOL:g}) but for at "
+          f"most {worst['branch_rows']} rows of a pool at a branch of the "
+          f"blend, the worst at {worst['branch']:.3g} (bounds {BRANCH_ROWS} "
+          f"rows, {BRANCH_RTOL:g}), at most {worst['flips']} visibility "
+          f"flips (bound {FLIP_MAX}); Adam on the card against the CPU's on "
+          f"the card's gradients {worst['adam']:.3g} of each array's largest "
+          f"change (bound {ADAM_RTOL:g}); cpu run "
+          f"{t1 - t0:.1f} s, cuda run {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    del want, got
+
+    # ---- 14. the run at full width ----
+    with tempfile.TemporaryDirectory() as tmp:
+        run_launches, eval_launches, _ = full_run("cuda", tmp, kernels)
+
+    paths = {"render": render_launches, "train": train_launches,
+             "gaussiant": gaussiant_launches, "run": run_launches,
+             "run_eval": eval_launches, "probe": probe_launches}
+
+    def entry(name, src, replaces, err, ms, plain_ms, bound, library_ms=None,
+              **extra):
+        """A kernel's line: `launches` sums the paths driven above, each
+        with the counts set to 0 before it and read after it."""
         by_path = {p: n[name] for p, n in paths.items()}
         return {"name": name, "route": "cuda",
                 "source": f"envgs_tpu_torch/kernels/csrc/{src}",
-                "replaces": replaces, "launches": sum(by_path.values()),
+                "replaces": replaces,
+                "launches": sum(by_path.values()),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "launches_by_path": by_path, **extra}
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library_ms, "launches_by_path": by_path,
+                **extra}
+
+    def gather_entry(name, replaces):
+        g = gathers[(name, "bf16")]
+        f = gathers[(name, "f32")]
+        return entry(name, "gather_rows.cu", replaces, 0.0, g["ms"],
+                     g["plain_ms"], g["bound"], g["library_ms"],
+                     f32_ms=f["ms"], f32_plain_ms=f["plain_ms"],
+                     f32_bound_ms=f["bound"][0],
+                     f32_library_ms=f["library_ms"])
 
     print(json.dumps({"kernels": [
         entry("raster_blend_fwd", "raster_blend_fwd.cu",
               "envgs_tpu/ops/raster_pallas.py:241", max(k1_err, k1t_err),
-              k1t_ms, k1t_plain_ms, render_ms=k1_ms,
-              render_plain_ms=k1_plain_ms),
+              k1t_ms, k1t_plain_ms, k1t_bound, render_ms=k1_ms,
+              render_plain_ms=k1_plain_ms, render_bound_ms=k1_bound[0]),
         entry("raster_blend_bwd", "raster_blend_bwd.cu",
               "envgs_tpu/ops/raster_pallas.py:456", k2_err, k2_ms,
-              k2_plain_ms, max_rel_err=k2_rel),
+              k2_plain_ms, k2_bound, max_rel_err=k2_rel),
         entry("trace_blend_fwd", "trace_blend_fwd.cu",
               "envgs_tpu/ops/tracer.py:645", max(k3_err, k3t_err), k3t_ms,
-              k3t_plain_ms, render_ms=k3_ms, render_plain_ms=k3_plain_ms),
+              k3t_plain_ms, k3t_bound, render_ms=k3_ms,
+              render_plain_ms=k3_plain_ms, render_bound_ms=k3_bound[0]),
         entry("trace_blend_bwd", "trace_blend_bwd.cu",
               "envgs_tpu/ops/tracer.py:799", max(k4_err, k4r_err), k4_ms,
-              k4_plain_ms, max_rel_err=max(k4_rel, k4r_rel)),
+              k4_plain_ms, k4_bound, max_rel_err=max(k4_rel, k4r_rel)),
         entry("fill_forward", "fill_forward.cu",
               "envgs_tpu/ops/fill_forward.py:55", k5_err, k5_ms,
-              k5_plain_ms),
+              k5_plain_ms, k5_bound, k5_lib_ms),
         entry("raster_blend_fwd_gauss3d", "raster_blend_fwd.cu",
               "envgs_tpu/ops/raster_pallas.py:241", k1g_err, k1g_ms,
-              k1g_plain_ms, mode="gauss3d"),
+              k1g_plain_ms, k1g_bound, mode="gauss3d"),
         entry("raster_blend_bwd_gauss3d", "raster_blend_bwd.cu",
               "envgs_tpu/ops/raster_pallas.py:456", k2g_err, k2g_ms,
-              k2g_plain_ms, max_rel_err=k2g_rel, mode="gauss3d"),
+              k2g_plain_ms, k2g_bound, max_rel_err=k2g_rel, mode="gauss3d"),
+        entry("segscan", "segscan.cu", "envgs_tpu/ops/segsum.py:30", k6_err,
+              k6_ms, k6_plain_ms, k6_bound),
+        gather_entry("gather_rows", "scripts/tpu_micro_dmagather.py:49"),
+        gather_entry("gather_rows_win8",
+                     "scripts/tpu_micro_dmagather.py:112"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -60,6 +60,7 @@ from envgs_tpu_torch.train.optimizer import LRConfig
 from envgs_tpu_torch.train.supervisor import LossConfig
 from envgs_tpu_torch.train.trainer import (
     Batch,
+    ScheduleConfig,
     init_train_state,
     make_train_step,
 )
@@ -277,30 +278,36 @@ def stage_times(base, env, cam, cfg, reps: int = 5) -> dict:
             for k, v in events.items()}
 
 
-def make_train_scene(device):
+def make_train_scene(device, P: int = TRAIN_P_BASE, Pe: int = TRAIN_P_ENV,
+                     Ht: int = TRAIN_H, Wt: int = TRAIN_W,
+                     cap: int | None = None, env_cap: int | None = None,
+                     base_scale: float = 0.012):
     """(base, env, cam, cfg, batch) of the train bench scene: the same numpy
     draws, in the same default_rng(0) order, as the JAX package's
     bench.py::main_train, the batch image included; caps that drop
-    nothing."""
+    nothing. The defaults are the bench's sizes; `cap` / `env_cap` above
+    P / Pe leave free pool slots (for densification), the other arguments
+    shrink the scene for small runs (`base_scale`, the base surfels' size,
+    then grows with the pixel: 0.012 covers a few pixels at full size)."""
     rng = np.random.default_rng(0)
-    P, Pe, Ht, Wt = TRAIN_P_BASE, TRAIN_P_ENV, TRAIN_H, TRAIN_W
+    cap, env_cap = cap or P, env_cap or Pe
     xyz = np.concatenate(
         [rng.normal(size=(P, 2)) * 1.5,
          rng.random((P, 1)) * 5 + 2.0], -1).astype(np.float32)
-    base = create_pool(xyz, rng.random((P, 3)).astype(np.float32), cap=P,
+    base = create_pool(xyz, rng.random((P, 3)).astype(np.float32), cap=cap,
                        sh_degree=3, init_opacity=0.8, device=device)
     full = lambda n, k, v: torch.full((n, k), v, dtype=torch.float32,  # noqa: E731
                                       device=device)
     base = base._replace(params=base.params._replace(
-        scaling=full(P, 2, float(np.log(0.012))),
-        specular=full(P, 1, float(logit(0.3)))))
+        scaling=full(cap, 2, float(np.log(base_scale))),
+        specular=full(cap, 1, float(logit(0.3)))))
     dirs = rng.normal(size=(Pe, 3))
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
     env = create_pool((dirs * 20).astype(np.float32),
-                      rng.random((Pe, 3)).astype(np.float32), cap=Pe,
+                      rng.random((Pe, 3)).astype(np.float32), cap=env_cap,
                       sh_degree=3, init_opacity=0.8, device=device)
     env = env._replace(params=env.params._replace(
-        scaling=full(Pe, 2, float(np.log(0.5)))))
+        scaling=full(env_cap, 2, float(np.log(0.5)))))
     f = 0.9 * Wt
     K = np.array([[f, 0, Wt / 2], [0, f, Ht / 2], [0, 0, 1]], np.float32)
     cam = make_camera(Ht, Wt, K, np.eye(3, dtype=np.float32),
@@ -313,6 +320,84 @@ def make_train_scene(device):
         msk=torch.ones((Ht, Wt, 1), device=device),
         norm=torch.zeros((Ht, Wt, 3), device=device))
     return base, env, cam, cfg, batch
+
+
+RUN_YAWS = (-3.0, -1.0, 1.0, 3.0)  # training views: degrees about view y
+RUN_EVAL_YAWS = (-2.0, 2.0)  # held-out views, between them
+RUN_FREE = 0.3  # free pool slots per surfel, for densification's children
+# densification of the compressed runs: the schedule puts a densify one
+# iteration after an opacity reset (thousands lie between them in a real
+# schedule), so the prune floor sits below the reset's 0.01 or the densify
+# would prune every splat
+RUN_DENSIFY = dict(spatial_scale=1.0, min_opacity=0.005)
+# the env dome has a radius of 20 and surfels of 0.5: at spatial scale 1
+# they would all be pruned as too large for the scene; and the run's pools
+# start from a specular of 1e-3, which weighs the env pass's gradients by
+# as much: the threshold follows
+RUN_DENSIFY_ENV = dict(spatial_scale=20.0, min_opacity=0.005,
+                       densify_grad_threshold=2e-7)
+
+
+def make_run_scene(device, **size):
+    """(views, eval_views, base, env, cfg) for a training run on the train
+    bench scene (`size`: make_train_scene's arguments; the default is the
+    bench's full size): views on a short orbit about the bench camera
+    (RUN_YAWS to train on, RUN_EVAL_YAWS held out) whose targets the port
+    renders from the scene's own pools (render mode, radial order), masks
+    all ones, no normal prior; then the pools to train are perturbed, so
+    the run has something to learn: dc colors redrawn, positions jittered
+    by 0.01 (default_rng(1)) and the base specular back at the value a
+    fresh pool starts from (1e-3; the targets were rendered at the bench's
+    0.3). The pools get RUN_FREE more slots than surfels."""
+    P = size.get("P", TRAIN_P_BASE)
+    Pe = size.get("Pe", TRAIN_P_ENV)
+    base, env, cam, cfg, _ = make_train_scene(
+        device, cap=-(-int(P * (1 + RUN_FREE)) // 256) * 256,
+        env_cap=-(-int(Pe * (1 + RUN_FREE)) // 256) * 256, **size)
+    render_cfg = cfg._replace(render_mode=True)
+
+    def view(deg, name):
+        pose = yawed(cam, deg)
+        with torch.no_grad():
+            out = forward_envgs(base, env, pose, TRAIN_IT, render_cfg)
+        check_render(out, cfg)
+        return dict(rgb=np.clip(out.rgb_map.cpu().numpy(), 0, 1),
+                    camera=pose, name=name)
+
+    views = [view(d, f"train{d:+.0f}") for d in RUN_YAWS]
+    eval_views = [view(d, f"eval{d:+.0f}") for d in RUN_EVAL_YAWS]
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.tensor(a.astype(np.float32), device=device)  # noqa: E731
+    p = base.params
+    act = base.stats.active[:, None]
+    base = base._replace(params=p._replace(
+        xyz=p.xyz + act * t(rng.normal(scale=0.01, size=p.xyz.shape)),
+        features_dc=torch.where(
+            act[..., None], t(rng.normal(scale=0.5, size=p.features_dc.shape)),
+            p.features_dc),
+        specular=torch.full_like(p.specular, float(logit(1e-3)))))
+    return views, eval_views, base, env, cfg
+
+
+def compressed_schedule(**overrides) -> ScheduleConfig:
+    """The EnvGS schedule squeezed into 30 iterations so that every
+    maintenance event fires at least once: the reflection pass from
+    iteration 10; base SH one-ups every 4 and env ones from 12; base densify
+    at 3, 6, 9 (the early interval), 10, 15, 20 (the normal-propagation
+    phase's) and 24, 27; env densify at 14, 21, 28; base opacity resets at
+    9, 18, 27, the last two with a specular reset; env opacity resets at 13
+    and 26; color sabotage at 12 and 24 (18 falls to the opacity reset);
+    normal propagation at 16 and 24."""
+    kw = dict(
+        epochs=1, ep_iter=30, densify_from_iter=2, densify_until_iter=29,
+        init_densification_interval=3, norm_densification_interval=5,
+        opacity_reset_interval=9, sh_update_iter=4,
+        env_densify_from_iter=2, env_densify_until_iter=29,
+        env_densification_interval=7, env_opacity_reset_interval=13,
+        env_sh_update_iter=4, reflection_start_iter=10,
+        normal_prop_until_iter=24, normal_prop_interval=8,
+        color_sabotage_until_iter=24, color_sabotage_interval=6)
+    return ScheduleConfig(**{**kw, **overrides})
 
 
 def make_bench_step(cam: Camera, cfg: EnvGSConfig):

@@ -24,13 +24,15 @@ import torch
 
 LAUNCHES = {"raster_blend_fwd": 0, "raster_blend_fwd_gauss3d": 0,
             "raster_blend_bwd": 0, "raster_blend_bwd_gauss3d": 0,
-            "trace_blend_fwd": 0, "trace_blend_bwd": 0, "fill_forward": 0}
+            "trace_blend_fwd": 0, "trace_blend_bwd": 0, "fill_forward": 0,
+            "segscan": 0, "gather_rows": 0, "gather_rows_win8": 0}
 MODES = {"surfel": 0, "gauss3d": 1}  # geometry of the raster blends
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[1] / "_build"
 _SOURCES = ("raster_blend_fwd.cu", "raster_blend_bwd.cu",
-            "trace_blend_fwd.cu", "trace_blend_bwd.cu", "fill_forward.cu")
+            "trace_blend_fwd.cu", "trace_blend_bwd.cu", "fill_forward.cu",
+            "segscan.cu", "gather_rows.cu")
 # -fmad=false: the kernels round every product and sum on its own, as the
 # plain PyTorch versions' elementwise ops do, so the two agree to the last
 # bits on the card instead of only to a tolerance. No fast math: expf, IEEE
@@ -58,6 +60,11 @@ _ARGTYPES = {
                         _VP, _VP, _VP],
     # vals, valid, n, C, block_last, out, stream
     "fill_forward": [_VP, _VP, _I, _I, _VP, _VP, _VP],
+    # rows, flags, n, tails, has_start, out, stream
+    "segscan": [_VP, _VP, _I, _VP, _VP, _VP, _VP],
+    # table, idx, n, S, row_bytes, out, stream
+    "gather_rows": [_VP, _VP, _I, _I, _I, _VP, _VP],
+    "gather_rows_win8": [_VP, _VP, _I, _I, _I, _VP, _VP],
 }
 _lib = None
 
@@ -290,3 +297,69 @@ def fill_forward(vals, valid) -> torch.Tensor:
                 valid.data_ptr(), N, C, scratch.data_ptr(), out.data_ptr(),
                 _stream(vals))
     return out
+
+
+SEG_ROWS = 1024  # rows per block of K6; N must be a multiple
+SEG_LANES = 128
+
+
+def segscan(rows, seg_start) -> torch.Tensor:
+    """Kernel K6 (csrc/segscan.cu): rows (N, 128) f32, seg_start (N,) int32
+    (nonzero at a segment's first row), N a multiple of 1024 -> (N, 128)
+    f32 inclusive segmented sums. Three launches, counted as one."""
+    _check("rows", rows, torch.float32)
+    if (rows.dim() != 2 or rows.shape[1] != SEG_LANES
+            or rows.shape[0] % SEG_ROWS):
+        raise ValueError(f"rows: expected (N, {SEG_LANES}) with N a multiple "
+                         f"of {SEG_ROWS}, got {tuple(rows.shape)}")
+    N = rows.shape[0]
+    _check("seg_start", seg_start, torch.int32, rows, (N,))
+    if N >= 2 ** 31 - SEG_ROWS:
+        raise ValueError(f"N={N}: rows must fit int32")
+    out = torch.empty_like(rows)
+    nb = N // SEG_ROWS
+    tails = torch.empty((nb, SEG_LANES), dtype=torch.float32,
+                        device=rows.device)
+    has_start = torch.empty(nb, dtype=torch.int32, device=rows.device)
+    if N:
+        _launch("segscan", rows.device, rows.data_ptr(), seg_start.data_ptr(),
+                N, tails.data_ptr(), has_start.data_ptr(), out.data_ptr(),
+                _stream(rows))
+    return out
+
+
+def _gather(name: str, table, idx) -> torch.Tensor:
+    if table.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"table: expected float32, bfloat16 or float16, "
+                         f"got {table.dtype}")
+    _check("table", table, table.dtype)
+    if table.dim() != 2 or table.shape[1] != 128 or table.shape[0] == 0:
+        raise ValueError(f"table: expected (S, 128) with S > 0, got "
+                         f"{tuple(table.shape)}")
+    if idx.dim() != 1:
+        raise ValueError(f"idx: expected (n,), got {tuple(idx.shape)}")
+    _check("idx", idx, torch.int32, table)
+    S, n = table.shape[0], idx.shape[0]
+    if name == "gather_rows_win8" and S % 8:
+        raise ValueError(f"table: {S} rows, the 8-row windows need a "
+                         "multiple of 8")
+    if S >= 2 ** 31 or n >= 2 ** 31 // 32:
+        raise ValueError(f"S={S}, n={n}: too many rows")
+    out = torch.empty((n, 128), dtype=table.dtype, device=table.device)
+    if n:
+        _launch(name, table.device, table.data_ptr(), idx.data_ptr(), n, S,
+                128 * table.element_size(), out.data_ptr(), _stream(table))
+    return out
+
+
+def gather_rows(table, idx) -> torch.Tensor:
+    """Kernel P1 (csrc/gather_rows.cu): table (S, 128) f32/bf16/f16, idx
+    (n,) int32 -> (n, 128), bit-equal to table[idx]; an index outside
+    [0, S) is clamped into it."""
+    return _gather("gather_rows", table, idx)
+
+
+def gather_rows_win8(table, idx) -> torch.Tensor:
+    """Kernel P2 (csrc/gather_rows.cu): the same gather through the 8-row
+    window aligned down from idx[j], staged in shared memory; S % 8 == 0."""
+    return _gather("gather_rows_win8", table, idx)

@@ -10,9 +10,10 @@ envgs_tpu/models/envgs.py, render path).
 Ported: the render configuration (`render_mode=True`) and the training
 configuration (`render_mode=False` with the four zeros hooks the train step
 passes: `means2d_zero`, `env_means3d_zero`, `wet_zero`, `env_wet_zero`),
-the rasterized base pass and a single env trace. Base tracing,
-multi-bounce tracing and the exact per-ray tracer order raise until their
-slices. The reflection gate is a Python `if` on the iteration.
+the rasterized base pass and a single env trace, in the radial order of
+the blend kernel or, with `tracer_exact_order`, in each ray's exact depth
+order (evaluation). Base tracing and multi-bounce tracing raise until
+their slices. The reflection gate is a Python `if` on the iteration.
 """
 from __future__ import annotations
 

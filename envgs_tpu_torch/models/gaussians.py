@@ -1,7 +1,8 @@
 """Fixed-capacity padded Gaussian pool (port of envgs_tpu/models/
-gaussians.py without the EnvGS-only resets): the pool, its weight bridge,
-densification-statistic accumulation, the SH degree bump, adaptive density
-control (`densify_and_prune`) and the opacity reset.
+gaussians.py): the pool, its weight bridge, densification-statistic
+accumulation, the SH degree bump, adaptive density control
+(`densify_and_prune`), the opacity reset and the 3DGS-DR resets of the
+EnvGS schedule (specular reset, normal propagation, color sabotage).
 
 The pool keeps the JAX package's layout: raw (pre-activation) parameter
 tensors of a static capacity `cap` plus an `active` mask, so masked arrays
@@ -409,3 +410,57 @@ def reset_opacity(pool: GaussianPool, adam_tree, value: float = 0.01):
                         logit(value).to(pool.params.opacity.device))
     return (pool._replace(params=pool.params._replace(opacity=new)),
             _zero_adam_for(adam_tree, "opacity"))
+
+
+def _logit_like(value: float, like: torch.Tensor) -> torch.Tensor:
+    return logit(value).to(like.device)
+
+
+def reset_specular(pool: GaussianPool, adam_tree, value: float = 1e-3,
+                   reset_all: bool = False):
+    """Clamp the activated specular to at most `value` (or set all of it
+    with `reset_all`); zero its moments."""
+    tgt = _logit_like(value, pool.params.specular)
+    new = (torch.full_like(pool.params.specular, float(tgt)) if reset_all
+           else torch.minimum(pool.params.specular, tgt))
+    return (pool._replace(params=pool.params._replace(specular=new)),
+            _zero_adam_for(adam_tree, "specular"))
+
+
+def enlarge_opacity(pool: GaussianPool, adam_tree, value: float = 0.9):
+    """Raise the activated opacity to at least `value`; zero its moments."""
+    new = torch.maximum(pool.params.opacity,
+                        _logit_like(value, pool.params.opacity))
+    return (pool._replace(params=pool.params._replace(opacity=new)),
+            _zero_adam_for(adam_tree, "opacity"))
+
+
+def enlarge_scaling(pool: GaussianPool, adam_tree, ratio: float = 1.5,
+                    threshold: float = 0.02):
+    """Normal propagation: scale up every splat whose specular reaches
+    `threshold` (the low-specular ones keep their size); zero the scaling
+    moments."""
+    low_spec = sigmoid(pool.params.specular).amax(-1) < threshold  # (N,)
+    new = torch.where(
+        low_spec[:, None], pool.params.scaling,
+        scaling_inverse(scaling_activation(pool.params.scaling) * ratio))
+    return (pool._replace(params=pool.params._replace(scaling=new)),
+            _zero_adam_for(adam_tree, "scaling"))
+
+
+def distort_color(pool: GaussianPool, adam_tree,
+                  generator: torch.Generator | None = None,
+                  uniform: torch.Tensor | None = None,
+                  rng_range: float = 0.4, threshold: float = 0.05):
+    """Color sabotage: add noise in [-rng_range, rng_range) to the dc color
+    of low-specular splats; zero the dc moments. `uniform`, when given, is
+    the (cap, 1, 3) draw in [0, 1) to use, else it comes from `generator`
+    (so it is not the JAX package's draw)."""
+    dc = pool.params.features_dc
+    low_spec = sigmoid(pool.params.specular).amax(-1) <= threshold
+    if uniform is None:
+        uniform = torch.rand(dc.shape, generator=generator, device=dc.device)
+    noise = (uniform.to(dc.device) * 2 - 1) * rng_range
+    new = torch.where(low_spec[:, None, None], dc + noise, dc)
+    return (pool._replace(params=pool.params._replace(features_dc=new)),
+            _zero_adam_for(adam_tree, "features_dc"))

@@ -8,7 +8,9 @@ them per splat (sphere test, then the direction-space footprint probe) and
 sorts the kept candidates by quantized radial distance from the tile apex
 (`cull_and_sort`); the traced blend (kernel K3 on CUDA tensors) composites
 each tile's candidates front to back. Blend order is the per-tile radial
-order, the JAX package's documented deviation from per-ray order.
+order, the JAX package's documented deviation from per-ray order;
+`trace_rays(exact_order=True)` re-blends the same candidate windows in each
+ray's own depth order for evaluation.
 
 The training path (`needs` all True with a `wet_zero` hook) blends in
 training mode (kernels K3 and K4): the cull stays integer and carries no
@@ -22,9 +24,14 @@ from typing import NamedTuple
 
 import torch
 
-from envgs_tpu_torch.ops.common import ALPHA_MIN
+from envgs_tpu_torch.ops.common import ALPHA_MAX, ALPHA_MIN, T_CUTOFF
 from envgs_tpu_torch.ops.raster_blend import CHUNK, LO
-from envgs_tpu_torch.ops.trace_blend import rows, trace_blend, trace_blend_train
+from envgs_tpu_torch.ops.trace_blend import (
+    T_MIN,
+    rows,
+    trace_blend,
+    trace_blend_train,
+)
 from envgs_tpu_torch.ops.tracer_ref import TraceOutput, TraceScene
 
 RTH = 16  # tile height in rays
@@ -35,6 +42,9 @@ NQUAD = 4  # probe boxes per tile (2x2 spatial quadrants of the ray grid)
 # The bench scene (6435 tiles x 2048 candidates) then culls in one block;
 # its render peaked at 3.1 GiB of device memory (H100 80GB HBM3, 700 W)
 _CULL_BLOCK_ELEMS = 1 << 24
+# elements of one (tiles, rays, candidates) array of an exact-order block:
+# 128 MB in f32; the blend holds a few dozen such arrays at once
+_EXACT_BLOCK_ELEMS = 1 << 25
 
 
 class RayTiles(NamedTuple):
@@ -381,6 +391,102 @@ def splat_radius3(scene: TraceScene) -> torch.Tensor:
     return 3.0 * torch.maximum(su, sv)
 
 
+def _trace_tiles_exact(scene: TraceScene, rays: torch.Tensor,
+                       gauss_idx: torch.Tensor, bounds: torch.Tensor,
+                       K: int, tile_block: int | None = None) -> torch.Tensor:
+    """Exact per-ray-ordered blend over the culled candidate windows (port
+    of envgs_tpu's `_trace_tiles_exact`, plain PyTorch as it is plain JAX
+    there): every tile's window [bounds[t], bounds[t+1]) is blended with
+    each ray's own depth order of its hits, so what is left against the
+    exact tracer is the cull alone. O(K log K) per ray; no wet (eval only).
+
+    Tiles go `tile_block` at a time (default: as many as keep one (tiles,
+    rays, candidates) array within _EXACT_BLOCK_ELEMS), each block over
+    the longest window among its tiles rather than all K slots: a slot
+    past a tile's window never contributes.
+
+    -> (T, 10 + A, NRAY): rgb (3), depth*w, acc, normal (3), distortion,
+    final T, aux."""
+    dev = rays.device
+    T = rays.shape[0]
+    P = scene.mean.shape[0]
+    A = scene.aux.shape[-1]
+    starts = bounds[:-1].to(torch.int64)
+    cnts = torch.clamp(bounds[1:].to(torch.int64) - starts, max=K)
+    gidx = gauss_idx.to(torch.int64)
+    B = tile_block or max(1, _EXACT_BLOCK_ELEMS // (K * NRAY))
+    # the longest window of each block, fetched in one transfer
+    kmax = torch.stack([cnts[b0:b0 + B].max()
+                        for b0 in range(0, T, B)]).tolist() if T else []
+    out = torch.zeros((T, 10 + A, NRAY), dtype=torch.float32, device=dev)
+
+    def excl(x):  # exclusive running sum over a ray's sorted hits
+        return torch.nn.functional.pad(torch.cumsum(x, dim=2),
+                                       (1, 0))[..., :-1]
+
+    for blk, b0 in enumerate(range(0, T, B)):
+        Kb = kmax[blk]
+        if Kb == 0:
+            out[b0:b0 + B, 9] = 1.0
+            continue
+        st, cnt, r8 = starts[b0:b0 + B], cnts[b0:b0 + B], rays[b0:b0 + B]
+        k = torch.arange(Kb, device=dev)
+        idxw = gidx[torch.clamp(st[:, None] + k, max=gidx.shape[0] - 1)]
+        valid = (k < cnt[:, None]) & (idxw < P)
+        g = torch.clamp(idxw, 0, P - 1)  # (b, Kb)
+        col3 = lambda t: [t[g][..., i, None] for i in range(3)]  # noqa: E731
+        mx, my, mz = col3(scene.mean)  # (b, Kb, 1) each
+        ux, uy, uz = col3(scene.t_u)
+        vx, vy, vz = col3(scene.t_v)
+        nx, ny, nz = col3(scene.normal)
+        op = torch.where(valid, scene.opacity[g], 0.0)[..., None]
+        ox, oy, oz, dx, dy, dz = (r8[:, i, None, :] for i in range(6))
+        dn = nx * dx + ny * dy + nz * dz  # (b, Kb, NRAY)
+        dn_safe = torch.where(torch.abs(dn) < 1e-9, 1e-9, dn)
+        t = ((mx * nx + my * ny + mz * nz)
+             - (nx * ox + ny * oy + nz * oz)) / dn_safe
+        u = ((ux * ox + uy * oy + uz * oz) + t * (ux * dx + uy * dy + uz * dz)
+             - (ux * mx + uy * my + uz * mz))
+        v = ((vx * ox + vy * oy + vz * oz) + t * (vx * dx + vy * dy + vz * dz)
+             - (vx * mx + vy * my + vz * mz))
+        alpha = torch.clamp(op * torch.exp(-0.5 * (u * u + v * v)),
+                            max=ALPHA_MAX)
+        ok = (alpha >= ALPHA_MIN) & (t > T_MIN) & (torch.abs(dn) >= 1e-9)
+        alpha = torch.where(ok, alpha, 0.0)
+        flip = torch.where(dn > 0, -1.0, 1.0)
+        # ---- each ray's own depth order of its hits ----
+        keys = torch.where(alpha > 0, t, float("inf")).transpose(1, 2)
+        order = torch.sort(keys, dim=2, stable=True).indices  # (b, NRAY, Kb)
+        del keys, u, v, ok, dn_safe
+
+        def per_ray(x):  # (b, Kb, NRAY or 1) -> (b, NRAY, Kb) in ray order
+            return torch.gather(
+                x.transpose(1, 2).expand(-1, NRAY, -1), 2, order)
+
+        a_s = per_ray(alpha)
+        t_s = per_ray(t)
+        m_s = t_s / (1.0 + torch.abs(t_s))
+        log_om = torch.log1p(-a_s)
+        Ttil = torch.exp(excl(log_om))
+        contrib = (a_s > 0) & (Ttil * (1.0 - a_s) >= T_CUTOFF)
+        w = torch.where(contrib, a_s * Ttil, 0.0)
+        res = out[b0:b0 + B]
+        for c in range(3):
+            res[:, c] = torch.sum(w * per_ray(scene.color[g][..., c, None]), 2)
+        res[:, 3] = torch.sum(w * t_s, 2)
+        res[:, 4] = torch.sum(w, 2)
+        for c, n in enumerate((nx, ny, nz)):
+            res[:, 5 + c] = torch.sum(w * per_ray(n * flip), 2)
+        res[:, 8] = torch.sum(
+            w * (m_s * m_s * excl(w) + excl(w * m_s * m_s)
+                 - 2 * m_s * excl(w * m_s)), 2)
+        res[:, 9] = torch.exp(torch.sum(torch.where(contrib, log_om, 0.0), 2))
+        for c in range(A):
+            res[:, 10 + c] = torch.sum(
+                w * per_ray(scene.aux[g][..., c, None]), 2)
+    return out
+
+
 def trace_rays(
     scene: TraceScene,
     ray_o: torch.Tensor,
@@ -400,14 +506,19 @@ def trace_rays(
     package's render mode); all True with the (P,) zeros hook `wet_zero` is
     the training path (TraceOutput.wet exact zeros: wet is the hook's
     gradient). ray_mask (H, W) bool culls whole ray tiles with no
-    masked-in ray."""
+    masked-in ray. exact_order: the eval-time blend in each ray's own depth
+    order (`_trace_tiles_exact`, plain PyTorch, no kernel), every output
+    filled, no gradient and no wet."""
     train = all(needs) and wet_zero is not None
-    if (any(needs) and not train) or exact_order:
+    if exact_order:
+        if wet_zero is not None:
+            raise ValueError("exact_order: an eval path, no wet hook")
+    elif any(needs) and not train:
         raise NotImplementedError(
             f"trace_rays needs={needs} wet_zero given: {wet_zero is not None}"
-            f" exact_order={exact_order}: the render path and the train path"
-            " (all needs with the wet_zero hook) are ported; forward wet and"
-            " the exact per-ray order are not")
+            ": the render path, the train path (all needs with the wet_zero"
+            " hook) and the exact per-ray order are ported; the forward wet"
+            " of the radial-order blend is not")
     H, W = ray_o.shape[:2]
     dev = ray_o.device
     P = scene.mean.shape[0]
@@ -425,8 +536,30 @@ def trace_rays(
         gauss_idx, bounds, dropped = cull_and_sort(
             tiles, scene, splat_radius3(scene), per_tile_cap=K,
             total_pair_cap=total_pair_cap, tile_mask=tile_mask)
-    packed = _pack_scene_table(scene)
     wet = torch.zeros(P, dtype=torch.float32, device=dev)
+    if exact_order:
+        # eval-time exact per-ray blend order over the same candidate
+        # windows; every output, whatever `needs` says
+        with torch.no_grad():
+            Kw = max(min(K // CHUNK, -(-P // CHUNK)), 1) * CHUNK
+            te = _trace_tiles_exact(scene, tiles.rays, gauss_idx, bounds, Kw)
+        img = (te.reshape(ty, tx, 10 + A, RTH, RTW).permute(2, 0, 3, 1, 4)
+               .reshape(10 + A, ty * RTH, tx * RTW)[:, :H, :W])
+        acc, trans = img[4], img[9]
+        return TraceOutput(
+            rgb=img[:3].permute(1, 2, 0) + trans[..., None] * bg_color,
+            dpt=torch.where(acc > 1e-8, img[3] / torch.clamp(acc, min=1e-8),
+                            0.0),
+            acc=acc,
+            norm=img[5:8].permute(1, 2, 0),
+            dist=img[8],
+            aux=img[10:].permute(1, 2, 0),
+            wet=wet,
+            trans=trans,
+            dropped_pairs=dropped,
+            num_pairs=bounds[-1],
+        )
+    packed = _pack_scene_table(scene)
     if train:
         img = trace_blend_train(packed, ray_planes(ray_o, ray_d),
                                 torch.nn.functional.pad(wet_zero, (0, 1)),

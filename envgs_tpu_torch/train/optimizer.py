@@ -18,16 +18,18 @@ from envgs_tpu_torch.models.gaussians import GaussianParams
 
 
 class AdamState(NamedTuple):
-    mu: GaussianParams
+    mu: GaussianParams  # or any NamedTuple of tensors (camera residuals)
     nu: GaussianParams
     step: torch.Tensor  # () int32
 
 
-def init_adam(params: GaussianParams) -> AdamState:
-    return AdamState(GaussianParams(*map(torch.zeros_like, params)),
-                     GaussianParams(*map(torch.zeros_like, params)),
+def init_adam(params) -> AdamState:
+    """Zero moments for a NamedTuple of parameter tensors."""
+    cls = type(params)
+    return AdamState(cls(*map(torch.zeros_like, params)),
+                     cls(*map(torch.zeros_like, params)),
                      torch.zeros((), dtype=torch.int32,
-                                 device=params.xyz.device))
+                                 device=params[0].device))
 
 
 def _f32(x) -> torch.Tensor:

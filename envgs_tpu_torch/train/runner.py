@@ -1,0 +1,412 @@
+"""Training / evaluation runner (port of envgs_tpu/train/runner.py, the
+host loop of a single process).
+
+Epoch-driven train loop with the maintenance events before every step,
+checkpoint resume (latest, else the highest-numbered file), periodic save
+and eval, console stat lines with ETA and smoothed losses, the cap growth
+that doubles a pair cap when a step dropped pairs, and the test loop that
+writes metrics.json and typed image dumps. Evaluation renders in the
+tracer's exact per-ray order by default.
+
+Not ported, so not accepted as arguments: the ratio / crop / patch /
+alternating moderators, the aux supervisors, the tensorboard recorder, the
+multi-host hooks, `render_path` and `extract_mesh`. LPIPS stays inert (no
+VGG16 weights in the repository).
+"""
+from __future__ import annotations
+
+import collections
+import json
+import os
+import shutil
+import signal
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from envgs_tpu_torch.models import gaussians as G
+from envgs_tpu_torch.models.envgs import (
+    EnvGSConfig,
+    _pool_colors,
+    _pool_colors_at,
+    forward_envgs,
+    reflect_rays,
+    render_base,
+)
+from envgs_tpu_torch.ops.binning import bin_splats
+from envgs_tpu_torch.ops.common import ROWCULL_LOWPASS_R, prepare_splats
+from envgs_tpu_torch.ops.raster import _pack_table
+from envgs_tpu_torch.ops.raster_blend import CHUNK, TILE, blend_tiles
+from envgs_tpu_torch.ops.trace_blend import trace_blend
+from envgs_tpu_torch.ops.tracer import (
+    _pack_scene_table,
+    build_ray_tiles,
+    cull_and_sort,
+    default_per_tile_cap,
+    splat_radius3,
+)
+from envgs_tpu_torch.ops.tracer_ref import prepare_trace_scene
+from envgs_tpu_torch.train import checkpoints as ckpt
+from envgs_tpu_torch.train.evaluator import Evaluator, Visualizer
+from envgs_tpu_torch.train.optimizer import LRConfig
+from envgs_tpu_torch.train.supervisor import LossConfig
+from envgs_tpu_torch.train.trainer import (
+    Batch,
+    CamOptConfig,
+    ScheduleConfig,
+    init_cam_opt,
+    init_train_state,
+    make_maintenance,
+    make_train_step,
+)
+from envgs_tpu_torch.utils.camera import Camera
+from envgs_tpu_torch.utils.timer import ProfilerSession, Timer
+
+
+class SmoothedValue:
+    def __init__(self, window: int = 20):
+        self.vals = collections.deque(maxlen=window)
+
+    def update(self, v):
+        self.vals.append(float(v))
+
+    @property
+    def median(self):
+        return float(np.median(self.vals)) if self.vals else 0.0
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def render_stage_ms(base: G.GaussianPool, env: G.GaussianPool, cam: Camera,
+                    cfg: EnvGSConfig) -> dict:
+    """Host-clock ms (the device waited for after each stage) of the four
+    stages that carry a radial-order render of (base, env, cam): bin
+    (binning of the base pass), raster_blend, cull (the env pass's
+    cull_and_sort) and trace_blend, each fed the real output of the one
+    before it, as forward_envgs runs them."""
+    dev = base.params.xyz.device
+    ms = {}
+
+    def timed(name, fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    with torch.no_grad():
+        colors = torch.cat([_pool_colors(base, cam.center), base.get_specular,
+                            base.get_roughness], dim=-1)
+        prep = prepare_splats(base.params.xyz, base.params.rotation,
+                              base.get_scaling, base.get_opacity[:, 0], colors,
+                              cam, scale_modifier=cfg.scale_modifier,
+                              active=base.stats.active)
+        bins = timed("bin", lambda: bin_splats(
+            prep, cam.H, cam.W, TILE, cfg.pair_cap, align=CHUNK,
+            lowpass_r=ROWCULL_LOWPASS_R))
+        packed = _pack_table(prep, bins.order)
+        timed("raster_blend", lambda: blend_tiles(
+            packed, bins.gauss_idx, bins.tile_bounds, colors.shape[-1],
+            bins.tiles_x, bins.tiles_y))
+        ref_o, ref_d = reflect_rays(
+            cam, render_base(base, cam, cfg._replace(render_mode=True)))
+        scene = prepare_trace_scene(
+            env.params.xyz, env.params.rotation, env.get_scaling,
+            env.get_opacity[:, 0], _pool_colors_at(env, ref_o),
+            active=env.stats.active, scale_modifier=cfg.scale_modifier)
+        tiles = build_ray_tiles(ref_o, ref_d)
+        gidx, bounds, _ = timed("cull", lambda: cull_and_sort(
+            tiles, scene, splat_radius3(scene),
+            per_tile_cap=default_per_tile_cap(scene.mean.shape[0]),
+            total_pair_cap=cfg.env_pair_cap))
+        packed_env = _pack_scene_table(scene)
+        timed("trace_blend", lambda: trace_blend(
+            packed_env, gidx, tiles.rays, bounds, -(-cam.W // TILE),
+            -(-cam.H // TILE)))
+    return ms
+
+
+class Runner:
+    def __init__(
+        self,
+        views: list[dict],  # [{rgb, msk?, norm?, camera, name?}], numpy maps
+        base: G.GaussianPool,
+        env: G.GaussianPool,
+        model_cfg: EnvGSConfig,
+        loss_cfg: LossConfig,
+        sched: ScheduleConfig,
+        dens_base: G.DensifyConfig,
+        dens_env: G.DensifyConfig,
+        lr_base: LRConfig,
+        lr_env: LRConfig,
+        exp_name: str = "exp",
+        out_root: str = "data",
+        save_latest_every: int = 5000,
+        save_every: int = 0,
+        log_every: int = 50,
+        eval_views: list[dict] | None = None,
+        eval_every_iters: int = 0,
+        seed: int = 0,
+        resume: bool = True,
+        cam_opt: CamOptConfig = CamOptConfig(),
+        collect_timing: bool = False,
+        timer_sync: bool = False,
+        timer_record_to_file: str | None = None,
+        profiler_trace_dir: str | None = None,
+        profiler_start: int = 10,
+        profiler_steps: int = 5,
+    ):
+        """The pools' device is the runner's: views' cameras must live on
+        it, their maps are numpy arrays uploaded per step."""
+        self.views = views
+        self.eval_views = eval_views or []
+        self.model_cfg = model_cfg
+        self.loss_cfg = loss_cfg
+        self.sched = sched
+        self.lr_base, self.lr_env = lr_base, lr_env
+        self.exp_name = exp_name
+        self.model_dir = os.path.join(out_root, "trained_model", exp_name)
+        self.result_dir = os.path.join(out_root, "result", exp_name)
+        self.save_latest_every = save_latest_every
+        self.save_every = save_every
+        self.log_every = log_every
+        self.eval_every_iters = eval_every_iters
+        self.cam_opt_cfg = cam_opt
+        self.device = base.params.xyz.device
+
+        self.has_norm = "norm" in views[0]
+        # one train step per resolution
+        self._step_cache: dict[tuple[int, int], Any] = {}
+        self.maintain = make_maintenance(sched, dens_base, dens_env)
+        self.events: list = []  # (iteration, event) of every event fired
+        self.state = init_train_state(base, env, seed=seed)
+        self.cam_state = init_cam_opt(len(views), self.device)
+        self.start_iter = 0
+        if resume:
+            latest = ckpt.find_latest(self.model_dir)
+            if latest:
+                self.state, self.start_iter, cam_state = ckpt.load_checkpoint(
+                    latest, base.cap, env.cap, n_views=len(views),
+                    device=self.device)
+                if cam_state is not None:
+                    self.cam_state = cam_state
+                print(f"[resume] {latest} @ iter {self.start_iter}")
+
+        self.timer = Timer(enabled=collect_timing, sync=timer_sync)
+        self.timer_record_to_file = timer_record_to_file
+        self.profiler = ProfilerSession(profiler_trace_dir, profiler_start,
+                                        profiler_steps)
+
+    def _step_fn(self, cam: Camera):
+        key = (cam.H, cam.W)
+        if key not in self._step_cache:
+            self._step_cache[key] = make_train_step(
+                cam, self.model_cfg, self.loss_cfg, self.lr_base, self.lr_env,
+                has_norm=self.has_norm, cam_opt=self.cam_opt_cfg)
+        return self._step_cache[key]
+
+    def _batch(self, view) -> Batch:
+        H, W = view["camera"].H, view["camera"].W
+        t = lambda a: torch.as_tensor(  # noqa: E731
+            np.asarray(a, np.float32)).to(self.device, non_blocking=True)
+        return Batch(
+            rgb=t(view["rgb"]),
+            msk=t(view.get("msk", np.ones((H, W, 1), np.float32))),
+            norm=t(view.get("norm", np.zeros((H, W, 3), np.float32))))
+
+    def _train_view(self, view_i: int) -> tuple[dict, Camera, int]:
+        """The training view (no moderators: always the full image)."""
+        view = self.views[view_i]
+        return view, view["camera"], view_i
+
+    def train(self):
+        total = self.sched.total_iters
+        smoothed = collections.defaultdict(SmoothedValue)
+        rng = np.random.default_rng(0)
+        order = rng.permutation(len(self.views))
+        oi = 0
+        t_start = time.time()
+
+        # SIGUSR1 -> status dump + checkpoint at the next loop boundary;
+        # SIGUSR2 -> checkpoint only. The handlers only set flags.
+        sig_flags = {"dump": False, "save": False}
+
+        def _on_usr1(*_a):
+            sig_flags["dump"] = sig_flags["save"] = True
+
+        def _on_usr2(*_a):
+            sig_flags["save"] = True
+
+        old_handlers = {}
+        try:
+            for sig, fn in ((signal.SIGUSR1, _on_usr1),
+                            (signal.SIGUSR2, _on_usr2)):
+                old_handlers[sig] = signal.signal(sig, fn)
+        except ValueError:
+            pass  # not the main thread (e.g. under a test harness)
+
+        prev_stats: dict = {}
+        try:
+            for it in range(self.start_iter, total):
+                self.profiler.step(it)
+                self.timer.tick()
+                self.state = self.maintain(self.state, it, log=self.events)
+                self.timer.record("maintain")
+
+                view, cam, view_i = self._train_view(int(order[oi]))
+                oi += 1
+                if oi >= len(order):
+                    order = rng.permutation(len(self.views))
+                    oi = 0
+                batch = self._batch(view)
+                self.timer.record("data")
+                if self.cam_opt_cfg.enabled:
+                    self.state, self.cam_state, stats = self._step_fn(cam)(
+                        self.state, self.cam_state, batch, cam.K, cam.R,
+                        cam.T, view_i, it)
+                else:
+                    self.state, stats = self._step_fn(cam)(
+                        self.state, batch, cam.K, cam.R, cam.T, it)
+                self.timer.record("step")
+
+                # cap growth, checked every step on the step before (its
+                # counters are on the host's side of the queue by now, so
+                # reading them does not wait for the step just queued);
+                # the last step reads its own. A dropped pair doubles the
+                # cap it overflowed: configs can start snug.
+                check = stats if it == total - 1 else prev_stats
+                prev_stats = stats
+                grew = {}
+                if float(check.get("pair_overflow", 0)) > 0:
+                    grew["pair_cap"] = self.model_cfg.pair_cap * 2
+                if float(check.get("trace_dropped", 0)) > 0:
+                    grew["env_pair_cap"] = self.model_cfg.env_pair_cap * 2
+                if grew:
+                    self.model_cfg = self.model_cfg._replace(**grew)
+                    self._step_cache.clear()
+                    print("[capacity] growing " + ", ".join(
+                        f"{k} -> {v}" for k, v in grew.items()), flush=True)
+
+                if it % self.log_every == 0 or it == total - 1:
+                    stats = {k: float(v) for k, v in stats.items()}
+                    for k, v in stats.items():
+                        smoothed[k].update(v)
+                    done = it - self.start_iter + 1
+                    eta = ((time.time() - t_start) / max(done, 1)
+                           * (total - it - 1))
+                    line = " ".join(f"{k}: {smoothed[k].median:.4f}"
+                                    for k in ("loss", "img_loss", "psnr")
+                                    if k in smoothed)
+                    tline = ""
+                    if self.timer.enabled:
+                        tline = (f" data {self.timer.mean('data')*1e3:.0f}ms"
+                                 f" step {self.timer.mean('step')*1e3:.0f}ms")
+                    print(f"iter {it}/{total} {line} "
+                          f"pts {int(stats.get('num_pts', 0))} "
+                          f"env {int(stats.get('env_num_pts', 0))} "
+                          f"eta {eta/60:.1f}m{tline}", flush=True)
+                    self.timer.tick()  # logging is not charged to a span
+
+                if sig_flags["dump"]:
+                    sig_flags["dump"] = False
+                    print(f"[SIGUSR1] iter {it}/{total} " + " ".join(
+                        f"{k}: {float(v):.4f}" for k, v in stats.items()),
+                        flush=True)
+                if sig_flags["save"]:
+                    sig_flags["save"] = False
+                    self.save(it + 1, latest_only=True)
+                    print(f"[signal] checkpoint saved at iter {it + 1}",
+                          flush=True)
+
+                nxt = it + 1
+                if self.save_latest_every and nxt % self.save_latest_every == 0:
+                    self.save(nxt, latest_only=True)
+                if self.save_every and nxt % self.save_every == 0:
+                    self.save(nxt)
+                if (self.eval_every_iters and nxt % self.eval_every_iters == 0
+                        and self.eval_views):
+                    self.test(save_images=False, tag=f"it{nxt}")
+        finally:
+            self.profiler.close()
+            for sig, old in old_handlers.items():
+                signal.signal(sig, old)
+
+        self.save(total)
+        if self.timer_record_to_file:
+            self.timer.dump(self.timer_record_to_file)
+        return self.state
+
+    def save(self, it: int, latest_only: bool = False):
+        os.makedirs(self.model_dir, exist_ok=True)
+        cam_state = self.cam_state if self.cam_opt_cfg.enabled else None
+        latest = os.path.join(self.model_dir, "latest.npz")
+        if latest_only:
+            ckpt.save_checkpoint(latest, self.state, it, cam_state=cam_state)
+        else:  # compress once: the numbered file, then its copy
+            numbered = os.path.join(self.model_dir, f"{it}.npz")
+            ckpt.save_checkpoint(numbered, self.state, it,
+                                 cam_state=cam_state)
+            shutil.copyfile(numbered, latest)
+        ckpt.export_ply(self.state.base,
+                        os.path.join(self.model_dir, "base.ply"))
+        ckpt.export_ply(self.state.env,
+                        os.path.join(self.model_dir, "env.ply"))
+
+    def render_view(self, cam: Camera, it: int | None = None,
+                    exact_order: bool | None = None):
+        """Render one view in render mode, without autograd. exact_order
+        None follows the model config; True/False picks the tracer's blend
+        order for this call (evaluation defaults to the exact per-ray
+        order, see test())."""
+        eo = (self.model_cfg.tracer_exact_order if exact_order is None
+              else bool(exact_order))
+        cfg = self.model_cfg._replace(tracer_exact_order=eo, render_mode=True)
+        with torch.no_grad():
+            return forward_envgs(
+                self.state.base, self.state.env, cam,
+                self.sched.total_iters if it is None else it, cfg)
+
+    def test(self, save_images: bool = True, tag: str | None = None,
+             types=("RENDER", "DEPTH", "NORMAL", "SPECULAR", "DIFFUSE",
+                    "REFLECTION"), exact_order: bool = True):
+        """Evaluate the held-out views (the training views when there are
+        none) -> the metrics.json dict.
+
+        exact_order (default True): render with the tracer's exact per-ray
+        blend order instead of the training path's per-tile radial order.
+        The summary also carries `tracer_order` and `stage_ms`, the
+        per-stage times of one radial-order render of the first view
+        (`render_stage_ms`)."""
+        result_dir = (os.path.join(self.result_dir, tag) if tag
+                      else self.result_dir)
+        ev = Evaluator(result_dir)
+        vis = Visualizer(result_dir, types=types) if save_images else None
+        views = self.eval_views or self.views
+        try:
+            for i, view in enumerate(views):
+                cam = view["camera"]
+                _sync(self.device)
+                t0 = time.time()
+                out = self.render_view(cam, exact_order=exact_order)
+                _sync(self.device)
+                dt = time.time() - t0
+                ev.evaluate(torch.clamp(out.rgb_map, 0, 1), view["rgb"],
+                            name=view.get("name", str(i)), render_time=dt)
+                if vis:
+                    vis.visualize(out, view["rgb"], 0, i)
+        finally:
+            if vis:
+                vis.summarize()
+        stage_ms = render_stage_ms(self.state.base, self.state.env,
+                                   views[0]["camera"], self.model_cfg)
+        summary = ev.summarize(extra={
+            "tracer_order": "exact" if exact_order else "radial",
+            "stage_ms": stage_ms})
+        print(json.dumps(summary["summary"], indent=2))
+        return summary

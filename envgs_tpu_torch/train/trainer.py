@@ -1,16 +1,22 @@
-"""EnvGS train step (port of envgs_tpu/train/trainer.py::make_train_step,
-without camera optimisation and aux supervisors).
+"""EnvGS trainer: the train step and the maintenance events of the
+schedule (port of envgs_tpu/train/trainer.py, without aux supervisors).
 
 One step: the forward through both passes in training mode, the losses,
 `torch.autograd.grad` of the loss with respect to both pools' parameters
-and the four zeros hooks, masked sparse Adam on both pools, and the
+and the four zeros hooks (and, with camera optimisation, the per-view
+camera residuals), masked sparse Adam on both pools, and the
 densification statistics. The hooks' gradients are the screen-space
 (base) and world-space (env) densification gradients and the per-splat
 wet of each pass, so no `.grad` is retained and no forward wet is built.
 
-The JAX TrainState's random key is left out: the step draws no random
-numbers, and the maintenance events that do (densify, color sabotage)
-are not ported yet; they will bring a `torch.Generator`.
+`make_maintenance` returns the host-side function that applies every event
+due at an iteration, before that iteration's forward: SH one-ups,
+densify/prune of both pools, the opacity resets, the specular reset and
+the 3DGS-DR tricks (color sabotage, normal propagation), under the JAX
+package's exact conditions. The events that draw random numbers (densify
+splits, color sabotage) draw from the train state's `torch.Generator`, the
+counterpart of the JAX TrainState's key, unless the caller hands the draws
+in.
 
 `state_to_numpy` / `state_from_numpy` carry a train state across the two
 packages under the JAX field names.
@@ -23,6 +29,11 @@ import numpy as np
 import torch
 
 from envgs_tpu_torch.models import gaussians as G
+from envgs_tpu_torch.models.camera_opt import (
+    CameraResiduals,
+    apply_residual,
+    init_camera_residuals,
+)
 from envgs_tpu_torch.models.envgs import EnvGSConfig, forward_envgs
 from envgs_tpu_torch.train.optimizer import (
     AdamState,
@@ -35,11 +46,48 @@ from envgs_tpu_torch.train.supervisor import LossConfig, compute_losses
 from envgs_tpu_torch.utils.camera import Camera
 
 
+class ScheduleConfig(NamedTuple):
+    """Event cadences (envgs.yaml + EnvGSSampler defaults)."""
+
+    epochs: int = 80
+    ep_iter: int = 500
+    # base gaussians
+    densify_from_iter: int = 500
+    densify_until_iter: int = 21000
+    init_densification_interval: int = 100
+    norm_densification_interval: int = 500
+    opacity_reset_interval: int = 3000
+    sh_update_iter: int = 1000
+    sh_start_iter: int = 0
+    # env gaussians
+    env_densify_from_iter: int = 500
+    env_densify_until_iter: int = 21000
+    env_densification_interval: int = 500
+    env_opacity_reset_interval: int = 6000
+    env_sh_update_iter: int = 1000
+    env_sh_start_iter: int = 0
+    # 3DGS-DR tricks
+    reflection_start_iter: int = 3000
+    normal_prop_until_iter: int = 18000
+    normal_prop_interval: int = 1000
+    color_sabotage_until_iter: int = 18000
+    color_sabotage_interval: int = 1000
+    reset_specular_all: bool = False
+    init_specular: float = 1e-3
+    reset_opacity_value: float = 0.01
+
+    @property
+    def total_iters(self):
+        return self.epochs * self.ep_iter
+
+
 class TrainState(NamedTuple):
     base: G.GaussianPool
     env: G.GaussianPool
     opt_base: AdamState
     opt_env: AdamState
+    # draws of the maintenance events (None: the caller hands them in)
+    gen: torch.Generator | None = None
 
 
 class Batch(NamedTuple):
@@ -50,25 +98,61 @@ class Batch(NamedTuple):
     norm: torch.Tensor  # (H, W, 3) monocular prior (zeros if absent)
 
 
-def init_train_state(base: G.GaussianPool, env: G.GaussianPool) -> TrainState:
-    return TrainState(base, env, init_adam(base.params), init_adam(env.params))
+def init_train_state(base: G.GaussianPool, env: G.GaussianPool,
+                     seed: int | None = None) -> TrainState:
+    """A fresh train state; with `seed`, a generator on the pools' device
+    for the maintenance events' draws."""
+    gen = None
+    if seed is not None:
+        gen = torch.Generator(device=base.params.xyz.device)
+        gen.manual_seed(seed)
+    return TrainState(base, env, init_adam(base.params),
+                      init_adam(env.params), gen)
+
+
+class CamOptState(NamedTuple):
+    """Optimizable-camera training state: the residuals and their Adam
+    moments."""
+
+    res: CameraResiduals
+    opt: AdamState
+
+
+def init_cam_opt(n_views: int, device=None) -> CamOptState:
+    res = init_camera_residuals(max(n_views, 1), device)
+    return CamOptState(res, init_adam(res))
+
+
+class CamOptConfig(NamedTuple):
+    enabled: bool = False
+    extri_lr: float = 1e-5
+    intri_lr: float = 1e-8
+    freeze_extri: bool = False
+    freeze_intri: bool = False
 
 
 def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
                     lr_base: LRConfig, lr_env: LRConfig,
-                    has_norm: bool = False):
+                    has_norm: bool = False,
+                    cam_opt: CamOptConfig = CamOptConfig()):
     """The train step for the template camera's resolution and planes.
 
     step(state, batch, K, R, T, it, mark=None, grads_out=None) -> (new
-    state, stats dict). `mark(name)`, when given, is called as each stage
-    ends ("forward", "backward", "optimizer"), e.g. to record CUDA events;
-    `grads_out`, a dict, receives the step's gradients ("base", "env":
-    GaussianParams; "means2d", "env_means3d", "wet_base", "wet_env")."""
+    state, stats dict); with `cam_opt.enabled`, step(state, cam_state,
+    batch, K, R, T, view_idx, it, ...) -> (new state, new cam_state, stats):
+    the view's SE(3) and intrinsic residuals are applied inside the forward
+    and optimized with the pools (Adam, eps 1e-15, the two freeze flags).
+    `mark(name)`, when given, is called as each stage ends ("forward",
+    "backward", "optimizer"), e.g. to record CUDA events; `grads_out`, a
+    dict, receives the step's gradients ("base", "env": GaussianParams;
+    "means2d", "env_means3d", "wet_base", "wet_env"; "cam" with camera
+    optimisation)."""
     H, W, znear, zfar = cam.H, cam.W, cam.znear, cam.zfar
 
-    def step(state: TrainState, batch: Batch, K, R, T, it: int,
-             mark: Callable[[str], None] | None = None,
-             grads_out: dict | None = None):
+    def step_impl(state: TrainState, cam_state: CamOptState | None,
+                  batch: Batch, K, R, T, view_idx: int, it: int,
+                  mark: Callable[[str], None] | None = None,
+                  grads_out: dict | None = None):
         base, env = state.base, state.env
         dev = base.params.xyz.device
         leaf = lambda x: x.detach().requires_grad_(True)  # noqa: E731
@@ -79,6 +163,10 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
         wz_b, wz_e = zeros(base.cap), zeros(env.cap)
 
         camera = Camera(H, W, K, R, T, znear, zfar)
+        cres = None
+        if cam_opt.enabled:
+            cres = CameraResiduals(*map(leaf, cam_state.res))
+            camera = apply_residual(camera, cres, int(view_idx))
         out = forward_envgs(base._replace(params=bparams),
                             env._replace(params=eparams), camera, it,
                             model_cfg, m2z, e3z, wz_b, wz_e)
@@ -88,14 +176,14 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
         if mark:
             mark("forward")
 
-        leaves = [*bparams, *eparams, m2z, e3z, wz_b, wz_e]
+        leaves = [*bparams, *eparams, m2z, e3z, wz_b, wz_e, *(cres or ())]
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for g, x in zip(grads, leaves)]
         nb, ne = len(bparams), len(eparams)
         g_base = G.GaussianParams(*grads[:nb])
         g_env = G.GaussianParams(*grads[nb:nb + ne])
-        g_m2z, g_e3z, g_wet_b, g_wet_e = grads[nb + ne:]
+        g_m2z, g_e3z, g_wet_b, g_wet_e = grads[nb + ne:nb + ne + 4]
         if grads_out is not None:
             grads_out.update(base=g_base, env=g_env, means2d=g_m2z,
                              env_means3d=g_e3z, wet_base=g_wet_b,
@@ -111,6 +199,20 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
             base.params, g_base, state.opt_base, lr_tree_for(it, lr_base))
         new_ep, opt_env = sparse_adam_update(
             env.params, g_env, state.opt_env, lr_tree_for(it, lr_env))
+        if cam_opt.enabled:
+            g_cam = CameraResiduals(*grads[nb + ne + 4:])
+            if cam_opt.freeze_extri:
+                g_cam = g_cam._replace(se3=torch.zeros_like(g_cam.se3))
+            if cam_opt.freeze_intri:
+                g_cam = g_cam._replace(intr=torch.zeros_like(g_cam.intr))
+            if grads_out is not None:
+                grads_out["cam"] = g_cam
+            f32 = lambda v: float(torch.tensor(v, dtype=torch.float32))  # noqa: E731
+            new_res, new_copt = sparse_adam_update(
+                cam_state.res, g_cam, cam_state.opt,
+                CameraResiduals(f32(cam_opt.extri_lr), f32(cam_opt.intri_lr)),
+                eps=1e-15)
+            cam_state = CamOptState(new_res, new_copt)
         b_stats = G.accumulate_stats(
             base.stats, g_m2z, out.base_visibility | (wet_b > 0),
             weight=wet_b, radii=out.base_radii.detach())
@@ -118,7 +220,7 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
             env.stats, g_e3z, out.env_visibility | (wet_e > 0), weight=wet_e)
         new_state = TrainState(base._replace(params=new_bp, stats=b_stats),
                                env._replace(params=new_ep, stats=e_stats),
-                               opt_base, opt_env)
+                               opt_base, opt_env, state.gen)
         stats["num_pts"] = base.stats.active.sum()
         stats["env_num_pts"] = env.stats.active.sum()
         # capacity truncation counters: pairs past the raster budget, and
@@ -128,9 +230,129 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
         stats["trace_dropped"] = out.env_dropped_pairs
         if mark:
             mark("optimizer")
+        return new_state, cam_state, stats
+
+    if cam_opt.enabled:
+        return step_impl
+
+    def step(state: TrainState, batch: Batch, K, R, T, it: int,
+             mark: Callable[[str], None] | None = None,
+             grads_out: dict | None = None):
+        new_state, _, stats = step_impl(state, None, batch, K, R, T, 0, it,
+                                        mark, grads_out)
         return new_state, stats
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Maintenance events (host-dispatched, before the forward of an iteration)
+# ---------------------------------------------------------------------------
+
+EVENTS = ("oneup_base", "oneup_env", "densify_base", "densify_env",
+          "reset_opacity_base", "reset_specular", "reset_opacity_env",
+          "color_sabotage", "normal_prop")
+
+
+def due_events(s: ScheduleConfig, it: int) -> list[str]:
+    """The events of EVENTS due at iteration `it`, in the order they apply
+    (the conditions of envgs_tpu's `maintain`)."""
+    # the densification interval switches by phase
+    if it < s.reflection_start_iter or it >= s.normal_prop_until_iter:
+        dint = s.init_densification_interval
+    else:
+        dint = s.norm_densification_interval
+    due = []
+    if (0 < it < s.densify_until_iter and it % s.sh_update_iter == 0
+            and it > s.sh_start_iter):
+        due.append("oneup_base")
+    if (s.reflection_start_iter < it < s.env_densify_until_iter
+            and it % s.env_sh_update_iter == 0 and it > s.env_sh_start_iter):
+        due.append("oneup_env")
+    if s.densify_from_iter < it < s.densify_until_iter and it % dint == 0:
+        due.append("densify_base")
+    if (s.env_densify_from_iter < it < s.env_densify_until_iter
+            and it > s.reflection_start_iter
+            and it % s.env_densification_interval == 0):
+        due.append("densify_env")
+    opacity_reset = False
+    if 0 < it < s.densify_until_iter and it % s.opacity_reset_interval == 0:
+        due.append("reset_opacity_base")
+        opacity_reset = True
+        if it > s.opacity_reset_interval and it > s.reflection_start_iter:
+            due.append("reset_specular")
+    if (s.reflection_start_iter < it < s.env_densify_until_iter
+            and it % s.env_opacity_reset_interval == 0):
+        due.append("reset_opacity_env")
+    # the 3DGS-DR tricks: an opacity reset at the same iteration suppresses
+    # both
+    if (s.reflection_start_iter < it <= s.color_sabotage_until_iter
+            and it % s.color_sabotage_interval == 0 and not opacity_reset
+            and it < s.densify_until_iter):
+        due.append("color_sabotage")
+    if (s.reflection_start_iter < it <= s.normal_prop_until_iter
+            and it % s.normal_prop_interval == 0 and not opacity_reset
+            and it < s.densify_until_iter):
+        due.append("normal_prop")
+    return due
+
+
+def make_maintenance(sched: ScheduleConfig, dens_base: G.DensifyConfig,
+                     dens_env: G.DensifyConfig):
+    """Returns maintain(state, it, draws=None, log=None) -> state, which
+    applies every event due at python-int iteration `it` (called before the
+    forward of iteration it).
+
+    draws: {"densify_base" | "densify_env": the list of split draws `eps`
+    of densify_and_prune, "color_sabotage": the (cap, 1, 3) uniform draw}
+    for events whose random numbers the caller supplies; the others draw
+    from `state.gen`. log, a list, receives (it, event) as each fires."""
+
+    def pool_event(state, which, fn):
+        opt = getattr(state, "opt_" + which)
+        pool, (mu, nu) = fn(getattr(state, which), (opt.mu, opt.nu))
+        return state._replace(**{which: pool,
+                                 "opt_" + which: AdamState(mu, nu, opt.step)})
+
+    def normal_prop(pool, adam):
+        return G.enlarge_scaling(*G.enlarge_opacity(pool, adam))
+
+    def maintain(state: TrainState, it: int, draws: dict | None = None,
+                 log: list | None = None) -> TrainState:
+        draws = draws or {}
+        gen = state.gen
+        events = {
+            "oneup_base": lambda st: st._replace(
+                base=G.oneup_sh_degree(st.base)),
+            "oneup_env": lambda st: st._replace(
+                env=G.oneup_sh_degree(st.env)),
+            "densify_base": lambda st: pool_event(
+                st, "base", lambda p, a: G.densify_and_prune(
+                    p, a, dens_base, gen, draws.get("densify_base"))),
+            "densify_env": lambda st: pool_event(
+                st, "env", lambda p, a: G.densify_and_prune(
+                    p, a, dens_env, gen, draws.get("densify_env"))),
+            "reset_opacity_base": lambda st: pool_event(
+                st, "base", lambda p, a: G.reset_opacity(
+                    p, a, sched.reset_opacity_value)),
+            "reset_specular": lambda st: pool_event(
+                st, "base", lambda p, a: G.reset_specular(
+                    p, a, sched.init_specular, sched.reset_specular_all)),
+            "reset_opacity_env": lambda st: pool_event(
+                st, "env", lambda p, a: G.reset_opacity(
+                    p, a, sched.reset_opacity_value)),
+            "color_sabotage": lambda st: pool_event(
+                st, "base", lambda p, a: G.distort_color(
+                    p, a, gen, draws.get("color_sabotage"))),
+            "normal_prop": lambda st: pool_event(st, "base", normal_prop),
+        }
+        for name in due_events(sched, it):
+            state = events[name](state)
+            if log is not None:
+                log.append((it, name))
+        return state
+
+    return maintain
 
 
 # ---------------------------------------------------------------------------
@@ -168,14 +390,43 @@ def pool_state_from_numpy(s: dict, device=None):
                                    device=device)))
 
 
+def generator_to_numpy(gen: torch.Generator) -> dict:
+    """{"gen_state": the state bytes (uint8), "gen_seed": the seed it
+    started from, "gen_device": its device type}."""
+    return {"gen_state": gen.get_state().numpy(),
+            "gen_seed": np.asarray(gen.initial_seed(), np.uint64),
+            "gen_device": np.asarray(gen.device.type)}
+
+
+def generator_from_numpy(d: dict, device) -> torch.Generator:
+    """A generator on `device` that resumes the saved stream when it was
+    saved from the same device type (the state's layout differs between
+    CPU and CUDA generators); otherwise one seeded with the saved seed,
+    whose stream starts over."""
+    gen = torch.Generator(device=device)
+    if str(d["gen_device"]) == gen.device.type:
+        gen.set_state(torch.tensor(np.asarray(d["gen_state"]),
+                                   dtype=torch.uint8))
+    else:
+        gen.manual_seed(int(d["gen_seed"]))
+    return gen
+
+
 def state_to_numpy(state: TrainState) -> dict:
-    """{"base"|"env": pool_state_to_numpy of that pool}."""
-    return {"base": pool_state_to_numpy(state.base, state.opt_base),
-            "env": pool_state_to_numpy(state.env, state.opt_env)}
+    """{"base"|"env": pool_state_to_numpy of that pool} and, when the state
+    carries a generator, the entries of generator_to_numpy."""
+    d = {"base": pool_state_to_numpy(state.base, state.opt_base),
+         "env": pool_state_to_numpy(state.env, state.opt_env)}
+    if state.gen is not None:
+        d.update(generator_to_numpy(state.gen))
+    return d
 
 
 def state_from_numpy(d: dict, device=None) -> TrainState:
-    """Inverse of state_to_numpy."""
+    """Inverse of state_to_numpy (see generator_from_numpy for the
+    generator)."""
     (base, opt_base), (env, opt_env) = (
         pool_state_from_numpy(d[k], device) for k in ("base", "env"))
-    return TrainState(base, env, opt_base, opt_env)
+    gen = (generator_from_numpy(d, base.params.xyz.device)
+           if d.get("gen_state") is not None else None)
+    return TrainState(base, env, opt_base, opt_env, gen)

@@ -16,11 +16,20 @@ from envgs_tpu_torch.models.gaussiant import (
     init_gaussiant_pool,
 )
 from envgs_tpu_torch.ops.fill_forward import fill_forward, fill_forward_torch
+from envgs_tpu_torch.ops.gather import (
+    gather_rows,
+    gather_rows_win8,
+    gather_rows_win8_torch,
+)
 from envgs_tpu_torch.ops.raster_blend import (
     blend_tiles,
     blend_tiles_bwd,
     blend_tiles_bwd_torch,
     blend_tiles_torch,
+)
+from envgs_tpu_torch.ops.segsum import (
+    segmented_inclusive_sum,
+    segmented_inclusive_sum_torch,
 )
 from envgs_tpu_torch.ops.trace_blend import (
     trace_blend,
@@ -230,3 +239,64 @@ def test_gauss3d_raster_kernels_match_plain(cuda):
     _close_columns(got[:, cols], ref[:, cols])
     unused = [4, 5, 6, 7, 8, 12, 13, 14]
     assert not got[:, unused].any() and not ref[:, unused].any()
+
+
+def test_segscan_kernel_matches_plain(cuda):
+    """K6 against its plain version (a float64 running sum; the kernel sums
+    each 1024-row block sequentially in float32 and adds a carry): random
+    starts, a segment of some 6000 rows that runs through five blocks
+    without a start, no start at row 0, and a NaN row that must poison its
+    own segment and nothing after the next start. Bound: rtol 1e-5 plus the
+    rounding of a sequential float32 sum of n terms taken as a random walk,
+    4 * sqrt(n) * 2^-24 * the largest |sum| (about 5e-3 here; a wrong
+    carry or a missed start errs by whole sums)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    N = 1024 * 40
+    rows = torch.randn((N, 128), generator=g, device=cuda)
+    seg = (torch.rand(N, generator=g, device=cuda) < 0.01).to(torch.int32)
+    seg[3000:9000] = 0
+    seg[0] = 0
+    n = kernels.LAUNCHES["segscan"]
+    got = segmented_inclusive_sum(rows, seg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["segscan"] == n + 1
+    want = segmented_inclusive_sum_torch(rows, seg)
+    starts = torch.nonzero(seg)[:, 0]
+    longest = int((starts[1:] - starts[:-1]).max())
+    assert longest >= 6000
+    atol = 4 * longest ** 0.5 * 2.0 ** -24 * float(want.abs().max())
+    assert torch.allclose(got, want, rtol=1e-5, atol=atol), atol
+    assert float(want[8999].abs().max()) > 50  # the long segment summed up
+    rows[3500] = float("nan")
+    bad = segmented_inclusive_sum(rows, seg)
+    nxt = int(torch.nonzero(seg[3500:])[0]) + 3500
+    assert torch.isnan(bad[3500:nxt]).all()
+    assert torch.equal(bad[nxt:], got[nxt:])
+    assert torch.equal(bad[:3500], got[:3500])
+    with pytest.raises(ValueError, match="multiple"):
+        kernels.segscan(rows[:1000].contiguous(), seg[:1000].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_kernels_match_plain(cuda, dtype):
+    """P1 and P2 bit-equal to table[idx] (and P2's window form), a row
+    count that fills no whole block, repeated indices, both table ends."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    S, n = 4096, 1024 * 9 + 7
+    table = torch.randn((S, 128), generator=g, device=cuda).to(dtype)
+    idx = torch.randint(0, S, (n,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    idx[:2] = torch.tensor([0, S - 1], dtype=torch.int32, device=cuda)
+    want = table[idx.long()]
+    assert torch.equal(gather_rows_win8_torch(table, idx), want)
+    for name, fn in (("gather_rows", gather_rows),
+                     ("gather_rows_win8", gather_rows_win8)):
+        before = kernels.LAUNCHES[name]
+        got = fn(table, idx)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + 1
+        assert got.dtype == dtype and torch.equal(got, want), name
+    with pytest.raises(ValueError, match="int32"):
+        kernels.gather_rows(table, idx.long())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kernels.gather_rows_win8(table[:4091].contiguous(), idx)

@@ -174,8 +174,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.raster_blend_fwd(packed, idx, bounds, 3, 1, 1, mode="gauss3d",
                                  wet=True)
+    rows = torch.zeros(1024, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.segscan(rows, torch.zeros(1024, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gather_rows(rows, idx)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gather_rows_win8(rows.to(torch.bfloat16), idx)
     assert set(kernels.LAUNCHES) == {
         "raster_blend_fwd", "raster_blend_fwd_gauss3d", "raster_blend_bwd",
         "raster_blend_bwd_gauss3d", "trace_blend_fwd", "trace_blend_bwd",
-        "fill_forward"}
+        "fill_forward", "segscan", "gather_rows", "gather_rows_win8"}
     assert not any(kernels.LAUNCHES.values())
