@@ -6,6 +6,7 @@ Phases, one or more lines each:
   1. device: refuses to run without a CUDA card; prints the card's name and
      power limit as nvidia-smi reports them, torch and CUDA versions;
   2. build: compiles the CUDA kernels from the sources in this checkout;
+     K2's registers, shared bytes and resident blocks per SM in both modes;
   3. kernels: K1 (raster blend) and K3 (trace blend) against their plain
      PyTorch versions on the bench scene's own inputs, max abs error per
      output against a stated bound, median ms of each over repeated runs;
@@ -19,7 +20,8 @@ Phases, one or more lines each:
   6. training kernels: K5, K1 and K3 in training mode, K2 and K4 against
      their plain versions on the train bench scene's own inputs (random
      cotangents for the backward kernels), errors against stated bounds
-     (K2 also within each decade of row size), median ms of each;
+     (K2 also within each decade of row size), median ms of each; the
+     spread of 64-pair chunks K2 walks per tile;
   7. small train step: one make_train_step on a small scene from one
      numpy-made state, CUDA (kernels) against CPU (plain versions): loss,
      every gradient, the new params and moments, densification stats;
@@ -31,7 +33,7 @@ Phases, one or more lines each:
   9. 3DGS kernels: K1 in gauss3d mode (training planes and the per-pair
      forward wet) and K2 in gauss3d mode against their plain versions on
      the 3DGS bench scene's own inputs, errors (K2 per column and within
-     each decade of row size) and median ms;
+     each decade of row size), median ms and the chunks-per-tile spread;
  10. small 3DGS run: render_gaussiant, one make_gaussiant_train_step and
      one densify_and_prune (the same split draws) on a small scene, CUDA
      against CPU;
@@ -47,6 +49,9 @@ Phases, one or more lines each:
      at the probe's sizes (a 500 000-row table, 2^21 indices) for bf16 and
      f32, against their plain versions (K6 rtol 1e-5 / atol 1e-4, P1 / P2
      bit-equal); median ms of each, of `table[idx]`, the bytes each moved;
+     P2 also at ragged sizes (n = 1, 15, 17, 2^21 - 3) with repeated,
+     first, last and out-of-range indices, bit-equal to the clamped
+     `table[idx]`;
  13. small run: the compressed 30-iteration schedule (every maintenance
      event) through the Runner on a small scene, CUDA against CPU: each
      iteration starts from the CPU run's state and the same draws; the
@@ -155,6 +160,15 @@ OPS_RAY_TERMS = 41  # trace: plane hit t, local (u, v), alpha
 # a 1024-row block sequentially in float32 and adds a carry, the plain
 # version rounds a float64 running sum once
 SEG_RTOL, SEG_ATOL = 1e-5, 1e-4
+# K2 and P2 were designed again for the card; what their first designs
+# took on the same inputs (NVIDIA H100 80GB HBM3, 700 W): K2 surfel,
+# gauss3d; P2 bf16, f32
+EARLIER_MS = {
+    "raster_blend_bwd": {"earlier_ms": 13.5208},
+    "raster_blend_bwd_gauss3d": {"earlier_ms": 9.5711},
+    "gather_rows_win8": {"earlier_ms": 1.3003, "f32_earlier_ms": 2.9033}}
+# row counts that fill no whole stage, run or block of P2's ring
+RAGGED_N = (1, 15, 17, 2 ** 21 - 3)
 
 
 def cuda_ms(fn, n):
@@ -272,6 +286,44 @@ def blend_bound(table, slots, planes_in, planes_out, evals, ops_per_eval,
     n_bytes = (table.numel() * 4 + slots * 4 + extra_bytes
                + (planes_in + planes_out) * 4)
     return bound_ms(n_bytes, evals * ops_per_eval)
+
+
+def chunk_spread(name, bounds, last_plane, tiles_x, tiles_y):
+    """Print the 64-pair chunks K2 walks per tile (each tile's chunks up to
+    its last contributor's): the tiles are K2's blocks, so the spread is the
+    imbalance its grid has to absorb."""
+    from envgs_tpu_torch.ops.raster_blend import CHUNK, _to_tiles
+
+    last = _to_tiles(last_plane[None], tiles_x, tiles_y)[0].amax(1)
+    nchunks = (bounds[1:] - bounds[:-1]) // CHUNK
+    walked_chunks = torch.minimum(
+        nchunks, ((last.to(torch.int64) + CHUNK) // CHUNK).clamp(min=0)
+    ).to(torch.float32)
+    q = torch.quantile(walked_chunks, walked_chunks.new_tensor(
+        [0.5, 0.99, 1.0])).tolist()
+    total = int(walked_chunks.sum())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[kernels] {name} chunks walked per tile: median {q[0]:g}, p99 "
+          f"{q[1]:g}, max {q[2]:g}, {int((walked_chunks == 0).sum())} empty "
+          f"tiles, {total} in all ({total / sms:.0f} per SM; the largest "
+          f"tile is {q[2] * sms / max(total, 1):.1%} of that)", flush=True)
+
+
+def ragged_gather(name, fn, table, idx, n):
+    """fn(table, idx') for n indices of idx with a repeated, the first, the
+    last and two out-of-range rows among them, bit-equal to table[idx']
+    with idx' clamped into the table."""
+    S = table.shape[0]
+    sub = idx[:n].clone()
+    sub[0] = -5
+    sub[-1] = S + 7
+    if n > 4:
+        sub[1], sub[2], sub[3] = 0, S - 1, sub[4]
+    got = fn(table, sub)
+    torch.cuda.synchronize()
+    if not torch.equal(got, table[sub.to(torch.int64).clamp(0, S - 1)]):
+        raise AssertionError(f"{name} {table.dtype} n={n}: differs from the "
+                             "clamped table[idx]")
 
 
 def small_scene(device):
@@ -1002,6 +1054,7 @@ def main():
     from envgs_tpu_torch.ops.raster_blend import (
         blend_tiles_bwd_torch,
         blend_tiles_torch,
+        gauss3d_slot_columns,
         out_rows,
     )
     from envgs_tpu_torch.ops.raster_blend import rows as raster_rows
@@ -1027,6 +1080,15 @@ def main():
     kernels._load()
     print(f"[build] kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    k2_resources = {mode: kernels.raster_blend_bwd_resources(mode)
+                    for mode in kernels.MODES}
+    for mode, res in k2_resources.items():
+        print(f"[build] raster_blend_bwd ({mode}): {res['registers']} "
+              f"registers, {res['shared_bytes']} B shared, "
+              f"{res['blocks_per_sm']} blocks of 256 threads per SM",
+              flush=True)
+        if res["blocks_per_sm"] < 1:
+            raise AssertionError(f"K2 ({mode}) fits no block on an SM")
 
     # ---- 3. kernels against their plain versions, bench-scene inputs ----
     base, env, cam, cfg = bench.make_render_scene("cuda")
@@ -1167,6 +1229,8 @@ def main():
     print(f"[kernels] raster_blend_fwd (train) {k1t_ms:.4f} ms, plain "
           f"{k1t_plain_ms:.2f} ms, bound {k1t_bound[0]:.4f} ms by "
           f"{k1t_bound[1]} ({ev1:.4g} slot-pixel pairs walked)", flush=True)
+    chunk_spread("raster_blend_bwd", bounds, out1[raster_rows(C)["last"]],
+                 tiles_x, tiles_y)
     g1 = torch.randn(out1.shape, generator=gen, device="cuda")
     k2_args = (packed, gauss_idx, bounds, out1, g1, C, tiles_x, tiles_y)
     got = kernels.raster_blend_bwd(*k2_args)
@@ -1325,6 +1389,8 @@ def main():
     print(f"[kernels] raster_blend_fwd (gauss3d) {k1g_ms:.4f} ms, plain "
           f"{k1g_plain_ms:.2f} ms, bound {k1g_bound[0]:.4f} ms by "
           f"{k1g_bound[1]} ({ev1g:.4g} slot-pixel pairs walked)", flush=True)
+    chunk_spread("raster_blend_bwd (gauss3d)", bounds,
+                 out1[raster_rows(C)["last"]], tiles_x, tiles_y)
     g1 = torch.randn(out1.shape, generator=gen, device="cuda")
     k2g_args = (packed, gauss_idx, bounds, out1, g1, C, tiles_x, tiles_y, 0,
                 "gauss3d")
@@ -1333,7 +1399,7 @@ def main():
     # the reference reaches ~1e32 on saturated tiles (the backward rebuilds
     # T through pairs the forward skipped, see PERF.md), so the per-column
     # bound alone would let ordinary rows through: hold each size apart
-    g3d_cols = [0, 1, 2, 3, 9, 10, 11] + list(range(15, 15 + C)) + [31]
+    g3d_cols = gauss3d_slot_columns(C) + [31]
     k2g_err, k2g_rel = compare_columns(
         "raster_blend_bwd (gauss3d)", got, want, g3d_cols, GRAD_RTOL)
     k2g_rel = max(k2g_rel, compare_columns_by_size(
@@ -1548,6 +1614,12 @@ def main():
                   f"({moved / 2 ** 30:.3f} GiB: {int(idx.unique().numel())} "
                   "distinct rows and the indices read once, the output "
                   "written once)", flush=True)
+        for n in RAGGED_N:
+            ragged_gather("gather_rows_win8", kernels.gather_rows_win8,
+                          table, idx, n)
+        print(f"[kernels] gather_rows_win8 {label}: bit-equal to the clamped "
+              f"table[idx] at n = {', '.join(map(str, RAGGED_N))} (repeated,"
+              " first, last and out-of-range indices)", flush=True)
         del ref, out, want
     del tbf16, t32, idx, long_idx
     # the three kernels' own entry points, driven as a user would: no path
@@ -1616,14 +1688,19 @@ def main():
                 "library_ms": library_ms, "launches_by_path": by_path,
                 **extra}
 
-    def gather_entry(name, replaces):
+    def redesigned(name):
+        """The extra keys of a kernel that was designed again for the card:
+        the number of the redesign and its first design's ms."""
+        return {"redesigned": 5, **EARLIER_MS[name]}
+
+    def gather_entry(name, replaces, **extra):
         g = gathers[(name, "bf16")]
         f = gathers[(name, "f32")]
         return entry(name, "gather_rows.cu", replaces, 0.0, g["ms"],
                      g["plain_ms"], g["bound"], g["library_ms"],
                      f32_ms=f["ms"], f32_plain_ms=f["plain_ms"],
                      f32_bound_ms=f["bound"][0],
-                     f32_library_ms=f["library_ms"])
+                     f32_library_ms=f["library_ms"], **extra)
 
     print(json.dumps({"kernels": [
         entry("raster_blend_fwd", "raster_blend_fwd.cu",
@@ -1632,7 +1709,9 @@ def main():
               render_plain_ms=k1_plain_ms, render_bound_ms=k1_bound[0]),
         entry("raster_blend_bwd", "raster_blend_bwd.cu",
               "envgs_tpu/ops/raster_pallas.py:456", k2_err, k2_ms,
-              k2_plain_ms, k2_bound, max_rel_err=k2_rel),
+              k2_plain_ms, k2_bound, max_rel_err=k2_rel,
+              resources=k2_resources["surfel"],
+              **redesigned("raster_blend_bwd")),
         entry("trace_blend_fwd", "trace_blend_fwd.cu",
               "envgs_tpu/ops/tracer.py:645", max(k3_err, k3t_err), k3t_ms,
               k3t_plain_ms, k3t_bound, render_ms=k3_ms,
@@ -1648,12 +1727,15 @@ def main():
               k1g_plain_ms, k1g_bound, mode="gauss3d"),
         entry("raster_blend_bwd_gauss3d", "raster_blend_bwd.cu",
               "envgs_tpu/ops/raster_pallas.py:456", k2g_err, k2g_ms,
-              k2g_plain_ms, k2g_bound, max_rel_err=k2g_rel, mode="gauss3d"),
+              k2g_plain_ms, k2g_bound, max_rel_err=k2g_rel, mode="gauss3d",
+              resources=k2_resources["gauss3d"],
+              **redesigned("raster_blend_bwd_gauss3d")),
         entry("segscan", "segscan.cu", "envgs_tpu/ops/segsum.py:30", k6_err,
               k6_ms, k6_plain_ms, k6_bound),
         gather_entry("gather_rows", "scripts/tpu_micro_dmagather.py:49"),
         gather_entry("gather_rows_win8",
-                     "scripts/tpu_micro_dmagather.py:112"),
+                     "scripts/tpu_micro_dmagather.py:112",
+                     **redesigned("gather_rows_win8")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -50,6 +50,8 @@ _ARGTYPES = {
     # row_off, mode, fwd, gout, gpacked, stream
     "raster_blend_bwd": [_VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _VP, _VP,
                          _VP, _VP],
+    # mode, out (3 ints)
+    "raster_blend_bwd_resources": [_I, _VP],
     # packed, n_rows, gauss_idx, n_idx, rays, bounds, tiles_x, tiles_y,
     # train, A, out, stream
     "trace_blend_fwd": [_VP, _I, _VP, _I, _VP, _VP, _I, _I, _I, _I, _VP,
@@ -227,6 +229,18 @@ def raster_blend_bwd(packed, gauss_idx, tile_bounds, fwd, g_out, C: int,
     return g_packed
 
 
+def raster_blend_bwd_resources(mode: str = "surfel") -> dict:
+    """What K2 was compiled to for `mode`: registers per thread, static
+    shared bytes per block and resident blocks per SM on the current card.
+    Builds the kernels if need be; launches nothing and counts nothing."""
+    code, _ = _mode("raster_blend_bwd", mode)
+    out = (ctypes.c_int * 3)()
+    err = _load().raster_blend_bwd_resources(code, out)
+    if err != 0:
+        raise RuntimeError(f"raster_blend_bwd_resources: CUDA error {err}")
+    return dict(registers=out[0], shared_bytes=out[1], blocks_per_sm=out[2])
+
+
 def _trace_planes(train: bool, A: int) -> int:
     if not 0 <= A <= 2:
         raise ValueError(f"A={A}: the traced blend carries 0..2 aux channels")
@@ -360,6 +374,7 @@ def gather_rows(table, idx) -> torch.Tensor:
 
 
 def gather_rows_win8(table, idx) -> torch.Tensor:
-    """Kernel P2 (csrc/gather_rows.cu): the same gather through the 8-row
-    window aligned down from idx[j], staged in shared memory; S % 8 == 0."""
+    """Kernel P2 (csrc/gather_rows.cu): the same gather, each row addressed
+    as its 8-row window's base plus the row in it and moved by bulk
+    asynchronous copies through a ring in shared memory; S % 8 == 0."""
     return _gather("gather_rows_win8", table, idx)

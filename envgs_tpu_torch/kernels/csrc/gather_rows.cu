@@ -16,12 +16,28 @@
 // 16 in flight; on the card the threads are the parallelism. Every thread
 // moves one 16-byte vector, so a 512-byte f32 row is one warp's coalesced
 // load and store and a 256-byte bf16 row half a warp's; rows in flight are
-// bounded by the resident warps, not by a semaphore ring. P2: each warp
-// walks its own run of output rows and stages each row's 8-row window in
-// shared memory with cp.async (the counterpart of the TPU's asynchronous
-// copy), two windows deep: the next row's window is in flight while this
-// one's picked row is written. It reads 8x the bytes P1 reads, as the TPU
-// variant does; it exists to measure what aligned windows cost here.
+// bounded by the resident warps, not by a semaphore ring.
+// P2 keeps the TPU kernel's mechanism, a copy engine fed by one issuing
+// thread with a ring of copies in flight that complete on barriers, and
+// drops its workaround. The TPU copies the whole aligned 8-row window
+// because its DMAs must start on an (8, 128) tile; the card's bulk
+// asynchronous copy (cp.async.bulk, the linear form of the TMA) needs 16-
+// byte alignment and a size that is a multiple of 16, which a 256- or 512-
+// byte row meets, so only the picked row moves (window base plus row in the
+// window is still how its address is formed). Each warp owns a contiguous
+// run of RUN output rows: the warp stages the run's clamped indices in
+// shared memory, then lane 0 alone drives a ring of STAGES stages of GROUP
+// rows: per stage one mbarrier (arrive.expect_tx of the stage's bytes), one
+// bulk load per row completing on it, and, once try_wait.parity passes, one
+// bulk store of the whole stage, whose rows lie contiguous in the ring as
+// they do in the output. A stage is refilled when the store before the
+// newest has finished reading it (wait_group.read 1), so STAGES - 1 stages
+// (24 rows) of loads are in flight per issuing thread. No thread moves a
+// data byte through registers: the rows are written and read by the
+// asynchronous proxy only, so the one fence.proxy.async stands after the
+// barriers' initialisation by the generic proxy. A ragged last stage (n no
+// multiple of GROUP or RUN, n below the ring's depth, n = 1) expects, loads
+// and stores only its own rows.
 // An index outside [0, S) is clamped into it (the JAX gather's rule).
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,9 +45,11 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int WIN = 8;             // rows of an aligned window
-constexpr int WIN_WARPS = 4;       // warps per block of the window kernel
-constexpr int ROWS_PER_WARP = 16;  // consecutive output rows per warp
+constexpr int WIN = 8;        // rows of the TPU kernel's aligned window
+constexpr int GROUP = 8;      // rows of a ring stage: one barrier, one store
+constexpr int STAGES = 4;     // ring depth per warp, in stages
+constexpr int BULK_WARPS = 2; // warps (issuing threads) per block
+constexpr int RUN = 256;      // consecutive output rows per warp
 
 __device__ __forceinline__ int clamp_row(int i, int S) {
   return min(max(i, 0), S - 1);
@@ -51,46 +69,85 @@ gather_rows_kernel(const uint4* __restrict__ table,
   out[g] = table[(size_t)i * VPR + v];
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// P2: each warp stages the aligned 8-row window of each of its rows.
-template <int VPR>
-__global__ void __launch_bounds__(WIN_WARPS * 32)
-gather_win8_kernel(const uint4* __restrict__ table,
-                   const int32_t* __restrict__ idx, int n, int S,
-                   uint4* __restrict__ out) {
-  __shared__ uint4 win[WIN_WARPS][2][WIN * VPR];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int j0 = (blockIdx.x * WIN_WARPS + warp) * ROWS_PER_WARP;
-  const int j1 = min(j0 + ROWS_PER_WARP, n);
-  if (j0 >= j1) return;  // the whole warp leaves; no block-wide barrier below
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
 
-  auto stage_window = [&](int j, int stage) {
-    const int i = clamp_row(idx[j], S);
-    const uint4* src = table + (size_t)(i / WIN) * WIN * VPR;
-    for (int v = lane; v < WIN * VPR; v += 32)
-      cp_async16(&win[warp][stage][v], src + v);
-    asm volatile("cp.async.commit_group;\n" ::);
+// P2: lane 0 of each warp moves the warp's run of rows through its ring
+// with bulk asynchronous copies; see the header note.
+template <int ROW_BYTES>
+__global__ void __launch_bounds__(BULK_WARPS * 32)
+gather_win8_kernel(const char* __restrict__ table,
+                   const int32_t* __restrict__ idx, int n, int S,
+                   char* __restrict__ out) {
+  __shared__ __align__(128) char ring[BULK_WARPS][STAGES][GROUP * ROW_BYTES];
+  __shared__ __align__(8) uint64_t full[BULK_WARPS][STAGES];
+  __shared__ int32_t rows[BULK_WARPS][RUN];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j0 = (blockIdx.x * BULK_WARPS + warp) * RUN;
+  const int j1 = min(j0 + RUN, n);
+  if (j0 >= j1) return;  // the whole warp leaves; no block-wide barrier below
+  for (int r = lane; r < j1 - j0; r += 32) {
+    const int i = clamp_row(idx[j0 + r], S);
+    rows[warp][r] = (i / WIN) * WIN + i % WIN;  // window base + row in it
+  }
+  __syncwarp();
+  if (lane != 0) return;
+
+  for (int s = 0; s < STAGES; ++s)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                     smem_addr(&full[warp][s])) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+
+  const int ngroups = (j1 - j0 + GROUP - 1) / GROUP;
+  auto load_group = [&](int g) {  // rows of group g -> stage g % STAGES
+    const int s = g % STAGES;
+    const int r0 = g * GROUP, cnt = min(GROUP, j1 - j0 - r0);
+    const uint32_t bar = smem_addr(&full[warp][s]);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(cnt * ROW_BYTES) : "memory");
+    for (int r = 0; r < cnt; ++r) {
+      const char* src = table + (size_t)rows[warp][r0 + r] * ROW_BYTES;
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n"
+          ::"r"(smem_addr(&ring[warp][s][r * ROW_BYTES])),
+            "l"(__cvta_generic_to_global(src)), "r"(ROW_BYTES), "r"(bar)
+          : "memory");
+    }
   };
 
-  stage_window(j0, 0);
-  for (int j = j0; j < j1; ++j) {
-    const int stage = (j - j0) & 1;
-    if (j + 1 < j1) {
-      stage_window(j + 1, stage ^ 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncwarp();  // every lane's copies of this window have landed
-    const int r = clamp_row(idx[j], S) % WIN;
-    if (lane < VPR) out[(size_t)j * VPR + lane] = win[warp][stage][r * VPR + lane];
-    __syncwarp();  // the window is read before the next copy reuses it
+  for (int g = 0; g < min(STAGES, ngroups); ++g) load_group(g);
+  for (int g = 0; g < ngroups; ++g) {
+    const int s = g % STAGES;
+    mbar_wait(smem_addr(&full[warp][s]), (g / STAGES) & 1);
+    const int r0 = g * GROUP, cnt = min(GROUP, j1 - j0 - r0);
+    char* dst = out + (size_t)(j0 + r0) * ROW_BYTES;
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+        ::"l"(__cvta_generic_to_global(dst)),
+          "r"(smem_addr(&ring[warp][s][0])), "r"(cnt * ROW_BYTES)
+        : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    // all but the newest store have read their stages: refill the stage of
+    // group g - 1 with the group STAGES after it
+    asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+    if (g >= 1 && g - 1 + STAGES < ngroups) load_group(g - 1 + STAGES);
   }
+  // the ring must outlive the stores that read it
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 }  // namespace
@@ -120,14 +177,14 @@ extern "C" int gather_rows_win8(const void* table, const int32_t* idx, int n,
                                 int S, int row_bytes, void* out,
                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int per_block = WIN_WARPS * ROWS_PER_WARP;
+  const int per_block = BULK_WARPS * RUN;
   const unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
   if (row_bytes == 512)
-    gather_win8_kernel<32><<<blocks, WIN_WARPS * 32, 0, s>>>(
-        (const uint4*)table, idx, n, S, (uint4*)out);
+    gather_win8_kernel<512><<<blocks, BULK_WARPS * 32, 0, s>>>(
+        (const char*)table, idx, n, S, (char*)out);
   else if (row_bytes == 256)
-    gather_win8_kernel<16><<<blocks, WIN_WARPS * 32, 0, s>>>(
-        (const uint4*)table, idx, n, S, (uint4*)out);
+    gather_win8_kernel<256><<<blocks, BULK_WARPS * 32, 0, s>>>(
+        (const char*)table, idx, n, S, (char*)out);
   else
     return -1;
   return (int)cudaGetLastError();

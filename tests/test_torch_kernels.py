@@ -300,3 +300,87 @@ def test_gather_kernels_match_plain(cuda, dtype):
         kernels.gather_rows(table, idx.long())
     with pytest.raises(ValueError, match="multiple of 8"):
         kernels.gather_rows_win8(table[:4091].contiguous(), idx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 15, 17, 31, 33, 255, 256, 257,
+                               511, 513, 1024 * 3 + 5])
+def test_gather_kernels_ragged_and_out_of_range(cuda, dtype, n):
+    """P1 and P2 at row counts around P2's stage (8 rows), ring (32), run
+    (256) and block (512), with a repeated, the first, the last and two
+    out-of-range indices: bit-equal to table[idx] with idx clamped."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    S = 1024
+    table = torch.randn((S, 128), generator=g, device=cuda).to(dtype)
+    idx = torch.randint(0, S, (n,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    idx[0] = -3
+    idx[-1] = S + 11
+    if n > 4:
+        idx[1], idx[2], idx[3] = 0, S - 1, idx[4]
+    want = table[idx.long().clamp(0, S - 1)]
+    for fn in (gather_rows, gather_rows_win8):
+        got = fn(table, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), fn.__name__
+
+
+def _lopsided_inputs(device, mode):
+    """K1 arguments (aligned layout) of a 96x128 view whose splats all sit
+    in the left half, 3000 faint ones of them piled onto one spot: one tile
+    holds many times the chunks of the others, and the right half's tiles
+    are empty."""
+    rng = np.random.default_rng(11)
+    H, W = 96, 128
+    n_pile, n_rest = 3000, 300
+    pile = np.concatenate([rng.normal(size=(n_pile, 2)) * 0.004
+                           + np.array([-0.55, 0.1]),
+                           rng.random((n_pile, 1)) * 0.5 + 3.0], -1)
+    rest = np.concatenate([-rng.random((n_rest, 1)) * 1.2 - 0.1,
+                           rng.normal(size=(n_rest, 1)) * 0.5,
+                           rng.random((n_rest, 1)) * 2 + 2.0], -1)
+    xyz = np.concatenate([pile, rest]).astype(np.float32)
+    P = xyz.shape[0]
+    rgb = rng.random((P, 3)).astype(np.float32)
+    f = 0.9 * W
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    cam = make_camera(H, W, K, np.eye(3, dtype=np.float32),
+                      np.zeros(3, np.float32), device=device)
+    if mode == "gauss3d":
+        cfg = GaussianTConfig(pair_cap=2 ** 16)
+        pool = init_gaussiant_pool(xyz, rgb, P, cfg, init_opacity=0.02,
+                                   device=device)
+        return bench.gaussiant_blend_inputs(pool, cam, cfg)[0]
+    base = create_pool(xyz, rgb, cap=P, sh_degree=3, init_opacity=0.02,
+                       device=device)
+    env = _scene(device)[1]
+    cfg = EnvGSConfig(pair_cap=2 ** 16, env_pair_cap=2 ** 16,
+                      reflection_start_iter=0, render_mode=True)
+    return bench.train_blend_inputs(base, env, cam, cfg)["k1"]
+
+
+@pytest.mark.parametrize("mode", ["surfel", "gauss3d"])
+def test_raster_bwd_kernel_on_lopsided_tiles(cuda, mode):
+    """K2 where the tiles' chunk counts differ widely: one tile walks many
+    more 64-pair chunks than the rest, some tiles are empty. Against the
+    plain version, per gradient column."""
+    args = _lopsided_inputs(cuda, mode)
+    packed, gauss_idx, bounds, C, tiles_x, tiles_y = args
+    out = blend_tiles(*args, train=True, mode=mode)
+    last = out[-1].reshape(tiles_y, 16, tiles_x, 16).amax((1, 3)).reshape(-1)
+    chunks = torch.minimum((bounds[1:] - bounds[:-1]) // 64,
+                           ((last + 64) // 64).clamp(min=0).to(torch.int32))
+    assert int((chunks == 0).sum()) >= tiles_x * tiles_y // 6
+    busy = chunks[chunks > 0].float()
+    assert float(busy.max()) >= 4 * float(busy.median())
+    assert float(busy.max()) >= 8  # the double-buffered walk wraps often
+    g_out = _cotangent(out, 4)
+    got = blend_tiles_bwd(*args[:3], out, g_out, *args[3:], mode=mode)
+    torch.cuda.synchronize()
+    ref = blend_tiles_bwd_torch(*args[:3], out, g_out, *args[3:], mode=mode)
+    cols = ([0, 1, 2, 3, 9, 10, 11] + list(range(15, 15 + C)) + [31]
+            if mode == "gauss3d" else list(range(15 + C)) + [31])
+    _close_columns(got[:, cols], ref[:, cols])
+    others = [k for k in range(32) if k not in cols]
+    assert not got[:, others].any()
+    assert float(ref[:, 31].max()) > 0
