@@ -160,13 +160,6 @@ OPS_RAY_TERMS = 41  # trace: plane hit t, local (u, v), alpha
 # a 1024-row block sequentially in float32 and adds a carry, the plain
 # version rounds a float64 running sum once
 SEG_RTOL, SEG_ATOL = 1e-5, 1e-4
-# K2 and P2 were designed again for the card; what their first designs
-# took on the same inputs (NVIDIA H100 80GB HBM3, 700 W): K2 surfel,
-# gauss3d; P2 bf16, f32
-EARLIER_MS = {
-    "raster_blend_bwd": {"earlier_ms": 13.5208},
-    "raster_blend_bwd_gauss3d": {"earlier_ms": 9.5711},
-    "gather_rows_win8": {"earlier_ms": 1.3003, "f32_earlier_ms": 2.9033}}
 # row counts that fill no whole stage, run or block of P2's ring
 RAGGED_N = (1, 15, 17, 2 ** 21 - 3)
 
@@ -1688,19 +1681,14 @@ def main():
                 "library_ms": library_ms, "launches_by_path": by_path,
                 **extra}
 
-    def redesigned(name):
-        """The extra keys of a kernel that was designed again for the card:
-        the number of the redesign and its first design's ms."""
-        return {"redesigned": 5, **EARLIER_MS[name]}
-
-    def gather_entry(name, replaces, **extra):
+    def gather_entry(name, replaces):
         g = gathers[(name, "bf16")]
         f = gathers[(name, "f32")]
         return entry(name, "gather_rows.cu", replaces, 0.0, g["ms"],
                      g["plain_ms"], g["bound"], g["library_ms"],
                      f32_ms=f["ms"], f32_plain_ms=f["plain_ms"],
                      f32_bound_ms=f["bound"][0],
-                     f32_library_ms=f["library_ms"], **extra)
+                     f32_library_ms=f["library_ms"])
 
     print(json.dumps({"kernels": [
         entry("raster_blend_fwd", "raster_blend_fwd.cu",
@@ -1710,8 +1698,7 @@ def main():
         entry("raster_blend_bwd", "raster_blend_bwd.cu",
               "envgs_tpu/ops/raster_pallas.py:456", k2_err, k2_ms,
               k2_plain_ms, k2_bound, max_rel_err=k2_rel,
-              resources=k2_resources["surfel"],
-              **redesigned("raster_blend_bwd")),
+              resources=k2_resources["surfel"]),
         entry("trace_blend_fwd", "trace_blend_fwd.cu",
               "envgs_tpu/ops/tracer.py:645", max(k3_err, k3t_err), k3t_ms,
               k3t_plain_ms, k3t_bound, render_ms=k3_ms,
@@ -1728,14 +1715,12 @@ def main():
         entry("raster_blend_bwd_gauss3d", "raster_blend_bwd.cu",
               "envgs_tpu/ops/raster_pallas.py:456", k2g_err, k2g_ms,
               k2g_plain_ms, k2g_bound, max_rel_err=k2g_rel, mode="gauss3d",
-              resources=k2_resources["gauss3d"],
-              **redesigned("raster_blend_bwd_gauss3d")),
+              resources=k2_resources["gauss3d"]),
         entry("segscan", "segscan.cu", "envgs_tpu/ops/segsum.py:30", k6_err,
               k6_ms, k6_plain_ms, k6_bound),
         gather_entry("gather_rows", "scripts/tpu_micro_dmagather.py:49"),
         gather_entry("gather_rows_win8",
-                     "scripts/tpu_micro_dmagather.py:112",
-                     **redesigned("gather_rows_win8")),
+                     "scripts/tpu_micro_dmagather.py:112"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

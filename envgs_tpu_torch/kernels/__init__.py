@@ -355,8 +355,8 @@ def _gather(name: str, table, idx) -> torch.Tensor:
     _check("idx", idx, torch.int32, table)
     S, n = table.shape[0], idx.shape[0]
     if name == "gather_rows_win8" and S % 8:
-        raise ValueError(f"table: {S} rows, the 8-row windows need a "
-                         "multiple of 8")
+        raise ValueError(f"table: {S} rows, the TPU kernel's 8-row "
+                         "windows need a multiple of 8")
     if S >= 2 ** 31 or n >= 2 ** 31 // 32:
         raise ValueError(f"S={S}, n={n}: too many rows")
     out = torch.empty((n, 128), dtype=table.dtype, device=table.device)
@@ -374,7 +374,8 @@ def gather_rows(table, idx) -> torch.Tensor:
 
 
 def gather_rows_win8(table, idx) -> torch.Tensor:
-    """Kernel P2 (csrc/gather_rows.cu): the same gather, each row addressed
-    as its 8-row window's base plus the row in it and moved by bulk
-    asynchronous copies through a ring in shared memory; S % 8 == 0."""
+    """Kernel P2 (csrc/gather_rows.cu): the same gather, each row moved by
+    bulk asynchronous copies through a ring in shared memory. S % 8 == 0
+    is asked for only so that it takes the calls the TPU kernel, which
+    copies 8-row windows, takes."""
     return _gather("gather_rows_win8", table, idx)

@@ -23,8 +23,9 @@
 // because its DMAs must start on an (8, 128) tile; the card's bulk
 // asynchronous copy (cp.async.bulk, the linear form of the TMA) needs 16-
 // byte alignment and a size that is a multiple of 16, which a 256- or 512-
-// byte row meets, so only the picked row moves (window base plus row in the
-// window is still how its address is formed). Each warp owns a contiguous
+// byte row meets, so only the picked row moves and no window is left in the
+// kernel (the wrapper still asks for S % 8 == 0, the TPU kernel's contract,
+// so that both take the same calls). Each warp owns a contiguous
 // run of RUN output rows: the warp stages the run's clamped indices in
 // shared memory, then lane 0 alone drives a ring of STAGES stages of GROUP
 // rows: per stage one mbarrier (arrive.expect_tx of the stage's bytes), one
@@ -45,7 +46,6 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int WIN = 8;        // rows of the TPU kernel's aligned window
 constexpr int GROUP = 8;      // rows of a ring stage: one barrier, one store
 constexpr int STAGES = 4;     // ring depth per warp, in stages
 constexpr int BULK_WARPS = 2; // warps (issuing threads) per block
@@ -98,10 +98,8 @@ gather_win8_kernel(const char* __restrict__ table,
   const int j0 = (blockIdx.x * BULK_WARPS + warp) * RUN;
   const int j1 = min(j0 + RUN, n);
   if (j0 >= j1) return;  // the whole warp leaves; no block-wide barrier below
-  for (int r = lane; r < j1 - j0; r += 32) {
-    const int i = clamp_row(idx[j0 + r], S);
-    rows[warp][r] = (i / WIN) * WIN + i % WIN;  // window base + row in it
-  }
+  for (int r = lane; r < j1 - j0; r += 32)
+    rows[warp][r] = clamp_row(idx[j0 + r], S);
   __syncwarp();
   if (lane != 0) return;
 
@@ -172,7 +170,7 @@ extern "C" int gather_rows(const void* table, const int32_t* idx, int n, int S,
   return (int)cudaGetLastError();
 }
 
-// Launch P2 on `stream`; as gather_rows, S a multiple of 8.
+// Launch P2 on `stream`; as gather_rows.
 extern "C" int gather_rows_win8(const void* table, const int32_t* idx, int n,
                                 int S, int row_bytes, void* out,
                                 void* stream) {

@@ -4,9 +4,10 @@ scripts/tpu_micro_dmagather.py): out[j, :] = table[idx[j], :].
 `gather_rows` is P1 (one vector per thread, a row per warp or half-warp),
 `gather_rows_win8` P2 (the TPU kernel copies the aligned 8-row window of
 each index and picks row idx % 8 after the copy; on the card only the
-picked row moves, window base plus row in the window, by bulk asynchronous
-copies that one lane per warp starts into a ring in shared memory and that
-complete on barriers, and leaves by bulk stores); both are
+picked row moves, by bulk asynchronous copies that one lane per warp starts
+into a ring in shared memory and that complete on barriers, and leaves by
+bulk stores; S % 8 == 0 is kept as the TPU kernel's contract and its plain
+version still indexes through the window); both are
 kernels/csrc/gather_rows.cu on CUDA tensors and their plain versions on
 CPU tensors, and both return exactly `table[idx]`. They are a probe of the
 staging pattern of the blend kernels (`packed[gauss_idx]`), driven by
@@ -43,9 +44,9 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def gather_rows_win8(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """As gather_rows, addressed through 8-row windows (S a multiple of 8):
-    kernel P2 (bulk asynchronous copies of the picked rows) on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    """As gather_rows, S a multiple of 8 as for the TPU kernel's 8-row
+    windows: kernel P2 (bulk asynchronous copies of the picked rows) on a
+    CUDA tensor, the plain version on a CPU tensor."""
     if table.device.type == "cpu":
         return gather_rows_win8_torch(table, idx)
     return kernels.gather_rows_win8(table, idx)

@@ -45,8 +45,8 @@ own transmittance test passes) into column WET_COL. The plain version is
 that reverse loop written out, not autograd of the plain forward (which
 would differentiate a different contributing set). The kernel sums a
 pair's row over a warp's 32 pixels by transposition (lane k ends up with
-column k, `transpose_reduce_model` is that index algebra in PyTorch) and
-adds it into the table gradient with one 128-byte atomic reduction.
+column k) and adds it into the table gradient with one 128-byte atomic
+reduction.
 """
 from __future__ import annotations
 
@@ -403,32 +403,6 @@ def blend_tiles_bwd_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
         suf = [suf[0] + sw, suf[1] + sm, suf[2] + sm2, suf[3] + sgw]
         tcur = tcur * torch.exp(-s_log)
     return g_packed
-
-
-def transpose_reduce_model(v: torch.Tensor) -> torch.Tensor:
-    """Model of kernel K2's warp reduction by transposition, for the tests:
-    v (32 lanes, N slots), N = 32 (the surfel row) or 16 (the packed gauss3d
-    row) -> (32,), what each lane holds in slot 0 afterwards: lane k the sum
-    over all lanes of slot k % N. In each halving step h = N/2 .. 1, lane l
-    and its partner l ^ h split their 2h remaining slots: the lane with bit
-    h set keeps the upper h, the other the lower h, each adding what the
-    partner hands over; N = 16 ends with one fold across lane bit 16."""
-    lanes = torch.arange(32)
-    n = v.shape[1]
-    if v.shape[0] != 32 or n not in (16, 32):
-        raise ValueError(f"v: expected (32, 16 or 32), got {tuple(v.shape)}")
-    h = n // 2
-    while h >= 1:
-        up = ((lanes & h) != 0)[:, None]
-        lo, hi = v[:, :h], v[:, h:2 * h]
-        send = torch.where(up, lo, hi)
-        keep = torch.where(up, hi, lo)
-        v = keep + send[lanes ^ h]  # __shfl_xor_sync(send, h)
-        h //= 2
-    out = v[:, 0]
-    if n < 32:
-        out = out + out[lanes ^ n]
-    return out
 
 
 def gauss3d_slot_columns(C: int) -> list:

@@ -5,12 +5,12 @@ CUDA card (port of scripts/tpu_micro_dmagather.py).
 
 At the JAX script's sizes (a 500 000-row table, 2^21 indices from
 `default_rng(0)`) it times `table[idx]`, P1 (`gather_rows`: a 16-byte
-vector per thread) and P2 (`gather_rows_win8`: the picked row of each
-8-row window moved by bulk asynchronous copies, no byte through a
-register) on a bf16 table and `table[idx]` and P1 on an f32 table, prints ms and ns per row of each with the bytes each must move
-(`least_bytes`), and checks that every kernel's output is bit-equal to
-`table[idx]`. The first
-line is the card's name and power limit. Needs a CUDA card; without one it
+vector per thread) and P2 (`gather_rows_win8`: each picked row moved by
+bulk asynchronous copies, no byte through a register) on a bf16 table and
+`table[idx]` and P1 on an f32 table, prints ms and ns per row of each with
+the bytes each must move (`least_bytes`), and checks that every kernel's
+output is bit-equal to `table[idx]`. The first line is the card's name and
+power limit. Needs a CUDA card; without one it
 raises instead of timing the CPU.
 """
 from __future__ import annotations

@@ -22,10 +22,12 @@ from envgs_tpu_torch.ops.gather import (
     gather_rows_win8_torch,
 )
 from envgs_tpu_torch.ops.raster_blend import (
+    WET_COL,
     blend_tiles,
     blend_tiles_bwd,
     blend_tiles_bwd_torch,
     blend_tiles_torch,
+    gauss3d_slot_columns,
 )
 from envgs_tpu_torch.ops.segsum import (
     segmented_inclusive_sum,
@@ -378,8 +380,8 @@ def test_raster_bwd_kernel_on_lopsided_tiles(cuda, mode):
     got = blend_tiles_bwd(*args[:3], out, g_out, *args[3:], mode=mode)
     torch.cuda.synchronize()
     ref = blend_tiles_bwd_torch(*args[:3], out, g_out, *args[3:], mode=mode)
-    cols = ([0, 1, 2, 3, 9, 10, 11] + list(range(15, 15 + C)) + [31]
-            if mode == "gauss3d" else list(range(15 + C)) + [31])
+    cols = (gauss3d_slot_columns(C) + [WET_COL]
+            if mode == "gauss3d" else list(range(15 + C)) + [WET_COL])
     _close_columns(got[:, cols], ref[:, cols])
     others = [k for k in range(32) if k not in cols]
     assert not got[:, others].any()

@@ -3,13 +3,19 @@
 K2 sums each pair's gradient row over a warp's 32 pixels by transposition:
 in halving steps lanes swap the half of their remaining slots that the
 partner keeps, after which lane k holds the warp's sum of slot k. The
-kernel itself runs only on a card; `transpose_reduce_model` is the same
-steps in PyTorch (ops/raster_blend.py), held here against plain sums, and
-the slot-to-column map of the packed gauss3d row is held against the
-columns the plain backward writes.
+kernel itself runs only on a card, where it is held against the plain
+backward. These cases guard the design's model, not the kernel's code:
+`transpose_reduce_model` below is the same steps written in PyTorch, held
+against plain sums, so a wrong shuffle or select in the `.cu` passes them.
+What does tie to the source: the slot-to-column map of the packed gauss3d
+row (`gauss3d_slot_columns`) is held against the columns the plain
+backward writes and against `gauss3d_column` as parsed from the `.cu`.
 
     python -m pytest tests/test_torch_raster_bwd_design.py
 """
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -21,8 +27,35 @@ from envgs_tpu_torch.ops.raster_blend import (
     blend_tiles_bwd_torch,
     blend_tiles_torch,
     gauss3d_slot_columns,
-    transpose_reduce_model,
 )
+
+K2_SOURCE = (pathlib.Path(__file__).resolve().parents[1] / "envgs_tpu_torch"
+             / "kernels" / "csrc" / "raster_blend_bwd.cu")
+
+
+def transpose_reduce_model(v: torch.Tensor) -> torch.Tensor:
+    """Model of kernel K2's warp reduction by transposition: v (32 lanes, N slots), N = 32 (the surfel row) or 16 (the packed gauss3d
+    row) -> (32,), what each lane holds in slot 0 afterwards: lane k the sum
+    over all lanes of slot k % N. In each halving step h = N/2 .. 1, lane l
+    and its partner l ^ h split their 2h remaining slots: the lane with bit
+    h set keeps the upper h, the other the lower h, each adding what the
+    partner hands over; N = 16 ends with one fold across lane bit 16."""
+    lanes = torch.arange(32)
+    n = v.shape[1]
+    if v.shape[0] != 32 or n not in (16, 32):
+        raise ValueError(f"v: expected (32, 16 or 32), got {tuple(v.shape)}")
+    h = n // 2
+    while h >= 1:
+        up = ((lanes & h) != 0)[:, None]
+        lo, hi = v[:, :h], v[:, h:2 * h]
+        send = torch.where(up, lo, hi)
+        keep = torch.where(up, hi, lo)
+        v = keep + send[lanes ^ h]  # __shfl_xor_sync(send, h)
+        h //= 2
+    out = v[:, 0]
+    if n < 32:
+        out = out + out[lanes ^ n]
+    return out
 
 
 def _expected(v):
@@ -98,3 +131,38 @@ def test_gauss3d_slots_fit_the_packed_row_and_cover_the_plain_columns(C):
                                  mode="gauss3d")
     live = {k for k in range(LO) if bool(grad[:, k].any())}
     assert live == set(cols) | {WET_COL}
+
+
+def _gauss3d_column_of_source():
+    """`gauss3d_column(slot)` of the kernel's source as a Python function:
+    its body is one chain `slot < a ? slot [+ k] : ... : WET_COL`."""
+    text = K2_SOURCE.read_text()
+    body = re.search(r"int gauss3d_column\(int slot\)\s*\{\s*return (.*?);",
+                     text, re.S).group(1)
+    *arms, last = [a.strip() for a in body.split(":")]
+    assert last == "WET_COL"
+    chain = []
+    for arm in arms:
+        m = re.fullmatch(r"slot < (\d+) \? slot(?: \+ (\d+))?", arm)
+        assert m, arm
+        chain.append((int(m.group(1)), int(m.group(2) or 0)))
+    lo = int(re.search(r"constexpr int LO = (\d+);", text).group(1))
+    assert re.search(r"constexpr int WET_COL = LO - 1;", text)
+    wet = lo - 1
+
+    def column(slot):
+        for below, add in chain:
+            if slot < below:
+                return slot + add
+        return wet
+    return column
+
+
+@pytest.mark.parametrize("C", [1, 3, 5, 8])
+def test_gauss3d_slot_columns_are_the_sources_gauss3d_column(C):
+    """The map the tests and the card checks use is the one the kernel
+    applies to its lanes: slot by slot, with the wet from slot 15."""
+    column = _gauss3d_column_of_source()
+    cols = gauss3d_slot_columns(C)
+    assert cols == [column(slot) for slot in range(len(cols))]
+    assert column(15) == WET_COL
