@@ -6,13 +6,16 @@ Phases, one or more lines each:
   1. device: refuses to run without a CUDA card; prints the card's name and
      power limit as nvidia-smi reports them, torch and CUDA versions;
   2. build: compiles the CUDA kernels from the sources in this checkout;
-     K2's registers, shared bytes and resident blocks per SM in both modes;
+     registers, shared bytes, spill bytes and resident blocks per SM of K2
+     (both modes), K3 (render and training) and K4 as compiled;
   3. kernels: K1 (raster blend) and K3 (trace blend) against their plain
      PyTorch versions on the bench scene's own inputs, max abs error per
      output against a stated bound, median ms of each over repeated runs;
+     K1's training variant on the render layout, which a render with the
+     median depth (depth_ratio > 0) launches in the render kernel's place;
   4. small render: the whole render path on a small scene, CUDA (kernels)
      against CPU (the plain versions the parity tests hold to the JAX
-     package);
+     package), also with depth_ratio = 1 (the median depth);
   5. the render slice: the bench scene (1584x1040, 300K base + 32K env
      surfels) rendered through forward_envgs for 3 camera poses — no
      truncation, finite non-degenerate rgb, each kernel launched exactly
@@ -20,8 +23,8 @@ Phases, one or more lines each:
   6. training kernels: K5, K1 and K3 in training mode, K2 and K4 against
      their plain versions on the train bench scene's own inputs (random
      cotangents for the backward kernels), errors against stated bounds
-     (K2 also within each decade of row size), median ms of each; the
-     spread of 64-pair chunks K2 walks per tile;
+     (K2 and K4 also within each decade of row size), median ms of each;
+     the spread of 64-slot chunks K4 walks per tile;
   7. small train step: one make_train_step on a small scene from one
      numpy-made state, CUDA (kernels) against CPU (plain versions): loss,
      every gradient, the new params and moments, densification stats;
@@ -33,7 +36,7 @@ Phases, one or more lines each:
   9. 3DGS kernels: K1 in gauss3d mode (training planes and the per-pair
      forward wet) and K2 in gauss3d mode against their plain versions on
      the 3DGS bench scene's own inputs, errors (K2 per column and within
-     each decade of row size), median ms and the chunks-per-tile spread;
+     each decade of row size), median ms;
  10. small 3DGS run: render_gaussiant, one make_gaussiant_train_step and
      one densify_and_prune (the same split draws) on a small scene, CUDA
      against CPU;
@@ -282,9 +285,9 @@ def blend_bound(table, slots, planes_in, planes_out, evals, ops_per_eval,
 
 
 def chunk_spread(name, bounds, last_plane, tiles_x, tiles_y):
-    """Print the 64-pair chunks K2 walks per tile (each tile's chunks up to
-    its last contributor's): the tiles are K2's blocks, so the spread is the
-    imbalance its grid has to absorb."""
+    """Print the 64-slot chunks a backward blend walks per tile (each
+    tile's chunks up to its last contributor's): the spread is the
+    imbalance the kernel's grid has to absorb."""
     from envgs_tpu_torch.ops.raster_blend import CHUNK, _to_tiles
 
     last = _to_tiles(last_plane[None], tiles_x, tiles_y)[0].amax(1)
@@ -1053,6 +1056,7 @@ def main():
     from envgs_tpu_torch.ops.raster_blend import rows as raster_rows
     from envgs_tpu_torch.ops.trace_blend import rows as trace_rows
     from envgs_tpu_torch.ops.trace_blend import (
+        bwd_slot_columns,
         trace_blend_bwd_torch,
         trace_blend_torch,
     )
@@ -1082,6 +1086,19 @@ def main():
               flush=True)
         if res["blocks_per_sm"] < 1:
             raise AssertionError(f"K2 ({mode}) fits no block on an SM")
+    k3_resources = {"render": kernels.trace_blend_fwd_resources(False),
+                    "train": kernels.trace_blend_fwd_resources(True, 0)}
+    k4_resources = kernels.trace_blend_bwd_resources(0)
+    for name, res, threads in (
+            ("trace_blend_fwd (render)", k3_resources["render"], 256),
+            ("trace_blend_fwd (train)", k3_resources["train"], 256),
+            ("trace_blend_bwd", k4_resources, 32)):
+        print(f"[build] {name}: {res['registers']} registers, "
+              f"{res['shared_bytes']} B shared, {res['local_bytes']} B "
+              f"spilled, {res['blocks_per_sm']} blocks of {threads} threads "
+              "per SM", flush=True)
+        if res["blocks_per_sm"] < 1:
+            raise AssertionError(f"{name} fits no block on an SM")
 
     # ---- 3. kernels against their plain versions, bench-scene inputs ----
     base, env, cam, cfg = bench.make_render_scene("cuda")
@@ -1107,6 +1124,16 @@ def main():
     print(f"[kernels] raster_blend_fwd {k1_ms:.4f} ms, plain "
           f"{k1_plain_ms:.2f} ms, bound {k1_bound[0]:.4f} ms by "
           f"{k1_bound[1]}", flush=True)
+    k1_med_err = compare(
+        "raster_blend_fwd (render layout, median depth)",
+        kernels.raster_blend_fwd(*k1_args, 0, True),
+        blend_tiles_torch(*k1_args, 0, True), train_planes(C), KERNEL_ATOL)
+    k1_med_ms = cuda_ms(lambda: kernels.raster_blend_fwd(*k1_args, 0, True),
+                        20)
+    print(f"[kernels] raster_blend_fwd with the median depth (its training "
+          f"variant on the render layout, what depth_ratio > 0 launches in "
+          f"render mode): {k1_med_ms:.4f} ms, {k1_med_ms - k1_ms:+.4f} ms "
+          "against the render kernel", flush=True)
 
     packed, gauss_idx, rays, bounds, tiles_x, tiles_y = k3_args
     print(f"[kernels] K3 inputs: {tiles_x * tiles_y} tiles, "
@@ -1142,6 +1169,28 @@ def main():
           + f" (bound {SMALL_ATOL:g})", flush=True)
     if not max(errs.values()) <= SMALL_ATOL:
         raise AssertionError(f"small render: cuda vs cpu {errs}")
+    # render mode with the median depth (depth_ratio = 1): K1 once, as ever
+    med = {}
+    for dev in ("cuda", "cpu"):
+        sb, se, sc, scfg = small_scene(dev)
+        before = dict(kernels.LAUNCHES)
+        med[dev] = forward_envgs(sb, se, sc, 10,
+                                 scfg._replace(depth_ratio=1.0))
+        rose = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        if dev == "cuda" and any(v != (k in RENDER_KERNELS)
+                                 for k, v in rose.items()):
+            raise AssertionError(f"median-depth render launches off: {rose}")
+    errs = {k: float((getattr(med["cuda"], k).cpu()
+                      - getattr(med["cpu"], k)).abs().max())
+            for k in ("rgb_map", "acc_map", "dpt_map", "norm_map",
+                      "surf_norm_map", "env_rgb_map")}
+    moved = float((med["cpu"].dpt_map - want.dpt_map).abs().max())
+    print("[small] depth_ratio = 1 (median depth), cuda vs cpu max_abs_err "
+          + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+          + f" (bound {SMALL_ATOL:g}); the depth map moves by up to "
+          f"{moved:.3g} against depth_ratio = 0", flush=True)
+    if not max(errs.values()) <= SMALL_ATOL or not moved > 0:
+        raise AssertionError(f"small render with the median depth: {errs}")
 
     # ---- 5. the slice: 3 poses of the bench scene ----
     for k in kernels.LAUNCHES:
@@ -1222,8 +1271,6 @@ def main():
     print(f"[kernels] raster_blend_fwd (train) {k1t_ms:.4f} ms, plain "
           f"{k1t_plain_ms:.2f} ms, bound {k1t_bound[0]:.4f} ms by "
           f"{k1t_bound[1]} ({ev1:.4g} slot-pixel pairs walked)", flush=True)
-    chunk_spread("raster_blend_bwd", bounds, out1[raster_rows(C)["last"]],
-                 tiles_x, tiles_y)
     g1 = torch.randn(out1.shape, generator=gen, device="cuda")
     k2_args = (packed, gauss_idx, bounds, out1, g1, C, tiles_x, tiles_y)
     got = kernels.raster_blend_bwd(*k2_args)
@@ -1265,12 +1312,17 @@ def main():
     print(f"[kernels] trace_blend_fwd (train) {k3t_ms:.4f} ms, plain "
           f"{k3t_plain_ms:.2f} ms, bound {k3t_bound[0]:.4f} ms by "
           f"{k3t_bound[1]} ({ev3:.4g} slot-ray pairs walked)", flush=True)
+    chunk_spread("trace_blend_bwd", bounds, out3[r["last"]], tiles_x,
+                 tiles_y)
     g3 = torch.randn(out3.shape, generator=gen, device="cuda")
     k4_args = (packed, gauss_idx, rays, bounds, out3, g3, tiles_x, tiles_y)
     got, got_rays = kernels.trace_blend_bwd(*k4_args)
     want, want_rays = trace_blend_bwd_torch(*k4_args)
+    k4_cols = sum(bwd_slot_columns(0), [])
     k4_err, k4_rel = compare_columns(
-        "trace_blend_bwd", got, want, list(range(16)) + [31], GRAD_RTOL)
+        "trace_blend_bwd", got, want, k4_cols, GRAD_RTOL)
+    k4_rel = max(k4_rel, compare_columns_by_size(
+        "trace_blend_bwd", got, want, k4_cols, GRAD_RTOL))
     per_row = lambda x: x[:, :6].transpose(0, 1).reshape(6, -1).T  # noqa: E731
     k4r_err, k4r_rel = compare_columns(
         "trace_blend_bwd (rays)", per_row(got_rays), per_row(want_rays),
@@ -1382,8 +1434,6 @@ def main():
     print(f"[kernels] raster_blend_fwd (gauss3d) {k1g_ms:.4f} ms, plain "
           f"{k1g_plain_ms:.2f} ms, bound {k1g_bound[0]:.4f} ms by "
           f"{k1g_bound[1]} ({ev1g:.4g} slot-pixel pairs walked)", flush=True)
-    chunk_spread("raster_blend_bwd (gauss3d)", bounds,
-                 out1[raster_rows(C)["last"]], tiles_x, tiles_y)
     g1 = torch.randn(out1.shape, generator=gen, device="cuda")
     k2g_args = (packed, gauss_idx, bounds, out1, g1, C, tiles_x, tiles_y, 0,
                 "gauss3d")
@@ -1692,9 +1742,10 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("raster_blend_fwd", "raster_blend_fwd.cu",
-              "envgs_tpu/ops/raster_pallas.py:241", max(k1_err, k1t_err),
-              k1t_ms, k1t_plain_ms, k1t_bound, render_ms=k1_ms,
-              render_plain_ms=k1_plain_ms, render_bound_ms=k1_bound[0]),
+              "envgs_tpu/ops/raster_pallas.py:241",
+              max(k1_err, k1t_err, k1_med_err), k1t_ms, k1t_plain_ms,
+              k1t_bound, render_ms=k1_ms, render_plain_ms=k1_plain_ms,
+              render_bound_ms=k1_bound[0], render_median_ms=k1_med_ms),
         entry("raster_blend_bwd", "raster_blend_bwd.cu",
               "envgs_tpu/ops/raster_pallas.py:456", k2_err, k2_ms,
               k2_plain_ms, k2_bound, max_rel_err=k2_rel,
@@ -1702,10 +1753,12 @@ def main():
         entry("trace_blend_fwd", "trace_blend_fwd.cu",
               "envgs_tpu/ops/tracer.py:645", max(k3_err, k3t_err), k3t_ms,
               k3t_plain_ms, k3t_bound, render_ms=k3_ms,
-              render_plain_ms=k3_plain_ms, render_bound_ms=k3_bound[0]),
+              render_plain_ms=k3_plain_ms, render_bound_ms=k3_bound[0],
+              resources=k3_resources),
         entry("trace_blend_bwd", "trace_blend_bwd.cu",
               "envgs_tpu/ops/tracer.py:799", max(k4_err, k4r_err), k4_ms,
-              k4_plain_ms, k4_bound, max_rel_err=max(k4_rel, k4r_rel)),
+              k4_plain_ms, k4_bound, max_rel_err=max(k4_rel, k4r_rel),
+              resources=k4_resources),
         entry("fill_forward", "fill_forward.cu",
               "envgs_tpu/ops/fill_forward.py:55", k5_err, k5_ms,
               k5_plain_ms, k5_bound, k5_lib_ms),

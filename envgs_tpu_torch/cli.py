@@ -35,9 +35,43 @@ MODES = ("train", "test", "smoke")
 UNPORTED_MODES = ("render", "mesh", "ws", "dist", "sig")
 
 
-def _named(cls, cfg: dict):
-    cfg = {k: v for k, v in (cfg or {}).items() if k in cls._fields}
-    return cls(**cfg)
+# keys of the JAX package's config tuples that the port leaves out on
+# purpose: it has no backend switch (the device of the tensors picks kernel
+# or plain version; build_from_config raises on any other value)
+OMITTED_KEYS = frozenset({"raster_backend", "tracer_backend"})
+# sampler_cfg keys that no config tuple holds: build_from_config and
+# make_runner read them themselves
+_SAMPLER_KEYS = frozenset({
+    "type", "pool_cap", "env_pool_cap", "sh_deg", "env_sh_deg", "init_occ",
+    "env_init_occ", "init_specular", "init_roughness", "env_preload_gs",
+    "env_max_gs", "spatial_scale", "white_bg", "render_reflection_start_iter",
+    "xyz_lr_scheduler", "patch_size",
+    # the real-data source's (not ported; the synthetic source ignores them)
+    "preload_gs", "env_bounds"})
+
+
+def _named(cls, cfg: dict, elsewhere=frozenset()):
+    """cls(**the keys of cfg that are fields of cls). A key that is neither
+    a field nor in `elsewhere` (keys that another reader of the same dict
+    takes, or that are left out on purpose) raises by name: a misspelt or
+    unported option is not dropped without a word."""
+    cfg = dict(cfg or {})
+    for k in cfg:
+        if k not in cls._fields and k not in elsewhere:
+            raise KeyError(
+                f"config key {k!r}: {cls.__name__} has no such field and "
+                "nothing else of the port reads it")
+    return cls(**{k: v for k, v in cfg.items() if k in cls._fields})
+
+
+def _sampler_keys():
+    """Every sampler_cfg key the port reads: the fields of the tuples built
+    from it (the env pool's densify options under an `env_` prefix), the
+    keys read one by one, and the deliberate omissions."""
+    dens = G.DensifyConfig._fields
+    return (frozenset(EnvGSConfig._fields) | frozenset(ScheduleConfig._fields)
+            | frozenset(dens) | frozenset("env_" + k for k in dens)
+            | _SAMPLER_KEYS | OMITTED_KEYS)
 
 
 def _load_views(cfg: Config, device="cuda"):
@@ -90,14 +124,16 @@ def build_from_config(cfg: Config, device="cuda"):
         scfg.setdefault("bg_brightness", 1.0)
         scfg.setdefault("env_bg_brightness", 1.0)
     spatial_scale = float(scfg.get("spatial_scale", spatial_scale))
-    model_cfg = _named(EnvGSConfig, scfg)
-    sched = _named(ScheduleConfig, {**scfg, **cfg.get("runner_cfg", {})})
+    known = _sampler_keys()
+    model_cfg = _named(EnvGSConfig, scfg, known)
+    rcfg = cfg.get("runner_cfg", {}) or {}
+    sched = _named(ScheduleConfig, {**scfg, **rcfg}, known | set(rcfg))
 
     sup = mcfg.get("supervisor_cfg", {}) or {}
     if sup.get("aux_cfg"):
         raise NotImplementedError(
             "supervisor_cfg.aux_cfg: the aux supervisors are not ported")
-    loss_cfg = _named(LossConfig, sup)
+    loss_cfg = _named(LossConfig, sup, {"type", "aux_cfg"})
 
     ocfg = cfg.get("runner_cfg", {}).get("optimizer_cfg", {})
     lr_table = ocfg.get("lr_table", {})
@@ -126,12 +162,13 @@ def build_from_config(cfg: Config, device="cuda"):
 
     dens_base = _named(G.DensifyConfig, dict(
         scfg, spatial_scale=spatial_scale,
-        max_gs=int(scfg.get("max_gs", 2_000_000))))
+        max_gs=int(scfg.get("max_gs", 2_000_000))), known)
     env_keys = {k[len("env_"):]: v for k, v in scfg.items()
                 if k.startswith("env_")}
     dens_env = _named(G.DensifyConfig, dict(
         env_keys, spatial_scale=spatial_scale,
-        max_gs=int(scfg.get("env_max_gs", 700_000))))
+        max_gs=int(scfg.get("env_max_gs", 700_000))),
+        {k[len("env_"):] for k in known if k.startswith("env_")})
 
     cap = int(scfg.get("pool_cap", scfg.get("max_gs", 2 ** 17)))
     env_cap = int(scfg.get("env_pool_cap", scfg.get("env_max_gs", 2 ** 16)))

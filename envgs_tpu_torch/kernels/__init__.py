@@ -33,6 +33,7 @@ _BUILD = Path(__file__).resolve().parents[1] / "_build"
 _SOURCES = ("raster_blend_fwd.cu", "raster_blend_bwd.cu",
             "trace_blend_fwd.cu", "trace_blend_bwd.cu", "fill_forward.cu",
             "segscan.cu", "gather_rows.cu")
+_HEADERS = ("trace_blend.cuh",)  # included by sources, hashed with them
 # -fmad=false: the kernels round every product and sum on its own, as the
 # plain PyTorch versions' elementwise ops do, so the two agree to the last
 # bits on the card instead of only to a tolerance. No fast math: expf, IEEE
@@ -56,10 +57,14 @@ _ARGTYPES = {
     # train, A, out, stream
     "trace_blend_fwd": [_VP, _I, _VP, _I, _VP, _VP, _I, _I, _I, _I, _VP,
                         _VP],
+    # train, A, out (4 ints)
+    "trace_blend_fwd_resources": [_I, _I, _VP],
     # packed, n_rows, gauss_idx, n_idx, rays, bounds, tiles_x, tiles_y, A,
     # fwd, gout, gpacked, grays, stream
     "trace_blend_bwd": [_VP, _I, _VP, _I, _VP, _VP, _I, _I, _I, _VP, _VP,
                         _VP, _VP, _VP],
+    # A, out (4 ints)
+    "trace_blend_bwd_resources": [_I, _VP],
     # vals, valid, n, C, block_last, out, stream
     "fill_forward": [_VP, _VP, _I, _I, _VP, _VP, _VP],
     # rows, flags, n, tails, has_start, out, stream
@@ -97,7 +102,7 @@ def build() -> Path:
     process, all started together; one more links them."""
     srcs = [_CSRC / s for s in _SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in (*srcs, *(_CSRC / name for name in _HEADERS)):
         h.update(s.read_bytes())
     lib = _BUILD / f"libenvgs_kernels_{h.hexdigest()[:16]}.so"
     if not lib.exists():
@@ -229,16 +234,25 @@ def raster_blend_bwd(packed, gauss_idx, tile_bounds, fwd, g_out, C: int,
     return g_packed
 
 
+def _resources(name: str, *codes: int) -> dict:
+    """What the library's `name` reports of a kernel as compiled; a fourth
+    int, where the function writes one, is the local (spill) bytes."""
+    out = (ctypes.c_int * 4)(0, 0, 0, -1)
+    err = getattr(_load(), name)(*codes, out)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+    res = dict(registers=out[0], shared_bytes=out[1], blocks_per_sm=out[2])
+    if out[3] >= 0:
+        res["local_bytes"] = out[3]
+    return res
+
+
 def raster_blend_bwd_resources(mode: str = "surfel") -> dict:
     """What K2 was compiled to for `mode`: registers per thread, static
     shared bytes per block and resident blocks per SM on the current card.
     Builds the kernels if need be; launches nothing and counts nothing."""
     code, _ = _mode("raster_blend_bwd", mode)
-    out = (ctypes.c_int * 3)()
-    err = _load().raster_blend_bwd_resources(code, out)
-    if err != 0:
-        raise RuntimeError(f"raster_blend_bwd_resources: CUDA error {err}")
-    return dict(registers=out[0], shared_bytes=out[1], blocks_per_sm=out[2])
+    return _resources("raster_blend_bwd_resources", code)
 
 
 def _trace_planes(train: bool, A: int) -> int:
@@ -266,6 +280,22 @@ def trace_blend_fwd(packed, gauss_idx, rays, tile_bounds, tiles_x: int,
                 rays.data_ptr(), tile_bounds.data_ptr(), tiles_x, tiles_y,
                 int(train), A, out.data_ptr(), _stream(packed))
     return out
+
+
+def trace_blend_fwd_resources(train: bool = False, A: int = 0) -> dict:
+    """What K3 was compiled to, the render kernel or the training kernel
+    with A aux channels: registers per thread, static shared bytes per
+    block, resident blocks per SM on the current card, local (spill) bytes
+    per thread. Launches nothing and counts nothing."""
+    _trace_planes(train, A)
+    return _resources("trace_blend_fwd_resources", int(train), A)
+
+
+def trace_blend_bwd_resources(A: int = 0) -> dict:
+    """What K4 was compiled to for A aux channels, as
+    trace_blend_fwd_resources."""
+    _trace_planes(True, A)
+    return _resources("trace_blend_bwd_resources", A)
 
 
 def trace_blend_bwd(packed, gauss_idx, rays, tile_bounds, fwd, g_out,

@@ -8,7 +8,9 @@
 // 3). Two configurations: render (unaligned pair layout; distortion, median
 // depth and per-pair wet off; C + 6 planes) and training (aligned layout;
 // C + 11 planes in the JAX row order: colors, depth*w, alpha, normal,
-// median depth, distortion, T, D1, D2, last contributing rank). With `wet`
+// median depth, distortion, T, D1, D2, last contributing rank; a render
+// that needs the median depth launches this configuration on the unaligned
+// layout, the window walk takes either). With `wet`
 // it also writes each pair's wet (its w summed over the tile's pixels, the
 // JAX kernel's need_wet rows); the per-splat sum stays outside (index_add_,
 // as the JAX package's segment_sum outside Pallas). It also absorbs the

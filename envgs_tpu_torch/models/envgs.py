@@ -49,6 +49,9 @@ class EnvGSConfig(NamedTuple):
     env_pair_cap: int = 2 ** 20
     use_base_tracing: bool = False
     max_trace_depth: int = 0
+    # a bounce continues only where the specular map exceeds it (read by
+    # multi-bounce tracing alone, which raises until it is ported)
+    specular_threshold: float = 0.0
     # reflection ray filtering (envgs_sampler.py:434-447): <= 0 disables
     specular_filtering_start_iter: int = -1
     specular_filtering_percent: float = 0.9

@@ -2,9 +2,13 @@
 
 `rasterize` runs binning and the tile blend — kernel K1 (forward) and K2
 (backward) on CUDA tensors, their plain PyTorch versions on CPU tensors —
-and decodes to the JAX package's RasterOutput contract. Two paths:
+and decodes to the JAX package's RasterOutput contract. Three paths:
 
 - render (`needs` all False): the unaligned layout, no training outputs;
+- render with the median depth (`needs` = (False, True, False), what
+  `render_mode` with `depth_ratio > 0` asks for): the unaligned layout
+  through the blend's training variant, of whose extra planes only the
+  median depth is kept (detached); distortion and wet stay zeros;
 - training (`needs` all True): the chunk-aligned layout, distortion,
   median depth (detached), the distortion moments d1/d2, and autodiff
   through the blend's reverse walk. Screen-space densification gradients
@@ -13,8 +17,7 @@ and decodes to the JAX package's RasterOutput contract. Two paths:
   then zeros); without it, K1 writes each pair's wet and a per-splat sum
   (`index_add_`) gives RasterOutput.wet, as the JAX package's segment sum.
 
-The JAX package's partial `needs` (some training outputs without the
-others) are not ported: they raise.
+The JAX package's other partial `needs` are not ported: they raise.
 """
 from __future__ import annotations
 
@@ -96,14 +99,16 @@ def rasterize(
     """Rasterize prepared splats into the raw output maps.
 
     needs = (need_dist, need_med, need_wet): all False is the render path,
-    all True the training path. With the (P,) zeros hook `wet_zero` the
+    need_med alone the render path with the median depth, all True the
+    training path. With the (P,) zeros hook `wet_zero` the
     per-splat wet is the hook's gradient and RasterOutput.wet is exact
     zeros; without it RasterOutput.wet is the forward wet (detached)."""
     train = all(needs)
-    if any(needs) and not train:
+    med_only = tuple(map(bool, needs)) == (False, True, False)
+    if any(needs) and not (train or med_only):
         raise NotImplementedError(
-            f"rasterize needs={needs}: the train path computes all three "
-            "training outputs")
+            f"rasterize needs={needs}: only none, need_med alone or all "
+            "three training outputs")
     prep = _shift_tmat(prep, means2d_zero)
     C = prep.color.shape[-1]
     H, W = cam.H, cam.W
@@ -123,8 +128,8 @@ def rasterize(
         r = rows(C)
     else:
         img = blend_tiles(packed, bins.gauss_idx, bins.tile_bounds, C,
-                          bins.tiles_x, bins.tiles_y)
-        r = out_rows(C)
+                          bins.tiles_x, bins.tiles_y, train=med_only)
+        r = rows(C) if med_only else out_rows(C)
     img = img[:, :H, :W]
     trans = img[r["trans"]]
     bg = torch.zeros(C, dtype=torch.float32, device=img.device)
@@ -136,7 +141,8 @@ def rasterize(
         depth_expected=img[r["depth"]],
         alpha=img[r["alpha"]],
         normal=img[r["normal"]:r["normal"] + 3].permute(1, 2, 0),
-        depth_median=img[r["med"]].detach() if train else zeros,
+        depth_median=(img[r["med"]].detach() if train or med_only
+                      else zeros),
         distortion=img[r["dist"]] if train else zeros,
         wet=wet,
         radii=prep.radius,

@@ -19,7 +19,9 @@ Forward, image-layout planes (F, tiles_y*16, tiles_x*16):
   kernel's row order (`rows`): C colors, depth*w, alpha, normal (3), median
   depth, distortion, final T, the distortion moments D1 = sum w m and
   D2 = sum w m^2 of m = map_depth(z), and `last`, the rank (pair offset
-  within the tile) of the last contributing pair, -1 if none.
+  within the tile) of the last contributing pair, -1 if none. A render
+  that needs the median depth runs this mode on the unaligned layout and
+  keeps the median plane alone (`ops/raster.py`).
 With `wet`, the forward also returns the per-pair blend weight ("wet", the
 sum over the tile's pixels of the pair's w), one value per pair slot of
 `gauss_idx` (zero outside the tiles' ranges and past a tile's early stop).

@@ -28,7 +28,10 @@ gradient (P+1, LO) — mean, t_u, t_v, normal, opacity, color, aux per slot,
 added into the slot's splat row, and the slot's forward-exact wet into
 column WET_COL — and the ray gradient (T, 8, 256) of origins (rows 0-2)
 and directions (rows 3-5). The plain version is the JAX kernel's reverse
-loop written out, not autograd of the plain forward.
+loop written out, not autograd of the plain forward. The kernel sums a
+slot's row over a warp's 32 rays by transposition (`bwd_slot_columns`: 16
+main slots, and the wet and aux values apart) and adds it into the table
+gradient with one atomic reduction instruction.
 """
 from __future__ import annotations
 
@@ -276,6 +279,15 @@ def trace_blend_bwd_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
     g_rays = torch.cat([torch.stack(g_ray, 1),
                         rays.new_zeros((T, 2, NPIX))], dim=1)
     return g_packed, g_rays
+
+
+def bwd_slot_columns(A: int) -> tuple:
+    """Table column of each slot of the gradient row kernel K4 reduces over
+    a warp: (the 16 main slots: mean, t_u, t_v, normal, opacity, color; the
+    1 + A extras, reduced apart and added by lanes 16 to 16 + A: the wet to
+    column WET_COL, then the aux channels)."""
+    main = list(range(_C_AUX))
+    return main, [WET_COL] + [_C_AUX + i for i in range(A)]
 
 
 def trace_blend_bwd(packed: torch.Tensor, gauss_idx: torch.Tensor,

@@ -80,6 +80,52 @@ def test_forward_envgs_matches_jax(filtering):
     assert (traced < 0.9) == filtering  # the filter culls ray tiles
 
 
+@pytest.mark.parametrize("depth_ratio", [0.5, 1.0])
+def test_render_mode_with_median_depth_matches_jax(depth_ratio):
+    """render_mode with depth_ratio > 0: the base pass on the unaligned
+    render layout with the median depth written (the blend's training
+    variant, the median plane alone kept). Median depth, surface depth
+    and rgb within 1e-5 (absolute, plus 1e-5 of the value: depths are 2 to
+    4 here, and the two packages' screen transforms differ in their last
+    bits, as test_prepare_splats allows) of JAX; the surface normal, a
+    normalized cross product of depth differences between neighbouring
+    pixels that magnifies those last bits, within 1e-4 (within 1e-5 from
+    identical prepared splats: test_torch_raster.py); distortion and wet
+    zeros; and forward_envgs runs end to end on it."""
+    from envgs_tpu.models.envgs import render_base
+
+    H, W, f = 32, 48, 50.0
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    eye, zero = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+    xyz, col, exyz, ecol = _inputs(seed=3)
+    kw = dict(pair_cap=2 ** 12, env_pair_cap=2 ** 13, reflection_start_iter=0,
+              render_mode=True, depth_ratio=depth_ratio)
+    jcam = make_camera(H, W, K, eye, zero)
+    jb = create_pool(xyz, col, cap=160, sh_degree=3, init_opacity=0.6)
+    jcfg = EnvGSConfig(raster_backend="pallas_interp",
+                       tracer_backend="tiled_interp", **kw)
+    want = jax.jit(lambda b: render_base(b, jcam, jcfg))(jb)
+
+    tb = tg.create_pool(xyz, col, cap=160, sh_degree=3, init_opacity=0.6)
+    te = tg.create_pool(exyz, ecol, cap=256, sh_degree=3, init_opacity=0.6)
+    cam = tcam.make_camera(H, W, K, eye, zero)
+    cfg = tenv.EnvGSConfig(**kw)
+    got = tenv.render_base(tb, cam, cfg)
+    for k in ("depth_median", "surf_depth", "rgb"):
+        np.testing.assert_allclose(getattr(got, k).numpy(),
+                                   np.asarray(getattr(want, k)), atol=1e-5,
+                                   rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(got.surf_normal.numpy(),
+                               np.asarray(want.surf_normal), atol=1e-4)
+    assert float(got.depth_median.max()) > 2.0  # the median was written
+    assert not got.distortion.any() and not got.wet.any()
+    assert not got.depth_median.requires_grad
+    out = tenv.forward_envgs(tb, te, cam, 10, cfg)
+    np.testing.assert_array_equal(out.dpt_map.numpy(), got.surf_depth.numpy())
+    assert bool(torch.isfinite(out.rgb_map).all())
+    assert float(out.env_acc_map.max()) > 0.5
+
+
 def test_make_render_scene_matches_jax():
     """The port's bench scene holds the JAX bench's arrays (no render)."""
     path = Path(__file__).resolve().parents[1] / "bench.py"

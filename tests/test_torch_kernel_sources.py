@@ -3,8 +3,9 @@
 Nothing compiles on a machine without nvcc, and a ctypes mismatch (a missing
 argument, a pointer passed as a 32-bit int) shows only as a crash on the
 card. So: every `extern "C"` signature under kernels/csrc is parsed and held
-against `kernels._ARGTYPES`, every source of `_SOURCES` exists, and every
-`LAUNCHES` key is counted by some wrapper.
+against `kernels._ARGTYPES`, every source of `_SOURCES` exists, every
+`LAUNCHES` key is counted by some wrapper, the build keeps `-fmad=false`,
+and the functions that report a kernel's resources count nothing.
 
     python -m pytest tests/test_torch_kernel_sources.py
 """
@@ -49,6 +50,18 @@ def test_sources_exist_and_are_all_built():
     on_disk = {p.name for p in CSRC.glob("*.cu")}
     assert set(kernels._SOURCES) == on_disk
     assert len(set(kernels._SOURCES)) == len(kernels._SOURCES)
+
+
+def test_included_headers_exist_and_are_hashed_with_the_sources():
+    """An edit of a header must rebuild the library: every file a source
+    includes from its own directory is listed in `_HEADERS`."""
+    included = set()
+    for path in CSRC.glob("*.cu"):
+        included |= set(re.findall(r'#include "([^"]+)"', path.read_text()))
+    assert included == set(kernels._HEADERS)
+    assert all((CSRC / name).is_file() for name in kernels._HEADERS)
+    assert {p.name for p in CSRC.iterdir()} == (set(kernels._SOURCES)
+                                                | set(kernels._HEADERS))
 
 
 def test_every_exported_function_is_bound_and_nothing_else():
@@ -122,6 +135,41 @@ def test_launch_counts_once_and_only_when_launched(monkeypatch):
         kernels._launch("segscan", torch.device("cpu"))
     assert kernels.LAUNCHES["segscan"] == before["segscan"] + 1
     kernels.LAUNCHES.update(before)
+
+
+def test_build_flags_keep_every_product_and_sum_apart():
+    """The blends equal their plain versions to the last bits only without
+    fused multiply-adds; sm_90a is the target."""
+    assert "-fmad=false" in kernels.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+    assert not any("fast" in f for f in kernels.NVCC_FLAGS)
+
+
+@pytest.mark.parametrize("name", sorted(n for n in EXPORTED
+                                        if n.endswith("_resources")))
+def test_resource_queries_write_ints_and_launch_nothing(name, monkeypatch):
+    """Each `<kernel>_resources` export belongs to an exported kernel, ends
+    in the int array it fills, and its wrapper counts no launch."""
+    assert name.removesuffix("_resources") in EXPORTED
+    assert "int* out" in EXPORTED[name][1][-1]
+
+    class Lib:
+        def __getattr__(self, attr):
+            assert attr == name
+            return lambda *args: 0
+
+    monkeypatch.setattr(kernels, "_load", lambda: Lib())
+    before = dict(kernels.LAUNCHES)
+    res = getattr(kernels, name)()
+    assert set(res) >= {"registers", "shared_bytes", "blocks_per_sm"}
+    assert kernels.LAUNCHES == before
+
+
+def test_trace_resource_queries_reject_a_bad_aux_count():
+    with pytest.raises(ValueError, match="aux"):
+        kernels.trace_blend_fwd_resources(True, 3)
+    with pytest.raises(ValueError, match="aux"):
+        kernels.trace_blend_bwd_resources(-1)
 
 
 @pytest.mark.parametrize("name", sorted(kernels.LAUNCHES))

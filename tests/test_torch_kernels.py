@@ -195,6 +195,107 @@ def test_train_trace_kernels_match_plain(cuda):
     assert float(ref_rays.abs().max()) > 0
 
 
+def _ragged_trace_inputs(device, A, opacity=(0.5, 0.99)):
+    """K3 arguments of four ray tiles with ragged slot ranges: tile 0 has no
+    slot at all, tile 1 one chunk (40 surfels and padding), tile 2 two
+    chunks (100 surfels, the second chunk partly padding), tile 3 three
+    chunks (150 surfels) with half its rays looking away (they take
+    nothing: last = -1). Surfels in random orientation around the rays,
+    nearly opaque by default, so that most rays saturate within a chunk
+    and some within the second; A aux channels."""
+    rng = np.random.default_rng(20 + A)
+    counts = [0, 40, 100, 150]
+    T, P = len(counts), sum(counts)
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    rot = q * np.sign(np.linalg.det(q))
+    packed = np.zeros((P + 1, 32), np.float32)
+    rays = np.zeros((T, 8, 256), np.float32)
+    ii, jj = np.meshgrid(np.arange(16), np.arange(16), indexing="ij")
+    idx, bounds, row = [], [0], 0
+    for t, n in enumerate(counts):
+        d = np.stack([(jj.reshape(-1) + 16 * t - 32) * 0.02,
+                      (ii.reshape(-1) - 8) * 0.02, np.ones(256)], 0)
+        if t == 3:
+            d[:, jj.reshape(-1) >= 8] *= -1.0  # these rays look away
+        rays[t, 3:6] = rot @ d
+        rays[t, 0:3] = rot @ (rng.normal(size=(3, 256)) * 1e-3)
+        z = np.sort(rng.uniform(1.0, 6.0, n))
+        c = np.stack([(16 * t - 32 + rng.uniform(0, 16, n)) * 0.02 * z,
+                      rng.uniform(-8, 8, n) * 0.02 * z, z], 1)
+        tilt, _ = np.linalg.qr(np.eye(3) + 0.3 * rng.normal(size=(n, 3, 3)))
+        frame = rot @ tilt  # (n, 3, 3): columns t_u, t_v, normal directions
+        s = rng.uniform(0.1, 0.4, (n, 2)) * z[:, None]
+        r = slice(row, row + n)
+        packed[r, 0:3] = c @ rot.T
+        packed[r, 3:6] = frame[:, :, 0] / s[:, :1]
+        packed[r, 6:9] = frame[:, :, 1] / s[:, 1:]
+        packed[r, 9:12] = frame[:, :, 2]
+        packed[r, 12] = rng.uniform(*opacity, n)
+        packed[r, 13:16 + A] = rng.random((n, 3 + A))
+        slots = -(-n // 64) * 64
+        idx += list(range(row, row + n)) + [P] * (slots - n)
+        bounds.append(bounds[-1] + slots)
+        row += n
+    return (torch.tensor(packed, device=device),
+            torch.tensor(np.asarray(idx, np.int32), device=device),
+            torch.tensor(rays, device=device),
+            torch.tensor(np.asarray(bounds, np.int32), device=device), T, 1)
+
+
+@pytest.mark.parametrize("A", [0, 1, 2])
+def test_trace_kernels_on_ragged_tiles(cuda, A):
+    """K3 in render and in training mode and K4 with A = 0, 1, 2 aux
+    channels where the tiles' slot ranges are ragged: an empty tile, one
+    chunk, a last chunk that is partly padding, rays that take nothing.
+    K3 against its plain version per plane, K4 per gradient column (the
+    wet in column 31, aux in 16 and 17, nothing elsewhere) and per ray
+    gradient row."""
+    args = _ragged_trace_inputs(cuda, A)
+    render = trace_blend(*args)
+    assert float((render - trace_blend_torch(*args)).abs().max()) <= ATOL
+    out = trace_blend(*args, train=True, A=A)
+    want = trace_blend_torch(*args, train=True, A=A)
+    assert out.shape == want.shape == (13 + A, 16, 64)
+    assert float((out - want).abs().max()) <= ATOL
+    last = want[12 + A]
+    assert float(last[:, :16].max()) == -1.0  # the empty tile
+    assert float(last[:, 56:].max()) == -1.0  # the rays that look away
+    assert float(last[:, 32:48].max()) >= 64  # into the padded chunk
+    assert float(want[4].max()) > 0.99  # saturated rays
+    # the backward on fainter surfels: no ray fails a chunk's transmittance
+    # test and takes slots again in the next, so the rebuilt T stays finite
+    args = _ragged_trace_inputs(cuda, A, opacity=(0.02, 0.12))
+    out = trace_blend(*args, train=True, A=A)
+    assert float(out[9 + A].min()) > 1e-4 and float(out[12 + A].max()) >= 128
+    g_out = _cotangent(out, 5 + A)
+    got, got_rays = trace_blend_bwd(*args[:4], out, g_out, *args[4:], A=A)
+    torch.cuda.synchronize()
+    ref, ref_rays = trace_blend_bwd_torch(*args[:4], out, g_out, *args[4:],
+                                          A=A)
+    cols = list(range(16 + A)) + [WET_COL]
+    _close_columns(got[:, cols], ref[:, cols])
+    others = [k for k in range(32) if k not in cols]
+    assert not got[:, others].any() and not got[-1].any()
+    assert all(float(ref[:, k].abs().max()) > 0 for k in cols)
+    _close_columns(got_rays[:, :6].transpose(0, 1).reshape(6, -1).T,
+                   ref_rays[:, :6].transpose(0, 1).reshape(6, -1).T)
+    assert not got_rays[:, 6:].any() and not got_rays[0].any()
+
+
+def test_trace_kernel_resources(cuda):
+    """What K3 and K4 were compiled to: they fit an SM several times over
+    and the reductions' rows stay in registers (a row in local memory
+    shows as hundreds of bytes of stack)."""
+    for train, A in ((False, 0), (True, 0), (True, 2)):
+        res = kernels.trace_blend_fwd_resources(train, A)
+        assert res["blocks_per_sm"] >= 3 and res["local_bytes"] <= 64, res
+    for A in (0, 1, 2):
+        res = kernels.trace_blend_bwd_resources(A)
+        assert res["blocks_per_sm"] >= 16 and res["local_bytes"] <= 256, res
+    with pytest.raises(ValueError, match="aux"):
+        kernels.trace_blend_bwd_resources(3)
+
+
 def _gaussiant_inputs(device):
     """K1 arguments (gauss3d, aligned layout) of a small 3DGS render: 600
     Gaussians with anisotropic scales, 80x104 pixels."""

@@ -143,6 +143,46 @@ def test_rasterize_forward_wet_matches_jax():
     np.testing.assert_array_equal(tout.wet.numpy() == 0, jwet == 0)
 
 
+@pytest.mark.parametrize("depth_ratio", [0.5, 1.0])
+def test_rasterize_median_only_matches_jax(depth_ratio):
+    """needs = (False, True, False), what render_mode with depth_ratio > 0
+    asks for: the unaligned render layout with the median depth written.
+    From JAX's own prepared splats, the median depth, the decoded surface
+    depth and normal and rgb within 1e-5 of JAX; distortion and wet zeros."""
+    K = _K(H, W)
+    jc = make_camera(H, W, K, np.eye(3, dtype=np.float32),
+                     np.zeros(3, np.float32))
+    tc = tcam.make_camera(H, W, K, np.eye(3, dtype=np.float32),
+                          np.zeros(3, np.float32))
+    bg = np.array([0.2, 0.4, 0.6], np.float32)
+    jp = jax.jit(lambda *a: prepare_splats(*a, jc))(*_scene(C=3, seed=4))
+
+    @jax.jit
+    def jfwd(p):
+        out = jraster.rasterize(p, jc, jnp.asarray(bg),
+                                backend="pallas_interp", pair_cap=4096,
+                                needs=(False, True, False))
+        return out, jraster.render_decode(out, jc, depth_ratio=depth_ratio)
+
+    jout, jdec = jfwd(jp)
+    tp = tcommon.PreparedSplats(*(torch.tensor(np.asarray(x)) for x in jp))
+    tout = traster.rasterize(tp, tc, torch.tensor(bg), pair_cap=4096,
+                             needs=(False, True, False))
+    tdec = traster.render_decode(tout, tc, depth_ratio=depth_ratio)
+    for name in ("rgb", "alpha", "depth_expected", "depth_median", "trans"):
+        np.testing.assert_allclose(getattr(tout, name).numpy(),
+                                   np.asarray(getattr(jout, name)),
+                                   atol=ATOL, err_msg=name)
+    for name in ("depth_median", "surf_depth", "surf_normal", "rgb"):
+        np.testing.assert_allclose(getattr(tdec, name).numpy(),
+                                   np.asarray(getattr(jdec, name)),
+                                   atol=ATOL, err_msg=name)
+    assert float(tout.depth_median.max()) > 1.5  # the median was written
+    assert int(tout.num_pairs) == int(jout.num_pairs)
+    assert not tout.distortion.any() and not tout.wet.any()
+    assert tout.d1 is None and not tout.depth_median.requires_grad
+
+
 def test_training_outputs_raise():
     """The training outputs come all together: a partial `needs` raises
     (tests/test_torch_train_raster.py covers the training path)."""
