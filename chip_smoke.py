@@ -6,13 +6,17 @@ Phases, one or more lines each:
   1. device: refuses to run without a CUDA card; prints the card's name and
      power limit as nvidia-smi reports them, torch and CUDA versions;
   2. build: compiles the CUDA kernels from the sources in this checkout;
-     registers, shared bytes, spill bytes and resident blocks per SM of K2
-     (both modes), K3 (render and training) and K4 as compiled;
+     registers, shared bytes, spill bytes and resident blocks per SM of K1
+     (render, training, gauss3d with the wet), K2 (both modes), K3 (render
+     and training), K4 and K5 as compiled;
   3. kernels: K1 (raster blend) and K3 (trace blend) against their plain
      PyTorch versions on the bench scene's own inputs, max abs error per
      output against a stated bound, median ms of each over repeated runs;
      K1's training variant on the render layout, which a render with the
      median depth (depth_ratio > 0) launches in the render kernel's place;
+     what K1's inputs ask (the blend probe's counts: windows walked,
+     (pair, warp) combinations a pixel can take, within the footprint,
+     evaluated, contributing);
   4. small render: the whole render path on a small scene, CUDA (kernels)
      against CPU (the plain versions the parity tests hold to the JAX
      package), also with depth_ratio = 1 (the median depth);
@@ -23,8 +27,9 @@ Phases, one or more lines each:
   6. training kernels: K5, K1 and K3 in training mode, K2 and K4 against
      their plain versions on the train bench scene's own inputs (random
      cotangents for the backward kernels), errors against stated bounds
-     (K2 and K4 also within each decade of row size), median ms of each;
-     the spread of 64-slot chunks K4 walks per tile;
+     (K2 and K4 also within each decade of row size), median ms of each
+     (K5 also queued behind a sleep of the card: its time without the
+     host's); K1's counts; the spread of 64-slot chunks K4 walks per tile;
   7. small train step: one make_train_step on a small scene from one
      numpy-made state, CUDA (kernels) against CPU (plain versions): loss,
      every gradient, the new params and moments, densification stats;
@@ -36,7 +41,7 @@ Phases, one or more lines each:
   9. 3DGS kernels: K1 in gauss3d mode (training planes and the per-pair
      forward wet) and K2 in gauss3d mode against their plain versions on
      the 3DGS bench scene's own inputs, errors (K2 per column and within
-     each decade of row size), median ms;
+     each decade of row size), median ms; K1's counts;
  10. small 3DGS run: render_gaussiant, one make_gaussiant_train_step and
      one densify_and_prune (the same split draws) on a small scene, CUDA
      against CPU;
@@ -146,6 +151,12 @@ TRAIN_KERNELS = ("raster_blend_fwd", "raster_blend_bwd", "trace_blend_fwd",
 GAUSSIANT_RENDER_KERNELS = ("fill_forward", "raster_blend_fwd_gauss3d")
 GAUSSIANT_TRAIN_KERNELS = GAUSSIANT_RENDER_KERNELS + (
     "raster_blend_bwd_gauss3d",)
+# K1's compiled configurations (train, mode, wet): the render kernel, the
+# training kernel (also what a render with the median depth launches), and
+# the 3DGS kernel with the per-pair wet
+K1_CONFIGS = {"render": (False, "surfel", False),
+              "train": (True, "surfel", False),
+              "gauss3d": (True, "gauss3d", True)}
 # the card's published peaks (H100 SXM, dense, at the 700 W limit): device
 # memory rate and float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -1060,6 +1071,8 @@ def main():
         trace_blend_bwd_torch,
         trace_blend_torch,
     )
+    from envgs_tpu_torch.probes.blend_variants import raster_counts
+    from envgs_tpu_torch.probes.blend_variants import cuda_ms as queued_ms
     from envgs_tpu_torch.train.trainer import init_train_state
 
     # ---- 1. device ----
@@ -1086,13 +1099,19 @@ def main():
               flush=True)
         if res["blocks_per_sm"] < 1:
             raise AssertionError(f"K2 ({mode}) fits no block on an SM")
+    k1_resources = {cfg: kernels.raster_blend_fwd_resources(*args)
+                    for cfg, args in K1_CONFIGS.items()}
     k3_resources = {"render": kernels.trace_blend_fwd_resources(False),
                     "train": kernels.trace_blend_fwd_resources(True, 0)}
     k4_resources = kernels.trace_blend_bwd_resources(0)
+    k5_resources = kernels.fill_forward_resources()
     for name, res, threads in (
+            *((f"raster_blend_fwd ({cfg})", res, 256)
+              for cfg, res in k1_resources.items()),
             ("trace_blend_fwd (render)", k3_resources["render"], 256),
             ("trace_blend_fwd (train)", k3_resources["train"], 256),
-            ("trace_blend_bwd", k4_resources, 32)):
+            ("trace_blend_bwd", k4_resources, 32),
+            ("fill_forward", k5_resources, 256)):
         print(f"[build] {name}: {res['registers']} registers, "
               f"{res['shared_bytes']} B shared, {res['local_bytes']} B "
               f"spilled, {res['blocks_per_sm']} blocks of {threads} threads "
@@ -1134,6 +1153,7 @@ def main():
           f"variant on the render layout, what depth_ratio > 0 launches in "
           f"render mode): {k1_med_ms:.4f} ms, {k1_med_ms - k1_ms:+.4f} ms "
           "against the render kernel", flush=True)
+    raster_counts(k1_args, "surfel", "K1 render")
 
     packed, gauss_idx, rays, bounds, tiles_x, tiles_y = k3_args
     print(f"[kernels] K3 inputs: {tiles_x * tiles_y} tiles, "
@@ -1246,11 +1266,14 @@ def main():
     pos = torch.arange(marks.shape[1], device="cuda")
     k5_lib_ms = cuda_ms(
         lambda: torch.cummax(torch.where(valid.bool(), pos, -1), 0), 20)
+    k5_dev_ms = queued_ms(lambda: kernels.fill_forward(marks, valid), 20)
     k5_bound = bound_ms(valid.numel() * 4 + int(valid.sum()) * marks.shape[0]
                         * 4 + marks.numel() * 4)
-    print(f"[kernels] fill_forward {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} "
-          f"ms, torch.cummax of the marker positions {k5_lib_ms:.4f} ms, "
-          f"bound {k5_bound[0]:.4f} ms by {k5_bound[1]}", flush=True)
+    print(f"[kernels] fill_forward {k5_ms:.4f} ms ({k5_dev_ms:.4f} ms queued "
+          f"behind a sleep of the card: its time without the host's), plain "
+          f"{k5_plain_ms:.4f} ms, torch.cummax of the marker positions "
+          f"{k5_lib_ms:.4f} ms, bound {k5_bound[0]:.4f} ms by {k5_bound[1]}",
+          flush=True)
     del pos
 
     k1 = ins["k1"]
@@ -1271,6 +1294,7 @@ def main():
     print(f"[kernels] raster_blend_fwd (train) {k1t_ms:.4f} ms, plain "
           f"{k1t_plain_ms:.2f} ms, bound {k1t_bound[0]:.4f} ms by "
           f"{k1t_bound[1]} ({ev1:.4g} slot-pixel pairs walked)", flush=True)
+    raster_counts(k1, "surfel", "K1 train")
     g1 = torch.randn(out1.shape, generator=gen, device="cuda")
     k2_args = (packed, gauss_idx, bounds, out1, g1, C, tiles_x, tiles_y)
     got = kernels.raster_blend_bwd(*k2_args)
@@ -1434,6 +1458,7 @@ def main():
     print(f"[kernels] raster_blend_fwd (gauss3d) {k1g_ms:.4f} ms, plain "
           f"{k1g_plain_ms:.2f} ms, bound {k1g_bound[0]:.4f} ms by "
           f"{k1g_bound[1]} ({ev1g:.4g} slot-pixel pairs walked)", flush=True)
+    raster_counts(k1g, "gauss3d", "K1 gauss3d")
     g1 = torch.randn(out1.shape, generator=gen, device="cuda")
     k2g_args = (packed, gauss_idx, bounds, out1, g1, C, tiles_x, tiles_y, 0,
                 "gauss3d")
@@ -1745,7 +1770,9 @@ def main():
               "envgs_tpu/ops/raster_pallas.py:241",
               max(k1_err, k1t_err, k1_med_err), k1t_ms, k1t_plain_ms,
               k1t_bound, render_ms=k1_ms, render_plain_ms=k1_plain_ms,
-              render_bound_ms=k1_bound[0], render_median_ms=k1_med_ms),
+              render_bound_ms=k1_bound[0], render_median_ms=k1_med_ms,
+              resources={cfg: k1_resources[cfg] for cfg in ("render",
+                                                           "train")}),
         entry("raster_blend_bwd", "raster_blend_bwd.cu",
               "envgs_tpu/ops/raster_pallas.py:456", k2_err, k2_ms,
               k2_plain_ms, k2_bound, max_rel_err=k2_rel,
@@ -1761,10 +1788,12 @@ def main():
               resources=k4_resources),
         entry("fill_forward", "fill_forward.cu",
               "envgs_tpu/ops/fill_forward.py:55", k5_err, k5_ms,
-              k5_plain_ms, k5_bound, k5_lib_ms),
+              k5_plain_ms, k5_bound, k5_lib_ms, queued_ms=k5_dev_ms,
+              resources=k5_resources),
         entry("raster_blend_fwd_gauss3d", "raster_blend_fwd.cu",
               "envgs_tpu/ops/raster_pallas.py:241", k1g_err, k1g_ms,
-              k1g_plain_ms, k1g_bound, mode="gauss3d"),
+              k1g_plain_ms, k1g_bound, mode="gauss3d",
+              resources=k1_resources["gauss3d"]),
         entry("raster_blend_bwd_gauss3d", "raster_blend_bwd.cu",
               "envgs_tpu/ops/raster_pallas.py:456", k2g_err, k2g_ms,
               k2g_plain_ms, k2g_bound, max_rel_err=k2g_rel, mode="gauss3d",

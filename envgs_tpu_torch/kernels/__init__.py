@@ -47,6 +47,8 @@ _ARGTYPES = {
     # row_off, train, mode, out, wet, stream
     "raster_blend_fwd": [_VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _I, _VP,
                          _VP, _VP],
+    # train, mode, wet, out (4 ints)
+    "raster_blend_fwd_resources": [_I, _I, _I, _VP],
     # packed, n_rows, gauss_idx, n_idx, bounds, C, tiles_x, tiles_y,
     # row_off, mode, fwd, gout, gpacked, stream
     "raster_blend_bwd": [_VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _VP, _VP,
@@ -65,8 +67,10 @@ _ARGTYPES = {
                         _VP, _VP, _VP],
     # A, out (4 ints)
     "trace_blend_bwd_resources": [_I, _VP],
-    # vals, valid, n, C, block_last, out, stream
+    # vals, valid, n, C, scratch, out, stream
     "fill_forward": [_VP, _VP, _I, _I, _VP, _VP, _VP],
+    # out (4 ints)
+    "fill_forward_resources": [_VP],
     # rows, flags, n, tails, has_start, out, stream
     "segscan": [_VP, _VP, _I, _VP, _VP, _VP, _VP],
     # table, idx, n, S, row_bytes, out, stream
@@ -208,6 +212,17 @@ def raster_blend_fwd(packed, gauss_idx, tile_bounds, C: int, tiles_x: int,
     return (out, wet_pairs) if wet else out
 
 
+def raster_blend_fwd_resources(train: bool = False, mode: str = "surfel",
+                               wet: bool = False) -> dict:
+    """What K1 was compiled to for (train, mode, wet): registers per
+    thread, static shared bytes per block, resident blocks per SM on the
+    current card, local (spill) bytes per thread. Launches nothing and
+    counts nothing."""
+    code, _ = _mode("raster_blend_fwd", mode)
+    return _resources("raster_blend_fwd_resources", int(train), code,
+                      int(wet))
+
+
 def raster_blend_bwd(packed, gauss_idx, tile_bounds, fwd, g_out, C: int,
                      tiles_x: int, tiles_y: int, row_off: int = 0,
                      mode: str = "surfel") -> torch.Tensor:
@@ -322,10 +337,14 @@ def trace_blend_bwd(packed, gauss_idx, rays, tile_bounds, fwd, g_out,
     return g_packed, g_rays
 
 
+FF_BLOCK = 2048  # positions per block of K5
+
+
 def fill_forward(vals, valid) -> torch.Tensor:
     """Kernel K5 (csrc/fill_forward.cu): vals (C, N) int32, valid (N,) int32
     -> (C, N) int32, each position the values of the last marker at or
-    before it (0 before the first). Three launches, counted as one."""
+    before it (0 before the first). A memset of its status words and one
+    launch, counted as one."""
     _check("vals", vals, torch.int32)
     if vals.dim() != 2:
         raise ValueError(f"vals: expected (C, N), got {tuple(vals.shape)}")
@@ -334,13 +353,18 @@ def fill_forward(vals, valid) -> torch.Tensor:
     if N >= 2 ** 31 - 1024:
         raise ValueError(f"N={N}: positions must fit int32")
     out = torch.empty_like(vals)
-    scratch = torch.empty(-(-N // 1024), dtype=torch.int32,
+    scratch = torch.empty(2 * (-(-N // FF_BLOCK) + 1), dtype=torch.int32,
                           device=vals.device)
     if N:
         _launch("fill_forward", vals.device, vals.data_ptr(),
                 valid.data_ptr(), N, C, scratch.data_ptr(), out.data_ptr(),
                 _stream(vals))
     return out
+
+
+def fill_forward_resources() -> dict:
+    """What K5 was compiled to, as raster_blend_fwd_resources."""
+    return _resources("fill_forward_resources")
 
 
 SEG_ROWS = 1024  # rows per block of K6; N must be a multiple

@@ -139,7 +139,7 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
 
 def test_fill_forward_kernel_matches_plain(cuda):
     """K5 integer-equal to its plain version: a length that is no multiple
-    of the kernel's 1024-position blocks, random markers, a marker-free
+    of the kernel's 2048-position blocks, random markers, a marker-free
     stretch longer than a block, and an empty marker set."""
     g = torch.Generator(device=cuda).manual_seed(0)
     N = 1024 * 37 + 5
@@ -487,3 +487,143 @@ def test_raster_bwd_kernel_on_lopsided_tiles(cuda, mode):
     others = [k for k in range(32) if k not in cols]
     assert not got[:, others].any()
     assert float(ref[:, 31].max()) > 0
+
+
+def _ragged_k1_inputs(device, config):
+    """K1 arguments for 8 tiles (a 32x64 view) of hand-picked pair lists:
+    tile 0 empty, tile 1 one pair, tile 2 two opaque splats over the whole
+    tile (every pixel saturates in the first window) and 300 more, tile 3
+    2000 faint pairs (32 windows), tiles 4-7 100-300 random
+    pairs. Render configurations get the unaligned layout (tile starts off
+    the 8-pair grid), the others the aligned one (64-pair padding)."""
+    from envgs_tpu_torch.ops.common import prepare_splats
+    from envgs_tpu_torch.ops.raster import _pack_table
+    from envgs_tpu_torch.ops.raster3d import _pack_table3d, prepare_gaussians3d
+
+    rng = np.random.default_rng(21)
+    H, W, P = 32, 64, 3000
+    f = 40.0
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    cam = make_camera(H, W, K, np.eye(3, dtype=np.float32),
+                      np.zeros(3, np.float32), device=device)
+    z = rng.uniform(1.5, 5.0, P)
+    xyz = np.stack([rng.uniform(-0.8, 0.8, P) * z,
+                    rng.uniform(-0.4, 0.4, P) * z, z], 1)
+    q = rng.normal(size=(P, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    scales = np.exp(rng.uniform(np.log(0.01), np.log(0.2), (P, 3)))
+    opac = rng.uniform(0.02, 0.9, P)
+    # splats 0 and 1: so large and facing the camera that alpha is their
+    # opacity at every pixel of tile 2 (x 32..47, y 0..15): 0.99 leaves T at
+    # 1 - 0.99, then 0.98999 at 1.001e-4, under 1e-4 / (1 - 1/255): every
+    # pixel saturates in the first window
+    xyz[:2] = [[0.2, -0.2, 1.0], [0.21, -0.21, 1.05]]
+    q[:2] = [1.0, 0.0, 0.0, 0.0]
+    scales[:2] = 1e5
+    opac[:2] = [0.99, 0.98999]
+    opac[1000:3000] = 0.02  # the faint ones of tile 3
+    t = lambda x: torch.tensor(np.asarray(x, np.float32),  # noqa: E731
+                               device=device)
+    colors = t(rng.random((P, 3)))
+    if config == "gauss3d":
+        prep = prepare_gaussians3d(t(xyz), t(q), t(scales), t(opac), colors,
+                                   cam)
+        packed = _pack_table3d(prep)
+    else:
+        prep = prepare_splats(t(xyz), t(q), t(scales[:, :2]), t(opac),
+                              colors, cam)
+        packed = _pack_table(prep)
+    lists = [[], [5], list(range(2)) + list(range(10, 310)),
+             list(range(1000, 3000))]
+    lists += [rng.choice(np.arange(310, 1000), rng.integers(100, 300),
+                         replace=False).tolist() for _ in range(4)]
+    aligned = config in ("train", "gauss3d")
+    idx, bounds = [], [0]
+    for pairs in lists:
+        pad = (-len(pairs)) % 64 if aligned else 0
+        idx += pairs + [P] * pad
+        bounds.append(len(idx))
+    idx += [P] * 64  # the sentinel window past the last tile
+    return (packed, torch.tensor(idx, dtype=torch.int32, device=device),
+            torch.tensor(bounds, dtype=torch.int32, device=device), 3, 4, 2)
+
+
+# render, render with the median depth, train, gauss3d with the wet
+K1_CONFIGS = {"render": (False, "surfel", False),
+              "median": (True, "surfel", False),
+              "train": (True, "surfel", False),
+              "gauss3d": (True, "gauss3d", True)}
+
+
+@pytest.mark.parametrize("config", sorted(K1_CONFIGS))
+def test_raster_fwd_kernel_on_ragged_tiles(cuda, config):
+    """K1 in each configuration where tiles are empty, hold one pair,
+    saturate in their first window (the block stops early) or walk 32
+    windows: every plane (and the wet) against the plain version."""
+    train, mode, wet = K1_CONFIGS[config]
+    args = _ragged_k1_inputs(cuda, config)
+    bounds = args[2].to(torch.int64)
+    assert int(bounds[1] - bounds[0]) == 0
+    assert (int(bounds[4] - bounds[3]) + 63) // 64 >= 30
+    got = kernels.raster_blend_fwd(*args, 0, train, mode, wet)
+    torch.cuda.synchronize()
+    want = blend_tiles_torch(*args, 0, train, mode, wet)
+    if wet:
+        (got, got_wet), (want, want_wet) = got, want
+        assert float((got_wet - want_wet).abs().max()) <= ATOL
+        assert float(want_wet.max()) > 1.0
+    assert float((got - want).abs().max()) <= ATOL
+    C = args[3]
+    trans = want[C + 7 if train else C + 5]
+    # tile 2 (columns 32-47 of the top row of tiles) saturates everywhere
+    assert float(trans[:16, 32:48].max()) * (1 - 1 / 255) < 1e-4
+    assert float(trans[:16, :16].min()) == 1.0  # tile 0: nothing
+
+
+@pytest.mark.parametrize("n", [1, 5, 2047, 2048, 2049, 2048 * 40 + 3])
+@pytest.mark.parametrize("kind", ["ends", "empty blocks", "last only",
+                                  "offset view"])
+def test_fill_forward_kernel_on_ragged_inputs(cuda, n, kind):
+    """K5 bit-equal to its plain version with markers at the first and the
+    last position, runs of empty blocks (more than the 32 the look-back
+    reads at once), a single marker at the end, and inputs that are views
+    at an odd offset (no 16-byte loads)."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    vals = torch.randint(-2 ** 30, 2 ** 30, (3, n + 1), generator=g,
+                         device=cuda, dtype=torch.int32)
+    valid = torch.zeros(n + 1, dtype=torch.int32, device=cuda)
+    if kind == "ends":
+        valid[0] = valid[n - 1] = 1
+    elif kind == "empty blocks":
+        valid[:min(n, 100):7] = 1
+        valid[max(0, n - 30):n:11] = 1
+    elif kind == "last only":
+        valid[n - 1] = 1
+    else:
+        valid[1:n + 1] = (torch.rand(n, generator=g, device=cuda)
+                          < 0.01).to(torch.int32)
+    if kind == "offset view":
+        vals, valid = vals[:, 1:].contiguous()[:, :n], valid[1:]
+    else:
+        vals, valid = vals[:, :n].contiguous(), valid[:n]
+    got = kernels.fill_forward(vals, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fill_forward_torch(vals, valid))
+
+
+def test_fill_forward_kernel_on_the_aligned_layouts_markers(cuda):
+    """The markers aligned_markers leaves: empty tiles sharing an aligned
+    start, and the long empty tail up to cap_aligned."""
+    from envgs_tpu_torch.ops.binning import aligned_markers
+
+    rng = np.random.default_rng(3)
+    counts = rng.integers(0, 300, 2000)
+    counts[100:700] = 0
+    bounds = torch.tensor(np.concatenate([[0], np.cumsum(counts)])
+                          .astype(np.int32), device=cuda)
+    marks, valid, _ = aligned_markers(bounds, int(bounds[-1]) + 5000, 2000,
+                                      64)
+    assert int(valid[-20000:].sum()) == 0
+    got = kernels.fill_forward(marks, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fill_forward_torch(marks, valid))
