@@ -8,12 +8,13 @@ Phases, one or more lines each:
   2. build: compiles the CUDA kernels from the sources in this checkout;
      registers, shared bytes, spill bytes and resident blocks per SM of K1
      (render, training, gauss3d with the wet), K2 (both modes), K3 (render
-     and training), K4 and K5 as compiled;
+     and training), K4, K5 and K6 as compiled;
   3. kernels: K1 (raster blend) and K3 (trace blend) against their plain
      PyTorch versions on the bench scene's own inputs, max abs error per
      output against a stated bound, median ms of each over repeated runs;
      K1's training variant on the render layout, which a render with the
-     median depth (depth_ratio > 0) launches in the render kernel's place;
+     median depth (depth_ratio > 0) launches in the render kernel's place,
+     with its plain version's time and its bound;
      what K1's inputs ask (the blend probe's counts: windows walked,
      (pair, warp) combinations a pixel can take, within the footprint,
      evaluated, contributing);
@@ -52,8 +53,9 @@ Phases, one or more lines each:
      it=600 (densify) and it=3000 (SH one-up, densify, opacity reset) on
      the statistics those steps gathered, active counts and ms; 3 more
      steps with finite loss and params; peak device memory;
- 12. K6 (segmented scan) on (2^21, 128) f32 with about 500 000 random
-     segment starts and one segment of 5000 rows, and P1 / P2 (row gathers)
+ 12. K6 (segmented scan, one pass) on (2^21, 128) f32 with about 500 000
+     random segment starts and one segment of 5000 rows (two calls
+     bit-equal), and P1 / P2 (row gathers)
      at the probe's sizes (a 500 000-row table, 2^21 indices) for bf16 and
      f32, against their plain versions (K6 rtol 1e-5 / atol 1e-4, P1 / P2
      bit-equal); median ms of each, of `table[idx]`, the bytes each moved;
@@ -72,7 +74,17 @@ Phases, one or more lines each:
      from the reflection gate on), nothing dropped or the cap growth
      printed; save, resume into a fresh runner (state equal); evaluation
      of two held-out views in exact order (K1 alone) and radial order (K1
-     and K3); steps/s with maintenance, ms per event, render ms, memory.
+     and K3); steps/s with maintenance, ms per event, render ms, memory;
+ 15. a camera path: Runner.render_path(8, "orbit") through phase 14's
+     trained scene from a fresh runner resumed from its checkpoint (views
+     on a ring about the scene's centre, caps no frame can overflow): 8
+     RENDER PNGs, each frame finite and not flat, nothing truncated or
+     dropped, K1 and K3 once per frame
+     and nothing else, ms per frame; then `cli.main(["smoke", ...])` (30
+     iterations) and `cli.main(["render", "-c", <its config>,
+     "--path-kind", "spiral", "--path-frames", "4"])` from its checkpoint
+     in a temporary directory: 4 frames, K1 and K3 at least once a frame
+     (the synthetic scene renders its own views first) and nothing else.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -171,8 +183,9 @@ OPS_SURFEL_TERMS = 44  # raster pixel_terms, surfel: 3x3 transform, low-pass
 OPS_GAUSS3D_TERMS = 16  # raster pixel_terms, gauss3d: the EWA conic
 OPS_RAY_TERMS = 41  # trace: plane hit t, local (u, v), alpha
 # K6 against its plain version: the JAX test's own bound. The kernel sums
-# a 1024-row block sequentially in float32 and adds a carry, the plain
-# version rounds a float64 running sum once
+# each thread's 16 rows in order, the 8 row groups of a 128-row tile in
+# order, then the carry (a left fold of the tiles' sums), in float32; the
+# plain version rounds a float64 running sum once
 SEG_RTOL, SEG_ATOL = 1e-5, 1e-4
 # row counts that fill no whole stage, run or block of P2's ring
 RAGGED_N = (1, 15, 17, 2 ** 21 - 3)
@@ -593,21 +606,6 @@ def compare_small_gaussiant(got, want, g_dens, w_dens):
     return worst
 
 
-def seg_inputs(device, n_rows=2 ** 21, n_starts=500_000, long_at=700_000,
-               long_len=5000):
-    """Phase 12's K6 inputs: (n_rows, 128) standard normals and segment
-    starts at n_starts random rows, none inside one stretch of long_len
-    rows nor at row 0 (seeded numpy)."""
-    rng = np.random.default_rng(0)
-    rows = torch.tensor(rng.standard_normal((n_rows, 128)).astype(np.float32),
-                        device=device)
-    seg = np.zeros(n_rows, np.int32)
-    seg[rng.choice(n_rows, n_starts, replace=False)] = 1
-    seg[long_at:long_at + long_len] = 0
-    seg[0] = 0
-    return rows, torch.tensor(seg, device=device)
-
-
 def run_draws(sched, it, cap_b, cap_e):
     """The random numbers of iteration `it`'s maintenance events, drawn on
     the CPU from a generator seeded with `it`, so that runs on two devices
@@ -814,7 +812,9 @@ def compare_small_run(got, want):
 def full_run(device, out_root, kernels, size=None):
     """Phase 14: the compressed schedule through the Runner on the run
     scene (full width unless `size` shrinks it), then save, resume and
-    evaluation. Returns (per-path launch counts of the run, figures)."""
+    evaluation. Returns (launch counts of the run, of the evaluation,
+    figures, make_runner(resume, run_views=None): a Runner of the run
+    scene, resumed from the run's checkpoint with `resume`, the views)."""
     from envgs_tpu_torch import bench
     from envgs_tpu_torch.models.gaussians import DensifyConfig
     from envgs_tpu_torch.train import trainer
@@ -842,9 +842,10 @@ def full_run(device, out_root, kernels, size=None):
     sched = bench.compressed_schedule(normal_prop_interval=16)
     cfg = cfg._replace(reflection_start_iter=sched.reflection_start_iter)
 
-    def make_runner(resume):
+    def make_runner(resume, run_views=None):
         return Runner(
-            views, base, env, cfg, LossConfig(perc_loss_weight=0.0), sched,
+            run_views or views, base, env, cfg,
+            LossConfig(perc_loss_weight=0.0), sched,
             DensifyConfig(max_gs=base.cap, **bench.RUN_DENSIFY),
             DensifyConfig(max_gs=env.cap, **bench.RUN_DENSIFY_ENV),
             LRConfig(),
@@ -1046,7 +1047,139 @@ def full_run(device, out_root, kernels, size=None):
           f"gradient, the largest finite one is {figures['probe_max']:.3g} "
           "(the backward's T rebuild over pairs the forward skipped)",
           flush=True)
-    return run_launches, eval_launches, figures
+    return run_launches, eval_launches, figures, make_runner, views
+
+
+def ring_views(cam, center, radius, n=4):
+    """n views on a level ring of `radius` about `center`, each facing it,
+    the first behind `cam` on its optical axis: keyframes for an orbit.
+    (The run scene's views are `cam` turned in place; with one centre
+    among them an orbit has no radius.)"""
+    from envgs_tpu_torch.utils.camera import make_camera
+
+    views = []
+    for i in range(n):
+        t = 2 * np.pi * i / n
+        c = np.asarray(center) + radius * np.array([np.sin(t), 0.0,
+                                                    -np.cos(t)])
+        fwd = (np.asarray(center) - c) / radius
+        down = np.array([0.0, 1.0, 0.0])
+        R = np.stack([np.cross(down, fwd), down, fwd])
+        views.append(dict(camera=make_camera(
+            cam.H, cam.W, cam.K.cpu().numpy(), R, -R @ c, cam.znear,
+            cam.zfar, device=cam.K.device), name=f"ring{i}"))
+    return views
+
+
+def path_run(make_runner, cam, kernels, n_frames=8):
+    """Phase 15: an orbit of n_frames through the run's trained scene by
+    Runner.render_path, from a fresh runner resumed from the run's
+    checkpoint (as the `render` mode does) whose views are a ring about
+    the scene's centre, made from the run's camera `cam`. -> (launch
+    counts of the path, median ms per frame)."""
+    from envgs_tpu_torch import bench
+
+    from envgs_tpu_torch.ops.raster_blend import CHUNK
+
+    cuda = cam.K.is_cuda
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    # the train scene's surfels: x, y ~ N(0, 1.5), depth 2..7 before `cam`
+    runner = make_runner(True, ring_views(cam, (0.0, 0.0, 4.5), 9.0))
+    # caps for views from every side, as a user's render config sets them:
+    # seen from the side the whole cloud is in view and the env cull hands
+    # its tiles more than the run's 2^22 slots (2.2M dropped in one frame);
+    # a tile takes at most 2048 candidates (default_per_tile_cap) in
+    # 64-slot chunks, so this env cap cannot overflow
+    tiles = -(-cam.W // 16) * -(-cam.H // 16)
+    runner.model_cfg = runner.model_cfg._replace(
+        pair_cap=2 * runner.model_cfg.pair_cap,
+        env_pair_cap=tiles * (2048 + CHUNK))
+    outs, render_ms = [], []
+    render_view = runner.render_view
+
+    def timed_render(c, *args, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = render_view(c, *args, **kw)
+        sync()
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+        return out
+
+    runner.render_view = timed_render
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    out_dir = runner.render_path(n_frames=n_frames, kind="orbit",
+                                 tag="orbit")
+    total_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    want = {k: n_frames if k in RENDER_KERNELS else 0 for k in launches}
+    if cuda and launches != want:
+        raise AssertionError(f"render path launches off: {launches}")
+    frames = sorted(os.listdir(os.path.join(out_dir, "RENDER")))
+    if frames != [f"frame0000_camera{i:04d}.png" for i in range(n_frames)]:
+        raise AssertionError(f"render path frames: {frames}")
+    stats = [bench.check_render(o, runner.model_cfg) for o in outs]
+    print(f"[path] orbit of {n_frames} frames at {cam.W}x{cam.H} through "
+          f"the trained run scene (resumed at iteration "
+          f"{runner.start_iter}): {n_frames} RENDER PNGs, rgb finite, std "
+          f"{min(s[2] for s in stats):.3f}-{max(s[2] for s in stats):.3f}, "
+          f"base pairs {min(s[0] for s in stats)}-"
+          f"{max(s[0] for s in stats)} of {runner.model_cfg.pair_cap}, env "
+          f"slots {min(s[1] for s in stats)}-{max(s[1] for s in stats)} of "
+          f"{runner.model_cfg.env_pair_cap}, none dropped; "
+          f"launches { {k: v for k, v in launches.items() if v} }; "
+          f"{statistics.median(render_ms):.1f} ms per frame rendered "
+          f"(median), {total_ms / n_frames:.1f} ms per frame with the PNGs",
+          flush=True)
+    if runner.start_iter == 0:
+        raise AssertionError("render path: the runner did not resume")
+    return launches, statistics.median(render_ms)
+
+
+def cli_run(kernels, tmp):
+    """Phase 15's entry points: `smoke` (cut to 30 iterations), then
+    `render -c <its config> --path-kind spiral --path-frames 4`, which
+    resumes the checkpoint smoke left, in `tmp`. -> launch counts."""
+    import yaml
+
+    from envgs_tpu_torch import cli
+
+    small = ["runner_cfg.ep_iter=30", "runner_cfg.log_interval=10",
+             "model_cfg.sampler_cfg.reflection_start_iter=10"]
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        cli.main(["smoke", *small])
+        t1 = time.perf_counter()
+        cfg = cli.smoke_config().to_dict()
+        cfg["runner_cfg"]["resume"] = True
+        with open("smoke.yaml", "w") as f:
+            yaml.safe_dump(cfg, f)
+        before = dict(kernels.LAUNCHES)
+        # (make_runner renders the synthetic scene's views before the path)
+        out = cli.main(["render", "-c", "smoke.yaml", "--path-kind",
+                        "spiral", "--path-frames", "4", *small])
+        t2 = time.perf_counter()
+        launches = dict(kernels.LAUNCHES)
+        rose = {k: launches[k] - before[k] for k in launches}
+        frames = sorted(os.listdir(os.path.join(out, "RENDER")))
+    finally:
+        os.chdir(cwd)
+    if frames != [f"frame0000_camera{i:04d}.png" for i in range(4)]:
+        raise AssertionError(f"cli render frames: {frames}")
+    if (any(rose[k] < 4 for k in RENDER_KERNELS)
+            or any(v for k, v in rose.items() if k not in RENDER_KERNELS)):
+        raise AssertionError(f"cli render launches off: {rose}")
+    print(f"[path] cli: smoke (30 iterations) in {t1 - t0:.1f} s, then "
+          f"render -c smoke.yaml --path-kind spiral --path-frames 4 from its "
+          f"checkpoint in {t2 - t1:.1f} s: 4 frames in {out}; render "
+          f"launches { {k: v for k, v in rose.items() if v} }", flush=True)
+    return launches
 
 
 def main():
@@ -1105,13 +1238,15 @@ def main():
                     "train": kernels.trace_blend_fwd_resources(True, 0)}
     k4_resources = kernels.trace_blend_bwd_resources(0)
     k5_resources = kernels.fill_forward_resources()
+    k6_resources = kernels.segscan_resources()
     for name, res, threads in (
             *((f"raster_blend_fwd ({cfg})", res, 256)
               for cfg, res in k1_resources.items()),
             ("trace_blend_fwd (render)", k3_resources["render"], 256),
             ("trace_blend_fwd (train)", k3_resources["train"], 256),
             ("trace_blend_bwd", k4_resources, 32),
-            ("fill_forward", k5_resources, 256)):
+            ("fill_forward", k5_resources, 256),
+            ("segscan", k6_resources, 256)):
         print(f"[build] {name}: {res['registers']} registers, "
               f"{res['shared_bytes']} B shared, {res['local_bytes']} B "
               f"spilled, {res['blocks_per_sm']} blocks of {threads} threads "
@@ -1149,10 +1284,17 @@ def main():
         blend_tiles_torch(*k1_args, 0, True), train_planes(C), KERNEL_ATOL)
     k1_med_ms = cuda_ms(lambda: kernels.raster_blend_fwd(*k1_args, 0, True),
                         20)
+    k1_med_plain_ms = cuda_ms(lambda: blend_tiles_torch(*k1_args, 0, True),
+                              10)
+    k1_med_bound = blend_bound(
+        packed, int(bounds[-1]), 0, (C + 11) * npix,
+        walked(kernels.raster_blend_fwd(*k1_args, 0, True)[
+            raster_rows(C)["last"]]), OPS_SURFEL_TERMS)
     print(f"[kernels] raster_blend_fwd with the median depth (its training "
           f"variant on the render layout, what depth_ratio > 0 launches in "
           f"render mode): {k1_med_ms:.4f} ms, {k1_med_ms - k1_ms:+.4f} ms "
-          "against the render kernel", flush=True)
+          f"against the render kernel, plain {k1_med_plain_ms:.2f} ms, bound "
+          f"{k1_med_bound[0]:.4f} ms by {k1_med_bound[1]}", flush=True)
     raster_counts(k1_args, "surfel", "K1 render")
 
     packed, gauss_idx, rays, bounds, tiles_x, tiles_y = k3_args
@@ -1624,10 +1766,15 @@ def main():
     )
     from envgs_tpu_torch.ops.segsum import segmented_inclusive_sum_torch
     from envgs_tpu_torch.probes import dmagather
+    from envgs_tpu_torch.probes.blend_variants import segscan_inputs
 
-    rows, seg = seg_inputs("cuda")
+    rows, seg = segscan_inputs("cuda")
     got = kernels.segscan(rows, seg)
+    again = kernels.segscan(rows, seg)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):  # the look-back's folds fix the bits
+        raise AssertionError("segscan: two calls differ")
+    del again
     want = segmented_inclusive_sum_torch(rows, seg)
     k6_err = float((got - want).abs().max())
     k6_ok = bool(torch.allclose(got, want, rtol=SEG_RTOL, atol=SEG_ATOL))
@@ -1637,7 +1784,8 @@ def main():
           f"{int((starts[1:] - starts[:-1]).max())} rows, none at row 0: "
           f"max_abs_err {k6_err:.3g} at largest |sum| "
           f"{float(want.abs().max()):.4g} (bound rtol {SEG_RTOL:g} / atol "
-          f"{SEG_ATOL:g}: {'within' if k6_ok else 'OUTSIDE'})", flush=True)
+          f"{SEG_ATOL:g}: {'within' if k6_ok else 'OUTSIDE'}); two calls "
+          "bit-equal", flush=True)
     if not k6_ok:
         raise AssertionError("segscan disagrees with its plain version")
     k6_ms = cuda_ms(lambda: kernels.segscan(rows, seg), 20)
@@ -1736,11 +1884,19 @@ def main():
 
     # ---- 14. the run at full width ----
     with tempfile.TemporaryDirectory() as tmp:
-        run_launches, eval_launches, _ = full_run("cuda", tmp, kernels)
+        run_launches, eval_launches, _, make_run_runner, run_views = full_run(
+            "cuda", tmp, kernels)
+        # ---- 15. a camera path through the trained scene ----
+        path_launches, _ = path_run(make_run_runner,
+                                    run_views[0]["camera"], kernels)
+        del make_run_runner, run_views
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches = cli_run(kernels, tmp)
 
     paths = {"render": render_launches, "train": train_launches,
              "gaussiant": gaussiant_launches, "run": run_launches,
-             "run_eval": eval_launches, "probe": probe_launches}
+             "run_eval": eval_launches, "probe": probe_launches,
+             "render_path": path_launches, "cli": cli_launches}
 
     def entry(name, src, replaces, err, ms, plain_ms, bound, library_ms=None,
               **extra):
@@ -1771,6 +1927,8 @@ def main():
               max(k1_err, k1t_err, k1_med_err), k1t_ms, k1t_plain_ms,
               k1t_bound, render_ms=k1_ms, render_plain_ms=k1_plain_ms,
               render_bound_ms=k1_bound[0], render_median_ms=k1_med_ms,
+              render_median_plain_ms=k1_med_plain_ms,
+              render_median_bound_ms=k1_med_bound[0],
               resources={cfg: k1_resources[cfg] for cfg in ("render",
                                                            "train")}),
         entry("raster_blend_bwd", "raster_blend_bwd.cu",
@@ -1799,7 +1957,7 @@ def main():
               k2g_plain_ms, k2g_bound, max_rel_err=k2g_rel, mode="gauss3d",
               resources=k2_resources["gauss3d"]),
         entry("segscan", "segscan.cu", "envgs_tpu/ops/segsum.py:30", k6_err,
-              k6_ms, k6_plain_ms, k6_bound),
+              k6_ms, k6_plain_ms, k6_bound, resources=k6_resources),
         gather_entry("gather_rows", "scripts/tpu_micro_dmagather.py:49"),
         gather_entry("gather_rows_win8",
                      "scripts/tpu_micro_dmagather.py:112"),

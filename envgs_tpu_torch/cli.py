@@ -1,11 +1,23 @@
-"""Command-line entry points of the port: train / test / smoke (port of
-envgs_tpu/cli.py for the EnvGS family on synthetic data).
+"""Command-line entry points of the port: train / test / render / smoke /
+dist / sig (port of envgs_tpu/cli.py for the EnvGS family on synthetic
+data).
 
   python -m envgs_tpu_torch smoke            # synthetic end-to-end run
   python -m envgs_tpu_torch train -c configs/exps/envgs_synthetic.yaml \
       model_cfg.sampler_cfg.tracer_backend=tiled
   python -m envgs_tpu_torch test  -c configs/exps/envgs_synthetic.yaml \
       model_cfg.sampler_cfg.tracer_backend=tiled
+  python -m envgs_tpu_torch render -c <config> --path-kind orbit \
+      --path-frames 60 [--path-dir <dir with intri.yml, extri.yml>]
+  python -m envgs_tpu_torch sig --name <experiment> [--signal usr2]
+
+`render` resumes the latest checkpoint (through make_runner) and writes the
+frames of a camera path under `<out_root>/result/<exp>/<kind>/`; `dist` is
+`train` (one process, one card); `sig` sends SIGUSR1 (status line and a
+checkpoint) or SIGUSR2 (checkpoint only) to the running python processes
+whose command line names envgs_tpu and `--name`; `--debug-nans` turns on
+autograd's anomaly detection (the backward raises at the operation that
+made a NaN).
 
 Configs are the JAX package's (engine/config.py: parents via `configs:`,
 `_delete_`, CLI `a.b.c=value` overrides). Everything runs on the CUDA card
@@ -13,15 +25,17 @@ and raises without one. There is no backend switch: on the card both blends
 run their kernels, and a config that names another backend than `pallas` /
 `tiled` (envgs_synthetic.yaml names the `ref` tracer) raises until it is
 overridden. A mode or option the port lacks (the real-data source,
-the moderators, aux supervisors, the other model families, `render`,
-`mesh`, `ws`, `dist`, `sig`) raises NotImplementedError naming it.
+the moderators, aux supervisors, the other model families, `mesh`, `ws`)
+raises NotImplementedError naming it.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import signal
 
 import numpy as np
+import torch
 
 from envgs_tpu_torch.engine import Config, load_config
 from envgs_tpu_torch.models import gaussians as G
@@ -31,8 +45,8 @@ from envgs_tpu_torch.train.runner import Runner
 from envgs_tpu_torch.train.supervisor import LossConfig
 from envgs_tpu_torch.train.trainer import CamOptConfig, ScheduleConfig
 
-MODES = ("train", "test", "smoke")
-UNPORTED_MODES = ("render", "mesh", "ws", "dist", "sig")
+MODES = ("train", "test", "render", "smoke", "dist", "sig")
+UNPORTED_MODES = ("mesh", "ws")
 
 
 # keys of the JAX package's config tuples that the port leaves out on
@@ -244,7 +258,9 @@ def make_runner(cfg: Config, device="cuda") -> Runner:
         profiler_trace_dir=pcfg.get("trace_dir") if pcfg.get("enabled")
         else None,
         profiler_start=int(pcfg.get("skip_first", 10)),
-        profiler_steps=int(pcfg.get("active", 5)))
+        profiler_steps=int(pcfg.get("active", 5)),
+        record=bool(rcfg.get("record", True)),
+        resolved_config=cfg.to_dict())
 
 
 def smoke_config() -> Config:
@@ -262,16 +278,72 @@ def smoke_config() -> Config:
     })
 
 
+def signal_runs(name: str, which: str = "usr1") -> list:
+    """Send SIGUSR1 (`usr1`) or SIGUSR2 (`usr2`) to every python process
+    (but this one) whose command line holds `envgs_tpu` and `name` and is
+    not itself a `sig` call -> [(pid, command line)] of those signalled.
+    Only python interpreters: a wrapper (timeout, a shell) would die of an
+    unhandled SIGUSR1."""
+    sig = signal.SIGUSR1 if which == "usr1" else signal.SIGUSR2
+    me = os.getpid()
+    hits = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == me:
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                cmd = fh.read().replace(b"\0", b" ").decode("utf-8",
+                                                             "ignore")
+        except OSError:
+            continue
+        first = cmd.split(" ", 1)[0]
+        if ("python" in os.path.basename(first) and "envgs_tpu" in cmd
+                and name in cmd and " sig" not in cmd):
+            hits.append((int(pid), cmd.strip()))
+    for pid, cmd in hits:
+        os.kill(pid, sig)
+        print(f"sent {which.upper()} to {pid}: {cmd[:100]}")
+    if not hits:
+        print(f"no running envgs_tpu process matching {name!r}")
+    return hits
+
+
 def main(argv=None, device="cuda"):
     p = argparse.ArgumentParser("envgs_tpu_torch")
     p.add_argument("mode", choices=MODES + UNPORTED_MODES)
     p.add_argument("-c", "--config", default=None,
                    help="comma-separated config chain")
+    p.add_argument("--name", default=None,
+                   help="sig mode: a substring of the running training "
+                   "process's command line (its experiment or config)")
+    p.add_argument("--signal", default="usr1", choices=["usr1", "usr2"],
+                   help="sig mode: usr1 = status line + checkpoint, usr2 = "
+                   "checkpoint only")
+    p.add_argument("--path-kind", default="orbit",
+                   choices=["orbit", "spiral", "linear", "cubic"],
+                   help="render mode: the camera path's interpolation")
+    p.add_argument("--path-frames", type=int, default=60,
+                   help="render mode: number of frames")
+    p.add_argument("--path-dir", default=None,
+                   help="render mode: a saved camera path (intri.yml, "
+                   "extri.yml) as the keyframes, interpolated as cubic")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="turn on autograd's anomaly detection: a backward "
+                   "that makes a NaN raises at the operation (slow)")
     p.add_argument("opts", nargs="*", help="dotted overrides a.b.c=v; in "
                    "smoke mode they apply to the built-in config")
     a = p.parse_intermixed_args(argv)  # overrides may follow -c
     if a.mode in UNPORTED_MODES:
         raise NotImplementedError(f"mode {a.mode!r} is not ported")
+    if a.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+    if a.mode == "sig":
+        name = a.name or (a.opts[0] if a.opts else None)
+        if not name:
+            p.error("sig requires --name <experiment substring>")
+        return signal_runs(name, a.signal)
+    if a.mode == "dist":
+        a.mode = "train"
 
     if a.mode == "smoke":
         from envgs_tpu_torch.engine import merge_dotted
@@ -282,7 +354,7 @@ def main(argv=None, device="cuda"):
         return runner.test()
 
     if not a.config:
-        p.error("train/test require -c <config[,config2,...]>")
+        p.error("train/test/render require -c <config[,config2,...]>")
     cfg = load_config(a.config, overrides=a.opts, root=os.getcwd())
     mcfg = cfg.get("model_cfg", {}) or {}
     styp = (mcfg.get("sampler_cfg", {}) or {}).get("type")
@@ -293,6 +365,12 @@ def main(argv=None, device="cuda"):
                 f"model family {typ!r}: only the EnvGS family has a "
                 "config-driven entry point in the port")
     runner = make_runner(cfg, device)
+    if a.mode == "render":
+        out = runner.render_path(
+            n_frames=a.path_frames, kind=a.path_kind,
+            tag="file" if a.path_dir else a.path_kind, path_dir=a.path_dir)
+        print(f"[render] wrote {out}")
+        return out
     if a.mode == "train":
         runner.train()
     return runner.test()

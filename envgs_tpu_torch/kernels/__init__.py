@@ -71,8 +71,10 @@ _ARGTYPES = {
     "fill_forward": [_VP, _VP, _I, _I, _VP, _VP, _VP],
     # out (4 ints)
     "fill_forward_resources": [_VP],
-    # rows, flags, n, tails, has_start, out, stream
+    # rows, flags, n, status, counter, out, stream
     "segscan": [_VP, _VP, _I, _VP, _VP, _VP, _VP],
+    # out (4 ints)
+    "segscan_resources": [_VP],
     # table, idx, n, S, row_bytes, out, stream
     "gather_rows": [_VP, _VP, _I, _I, _I, _VP, _VP],
     "gather_rows_win8": [_VP, _VP, _I, _I, _I, _VP, _VP],
@@ -367,33 +369,43 @@ def fill_forward_resources() -> dict:
     return _resources("fill_forward_resources")
 
 
-SEG_ROWS = 1024  # rows per block of K6; N must be a multiple
+SEG_ROWS = 1024  # the TPU kernel's block; N must be a multiple
 SEG_LANES = 128
+SEG_TILE = 128  # rows per tile (block) of K6
 
 
 def segscan(rows, seg_start) -> torch.Tensor:
     """Kernel K6 (csrc/segscan.cu): rows (N, 128) f32, seg_start (N,) int32
     (nonzero at a segment's first row), N a multiple of 1024 -> (N, 128)
-    f32 inclusive segmented sums. Three launches, counted as one."""
+    f32 inclusive segmented sums. Memsets of its status words and counter
+    and one launch, counted as one."""
     _check("rows", rows, torch.float32)
     if (rows.dim() != 2 or rows.shape[1] != SEG_LANES
             or rows.shape[0] % SEG_ROWS):
         raise ValueError(f"rows: expected (N, {SEG_LANES}) with N a multiple "
                          f"of {SEG_ROWS}, got {tuple(rows.shape)}")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows: the kernel's 16-byte loads need 16-byte "
+                         "alignment")
     N = rows.shape[0]
     _check("seg_start", seg_start, torch.int32, rows, (N,))
     if N >= 2 ** 31 - SEG_ROWS:
         raise ValueError(f"N={N}: rows must fit int32")
     out = torch.empty_like(rows)
-    nb = N // SEG_ROWS
-    tails = torch.empty((nb, SEG_LANES), dtype=torch.float32,
-                        device=rows.device)
-    has_start = torch.empty(nb, dtype=torch.int32, device=rows.device)
+    # each tile's status: a 64-bit word per column (value and flag)
+    status = torch.empty((N // SEG_TILE, SEG_LANES), dtype=torch.int64,
+                         device=rows.device)
+    counter = torch.empty(1, dtype=torch.int32, device=rows.device)
     if N:
         _launch("segscan", rows.device, rows.data_ptr(), seg_start.data_ptr(),
-                N, tails.data_ptr(), has_start.data_ptr(), out.data_ptr(),
+                N, status.data_ptr(), counter.data_ptr(), out.data_ptr(),
                 _stream(rows))
     return out
+
+
+def segscan_resources() -> dict:
+    """What K6 was compiled to, as raster_blend_fwd_resources."""
+    return _resources("segscan_resources")
 
 
 def _gather(name: str, table, idx) -> torch.Tensor:

@@ -1,32 +1,38 @@
 """Probe: variants of the blend kernels (K1 raster forward, K3 trace
-forward, K4 trace backward) and of the fill-forward scan (K5) side by
-side on the bench scenes' own inputs, on one CUDA card.
+forward, K4 trace backward) and of the two scans (K5 fill-forward, K6
+segmented sum) side by side on the bench scenes' own inputs, on one CUDA
+card.
 
     python -m envgs_tpu_torch.probes.blend_variants [--counts[=k1,k3]] \
-        label=path/to/raster_blend_fwd_x.cu[,-DFLAG...] ...
+        [--split-launches] label=path/to/raster_blend_fwd_x.cu[,-DFLAG] ...
 
 A variant is a copy of `kernels/csrc/raster_blend_fwd.cu`,
-`trace_blend_fwd.cu`, `trace_blend_bwd.cu` or `fill_forward.cu` (the
-file's name must start with one of the four; the library's headers are on
-its include path) that keeps the `extern "C"` signature, with optional
-nvcc flags after commas. It is how a kernel's time is attributed to its
-parts (a copy with the reduction taken out, with the geometry taken out,
-...) and how the steps of a new design, or a kernel's earlier design, are
-measured beside each other. Each variant is built on its own with the
-library's flags and `-Xptxas -v` (registers, spills and shared memory are
-printed), loaded with ctypes and run on the inputs its kernel gets on the
-bench scenes: K1 in its four configurations (render: the render bench
-scene's unaligned layout; median: the training kernel on that layout, what
-a render with the median depth launches; train: the train bench scene's
-aligned layout; gauss3d: the 3DGS bench scene with the per-pair wet), K3 in
-render and training mode, K4 on the train scene's K3 planes, K5 on the
-train scene's markers. Its outputs are checked against the library's own
-kernel (max abs error of the planes and the wet; worst column of the table
-gradient and of the ray gradient; positions that differ; a variant with a
-part taken out is expected to differ), then each is timed as the median ms
-of 10 launches queued behind a sleep of the card (so the host's enqueueing
-is not in the time), all variants in order and again in reverse order. The
-library's kernels of the same families are timed as `repo` beside them.
+`trace_blend_fwd.cu`, `trace_blend_bwd.cu`, `fill_forward.cu` or
+`segscan.cu` (the file's name must start with one of the five; the
+library's headers are on its include path) that keeps the `extern "C"`
+signature, with optional nvcc flags after commas. It is how a kernel's
+time is attributed to its parts (a copy with the reduction taken out, with
+the geometry taken out, ...) and how the steps of a new design, or a
+kernel's earlier design, are measured beside each other. Each variant is
+built on its own with the library's flags and `-Xptxas -v` (registers,
+spills and shared memory are printed), loaded with ctypes and run on the
+inputs its kernel gets on the bench scenes: K1 in its four configurations
+(render: the render bench scene's unaligned layout; median: the training
+kernel on that layout, what a render with the median depth launches;
+train: the train bench scene's aligned layout; gauss3d: the 3DGS bench
+scene with the per-pair wet), K3 in render and training mode, K4 on the
+train scene's K3 planes, K5 on the train scene's markers, K6 on
+`chip_smoke.py` phase 12's rows (`segscan_inputs`). With
+`--split-launches`, each variant whose `extern "C"` function makes several
+kernel launches is also built once per launch with the others commented
+out (`label/kernel`): the time of each launch of a multi-launch design.
+Outputs are checked against the library's own kernel (max abs error of the
+planes, the wet and K6's sums; worst column of the table gradient and of
+the ray gradient; positions that differ; a variant with a part taken out
+is expected to differ), then each is timed as the median ms of 10 launches
+queued behind a sleep of the card (so the host's enqueueing is not in the
+time), all variants in order and again in reverse order. The library's
+kernels of the same families are timed as `repo` beside them.
 The first line is the card's name and power limit.
 
 With `--counts` it first prints what the inputs ask of the kernels, from
@@ -59,6 +65,7 @@ import statistics
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from envgs_tpu_torch import bench, kernels
@@ -450,6 +457,28 @@ def build_variants(specs, build_dir: Path) -> list:
     return built
 
 
+_LAUNCH_LINE = re.compile(r"^\s*(\w+)<<<.*>>>\(.*\);\s*$", re.M)
+
+
+def split_launches(src: Path, build_dir: Path) -> list:
+    """[(kernel, path)]: for a source whose kernel launches (lines
+    `name<<<...>>>(...);`) number more than one, a copy per launch with the
+    other launch lines commented out, written into build_dir (nothing for
+    a source with one launch)."""
+    text = src.read_text()
+    names = _LAUNCH_LINE.findall(text)
+    if len(names) < 2:
+        return []
+    out = []
+    for keep in names:
+        def drop(m, keep=keep):
+            return m.group(0) if m.group(1) == keep else "//" + m.group(0)
+        path = build_dir / f"{src.stem}_only_{keep}.cu"
+        path.write_text(_LAUNCH_LINE.sub(drop, text))
+        out.append((keep, path))
+    return out
+
+
 def _bind(lib, name):
     fn = getattr(lib, name)
     fn.argtypes = kernels._ARGTYPES[name]
@@ -478,6 +507,41 @@ def raster_runner(fn, k1, train: bool, mode: str = "surfel",
              int(train), kernels.MODES[mode], out.data_ptr(),
              w.data_ptr() if wet else None, stream)
         return torch.cat([out.reshape(-1), w]) if wet else out
+    return run
+
+
+def segscan_inputs(device, n_rows=2 ** 21, n_starts=500_000,
+                   long_at=700_000, long_len=5000):
+    """K6's inputs (`chip_smoke.py` phase 12's): (n_rows, 128) standard
+    normals and segment starts at n_starts random rows, none inside one
+    stretch of long_len rows nor at row 0 (seeded numpy)."""
+    rng = np.random.default_rng(0)
+    rows = torch.tensor(rng.standard_normal((n_rows, 128)).astype(np.float32),
+                        device=device)
+    seg = np.zeros(n_rows, np.int32)
+    seg[rng.choice(n_rows, n_starts, replace=False)] = 1
+    seg[long_at:long_at + long_len] = 0
+    seg[0] = 0
+    return rows, torch.tensor(seg, device=device)
+
+
+def segscan_runner(fn, k6):
+    """As kernels.segscan, with scratch large enough for any design of K6
+    (the first: (N / 1024, 128) f32 tails and N / 1024 flags; the present:
+    128 64-bit status words a tile and a counter), for tiles of 16 rows or
+    more, allocated once."""
+    rows, seg = k6
+    n = rows.shape[0]
+    out = torch.empty_like(rows)
+    status = torch.empty((n // 16, kernels.SEG_LANES), dtype=torch.int64,
+                         device=rows.device)
+    counter = torch.empty(n // 16 + 1, dtype=torch.int32, device=rows.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        _run(fn, rows.data_ptr(), seg.data_ptr(), n, status.data_ptr(),
+             counter.data_ptr(), out.data_ptr(), stream)
+        return out
     return run
 
 
@@ -555,7 +619,7 @@ def _worst_column(got, want) -> float:
 
 
 FAMILIES = {"raster_blend_fwd": "k1", "trace_blend_fwd": "k3",
-            "trace_blend_bwd": "k3", "fill_forward": "k5"}
+            "trace_blend_bwd": "k3", "fill_forward": "k5", "segscan": "k6"}
 K1_CONFIGS = {"render": (False, "surfel", False),  # train, mode, wet
               "median": (True, "surfel", False),
               "train": (True, "surfel", False),
@@ -573,6 +637,10 @@ def _family(src: Path) -> str:
 def _inputs(families) -> dict:
     """The bench scenes' kernel inputs the families need."""
     ins = {}
+    if "k6" in families:
+        ins["k6"] = segscan_inputs("cuda")
+    if not families & {"k1", "k3", "k5"}:
+        return ins
     if families & {"k1", "k3"}:
         rbase, renv, rcam, rcfg = bench.make_render_scene("cuda")
         ins["k1 render"], ins["k3 render"] = bench.blend_inputs(
@@ -601,6 +669,9 @@ def _runners(family: str, lib, ins: dict, label: str, extra=None) -> list:
     if family == "k5":
         return [(f"{label} K5", fill_runner(_bind(lib, "fill_forward"),
                                             ins["k5"]))]
+    if family == "k6":
+        return [(f"{label} K6", segscan_runner(_bind(lib, "segscan"),
+                                               ins["k6"]))]
     if extra == "bwd":
         return [(f"{label} bwd", backward_runner(
             _bind(lib, "trace_blend_bwd"), ins["k3 train"], ins["k3 fwd"],
@@ -616,6 +687,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--counts", nargs="?", const="k1,k3", default="",
                     help="k1, k3 or both (the default)")
     ap.add_argument("--build-dir", default=None)
+    ap.add_argument("--split-launches", action="store_true",
+                    help="also time each launch of a multi-launch variant")
     ap.add_argument("variants", nargs="*", help="label=source.cu[,flag...]")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -633,7 +706,7 @@ def main(argv=None) -> dict:
     if counts - {"k1", "k3"}:
         raise ValueError(f"--counts={a.counts}: k1, k3 or both")
     families = counts | {_family(src) for _, src, _ in specs}
-    families = families or {"k1", "k3", "k5"}
+    families = families or {"k1", "k3", "k5", "k6"}
     lib = kernels._load()
     ins = _inputs(families)
     if "k3" in families:
@@ -663,6 +736,12 @@ def main(argv=None) -> dict:
 
     build_dir = Path(a.build_dir or kernels._BUILD / "variants")
     build_dir.mkdir(parents=True, exist_ok=True)
+    parts = set()
+    if a.split_launches:
+        for label, src, flags in list(specs):
+            for kernel, path in split_launches(src, build_dir):
+                specs.append((f"{label}/{kernel}", path, flags))
+                parts.add(f"{label}/{kernel}")
     runs = []
     for fam in sorted(families):
         runs += _runners(fam, lib, ins, "repo")
@@ -689,10 +768,14 @@ def main(argv=None) -> dict:
                        f", rays {rays:.3g}")
             elif fam == "k5":
                 err = f"{int((got != ref).sum())} positions differ"
+            elif fam == "k6":
+                err = (f"max abs {float((got - ref).abs().max()):.3g} at "
+                       f"largest |sum| {float(ref.abs().max()):.4g}")
             else:
                 err = f"max abs {float((got - ref).abs().max()):.3g}"
-            print(f"[check] {name}: against the library's kernel {err}",
-                  flush=True)
+            print(f"[check] {name}: against the library's kernel {err}"
+                  + (" (one launch of several: expected to differ)"
+                     if label in parts else ""), flush=True)
             runs.append((name, run))
     torch.cuda.synchronize()
     first = {name: cuda_ms(run) for name, run in runs}

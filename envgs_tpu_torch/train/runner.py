@@ -3,15 +3,16 @@ host loop of a single process).
 
 Epoch-driven train loop with the maintenance events before every step,
 checkpoint resume (latest, else the highest-numbered file), periodic save
-and eval, console stat lines with ETA and smoothed losses, the cap growth
-that doubles a pair cap when a step dropped pairs, and the test loop that
-writes metrics.json and typed image dumps. Evaluation renders in the
-tracer's exact per-ray order by default.
+and eval, console stat lines with ETA and smoothed losses, tensorboard
+scalars (TRAIN every log step, VAL and the last eval render per test), the
+cap growth that doubles a pair cap when a step dropped pairs, the test loop
+that writes metrics.json and typed image dumps, and camera-path rendering
+(`render_path`). Evaluation renders in the tracer's exact per-ray order by
+default.
 
 Not ported, so not accepted as arguments: the ratio / crop / patch /
-alternating moderators, the aux supervisors, the tensorboard recorder, the
-multi-host hooks, `render_path` and `extract_mesh`. LPIPS stays inert (no
-VGG16 weights in the repository).
+alternating moderators, the aux supervisors, the multi-host hooks and
+`extract_mesh`. LPIPS stays inert (no VGG16 weights in the repository).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import json
 import os
 import shutil
 import signal
+import subprocess
 import time
 from typing import Any
 
@@ -51,6 +53,7 @@ from envgs_tpu_torch.ops.tracer_ref import prepare_trace_scene
 from envgs_tpu_torch.train import checkpoints as ckpt
 from envgs_tpu_torch.train.evaluator import Evaluator, Visualizer
 from envgs_tpu_torch.train.optimizer import LRConfig
+from envgs_tpu_torch.train.recorder import Recorder, SmoothedValue
 from envgs_tpu_torch.train.supervisor import LossConfig
 from envgs_tpu_torch.train.trainer import (
     Batch,
@@ -61,20 +64,12 @@ from envgs_tpu_torch.train.trainer import (
     make_maintenance,
     make_train_step,
 )
-from envgs_tpu_torch.utils.camera import Camera
+from envgs_tpu_torch.utils.camera import (
+    Camera,
+    camera_path_interpolate,
+    make_camera,
+)
 from envgs_tpu_torch.utils.timer import ProfilerSession, Timer
-
-
-class SmoothedValue:
-    def __init__(self, window: int = 20):
-        self.vals = collections.deque(maxlen=window)
-
-    def update(self, v):
-        self.vals.append(float(v))
-
-    @property
-    def median(self):
-        return float(np.median(self.vals)) if self.vals else 0.0
 
 
 def _sync(device: torch.device):
@@ -161,9 +156,15 @@ class Runner:
         profiler_trace_dir: str | None = None,
         profiler_start: int = 10,
         profiler_steps: int = 5,
+        record_dir: str | None = None,
+        record: bool = True,
+        resolved_config: dict | None = None,
     ):
         """The pools' device is the runner's: views' cameras must live on
-        it, their maps are numpy arrays uploaded per step."""
+        it, their maps are numpy arrays uploaded per step. With `record`,
+        tensorboard events go to `record_dir` (default
+        `<out_root>/record/<exp_name>`) with `resolved_config` beside them
+        as config.yaml."""
         self.views = views
         self.eval_views = eval_views or []
         self.model_cfg = model_cfg
@@ -202,6 +203,9 @@ class Runner:
         self.timer_record_to_file = timer_record_to_file
         self.profiler = ProfilerSession(profiler_trace_dir, profiler_start,
                                         profiler_steps)
+        self.recorder = Recorder(
+            record_dir or os.path.join(out_root, "record", exp_name),
+            enabled=record, resolved_config=resolved_config)
 
     def _step_fn(self, cam: Camera):
         key = (cam.H, cam.W)
@@ -297,6 +301,7 @@ class Runner:
                     stats = {k: float(v) for k, v in stats.items()}
                     for k, v in stats.items():
                         smoothed[k].update(v)
+                    self.recorder.record("TRAIN", stats, it=it)
                     done = it - self.start_iter + 1
                     eta = ((time.time() - t_start) / max(done, 1)
                            * (total - it - 1))
@@ -338,6 +343,7 @@ class Runner:
                 signal.signal(sig, old)
 
         self.save(total)
+        self.recorder.close()
         if self.timer_record_to_file:
             self.timer.dump(self.timer_record_to_file)
         return self.state
@@ -372,6 +378,50 @@ class Runner:
                 self.state.base, self.state.env, cam,
                 self.sched.total_iters if it is None else it, cfg)
 
+    def render_path(self, n_frames: int = 60, kind: str = "orbit",
+                    tag: str = "path", types=("RENDER",), fps: int = 30,
+                    path_dir: str | None = None) -> str:
+        """Render a camera path through the scene -> the directory of its
+        frames (`<result_dir>/<tag>/<TYPE>/frame0000_camera####.png`, and
+        `<TYPE>.mp4` where ffmpeg is on the PATH).
+
+        The keyframes are the training views' cameras, or with `path_dir`
+        a saved camera path (intri.yml / extri.yml, read by
+        utils/easycam.py; the first view's size and planes where it gives
+        none), which is then interpolated as `cubic`. camera_path_interpolate
+        makes n_frames cameras of `kind`; each is rendered by render_view
+        (radial order unless the model config asks for the exact one)."""
+        if path_dir is not None:
+            from envgs_tpu_torch.utils.easycam import read_cameras
+
+            tmpl = self.views[0]["camera"]
+            cams = [make_camera(int(c.get("H", tmpl.H)),
+                                int(c.get("W", tmpl.W)), c["K"], c["R"],
+                                np.asarray(c["T"]).reshape(3), tmpl.znear,
+                                tmpl.zfar, device=self.device)
+                    for _, c in sorted(read_cameras(path_dir).items())]
+            kind = "cubic"
+        else:
+            cams = [v["camera"] for v in self.views]
+        path = camera_path_interpolate(cams, n_frames, kind=kind)
+        result_dir = os.path.join(self.result_dir, tag)
+        vis = Visualizer(result_dir, types=types, save_gt=False,
+                         save_error=False)
+        try:
+            for i, cam in enumerate(path):
+                vis.visualize(self.render_view(cam), None, 0, i)
+        finally:
+            vis.summarize()
+        if shutil.which("ffmpeg"):
+            for t in types:
+                subprocess.run(
+                    ["ffmpeg", "-y", "-loglevel", "error", "-framerate",
+                     str(fps), "-pattern_type", "glob", "-i",
+                     os.path.join(result_dir, t, "*.png"), "-pix_fmt",
+                     "yuv420p", os.path.join(result_dir, f"{t}.mp4")],
+                    check=False)
+        return result_dir
+
     def test(self, save_images: bool = True, tag: str | None = None,
              types=("RENDER", "DEPTH", "NORMAL", "SPECULAR", "DIFFUSE",
                     "REFLECTION"), exact_order: bool = True):
@@ -388,6 +438,7 @@ class Runner:
         ev = Evaluator(result_dir)
         vis = Visualizer(result_dir, types=types) if save_images else None
         views = self.eval_views or self.views
+        rgb = None
         try:
             for i, view in enumerate(views):
                 cam = view["camera"]
@@ -396,8 +447,9 @@ class Runner:
                 out = self.render_view(cam, exact_order=exact_order)
                 _sync(self.device)
                 dt = time.time() - t0
-                ev.evaluate(torch.clamp(out.rgb_map, 0, 1), view["rgb"],
-                            name=view.get("name", str(i)), render_time=dt)
+                rgb = torch.clamp(out.rgb_map, 0, 1)
+                ev.evaluate(rgb, view["rgb"], name=view.get("name", str(i)),
+                            render_time=dt)
                 if vis:
                     vis.visualize(out, view["rgb"], 0, i)
         finally:
@@ -408,5 +460,10 @@ class Runner:
         summary = ev.summarize(extra={
             "tracer_order": "exact" if exact_order else "radial",
             "stage_ms": stage_ms})
+        # VAL scalars and the last evaluated render
+        self.recorder.record(
+            "VAL", {k: v for k, v in summary["summary"].items()
+                    if isinstance(v, (int, float)) and np.isfinite(v)},
+            image_stats={"RENDER": rgb} if rgb is not None else None)
         print(json.dumps(summary["summary"], indent=2))
         return summary

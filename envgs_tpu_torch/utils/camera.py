@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from envgs_tpu_torch.utils.transforms import normalize
@@ -78,3 +79,58 @@ def get_rays(cam: Camera, z_depth: bool = True, correct_pix: bool = True):
     if not z_depth:
         d_world = normalize(d_world)
     return cam.center, d_world
+
+
+def camera_path_interpolate(cams: list, n_out: int, kind: str = "orbit"):
+    """Novel-view camera path (host numpy, as the JAX package computes it)
+    -> n_out Cameras on the first camera's device.
+
+    'orbit': a circle about the cameras' mean center, in the plane normal
+    to their mean up direction, each camera facing the mean center;
+    'spiral': the same with a height that swings by a tenth of the radius;
+    any other kind ('linear', 'cubic'): along the given cameras, centers
+    interpolated linearly and rotations as the nearest rotation to the
+    linear blend."""
+    host = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    Ks = np.stack([host(c.K) for c in cams])
+    Rs = np.stack([host(c.R) for c in cams])
+    Ts = np.stack([host(c.T).reshape(3) for c in cams])
+    centers = np.einsum("nij,nj->ni", -Rs.transpose(0, 2, 1), Ts)
+    look = centers.mean(0).astype(np.float64)
+    K = Ks.mean(0)
+    H, W = cams[0].H, cams[0].W
+
+    def cam(R, T):
+        return make_camera(H, W, K, R, T, cams[0].znear, cams[0].zfar,
+                           device=cams[0].K.device)
+
+    out = []
+    if kind in ("orbit", "spiral"):
+        c0 = centers.mean(0)
+        radius = np.linalg.norm(centers - c0, axis=-1).mean()
+        up = -Rs.mean(0)[1]  # the world's up, for y-down cameras
+        up = up / np.linalg.norm(up)
+        a = np.cross(up, centers[0] - c0)  # a basis of the orbit's plane
+        a = a / (np.linalg.norm(a) + 1e-8)
+        b = np.cross(a, up)
+        for t in np.linspace(0, 2 * np.pi, n_out, endpoint=False):
+            h = 0.1 * radius * np.sin(2 * t) if kind == "spiral" else 0.0
+            c = c0 + radius * (np.cos(t) * b + np.sin(t) * a) + h * up
+            fwd = look - c
+            fwd = fwd / np.linalg.norm(fwd)
+            right = np.cross(fwd, up)
+            right = right / np.linalg.norm(right)
+            down = np.cross(fwd, right)
+            R = np.stack([right, down, fwd], axis=0)
+            out.append(cam(R, -R @ c))
+    else:
+        n_in = len(cams)
+        for t in np.linspace(0, n_in - 1, n_out):
+            i0 = int(np.floor(t))
+            i1 = min(i0 + 1, n_in - 1)
+            a = t - i0
+            c = (1 - a) * centers[i0] + a * centers[i1]
+            u, _, vt = np.linalg.svd((1 - a) * Rs[i0] + a * Rs[i1])
+            R = u @ vt
+            out.append(cam(R, -R @ c))
+    return out

@@ -380,6 +380,49 @@ def test_segscan_kernel_matches_plain(cuda):
         kernels.segscan(rows[:1000].contiguous(), seg[:1000].contiguous())
 
 
+@pytest.mark.parametrize("kind", ["row 0", "tile boundaries",
+                                  "group boundaries", "chains", "every row"])
+def test_segscan_kernel_on_ragged_starts(cuda, kind):
+    """K6 on the starts its design tests model (tests/
+    test_torch_segscan_design.py): a start at row 0, starts on the 128-row
+    tiles' and the 16-row groups' boundaries, tiles with no start chained
+    over many tiles (the look-back's carry), every row a start; the same
+    bits on every call; within rtol 1e-5 / atol 1e-4 of the plain
+    version."""
+    N, T, R = 1024 * 48, kernels.SEG_TILE, 16
+    rng = np.random.default_rng(7)
+    seg = np.zeros(N, np.int32)
+    if kind == "row 0":
+        seg[0] = 1
+        seg[rng.choice(N, N // 50, replace=False)] = 1
+    elif kind == "tile boundaries":
+        seg[::T] = 1
+        seg[T * 7::T * 3] = 0
+        seg[0] = 0
+    elif kind == "group boundaries":
+        seg[R::R * 3] = 1
+        seg[T - 1::T * 5] = 1
+    elif kind == "chains":
+        seg[rng.choice(N, N // 40, replace=False)] = 1
+        seg[3 * T + 5:42 * T + 2] = 0  # some 5000 rows, as phase 12's
+        seg[-40 * T:] = 0
+        seg[0] = 0
+    else:
+        seg[:] = 1
+    rows = torch.tensor(rng.standard_normal((N, 128)).astype(np.float32),
+                        device=cuda)
+    seg = torch.tensor(seg, device=cuda)
+    got = kernels.segscan(rows, seg)
+    again = kernels.segscan(rows, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = segmented_inclusive_sum_torch(rows, seg)
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-4), float(
+        (got - want).abs().max())
+    if kind == "every row":
+        assert torch.equal(got, rows)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gather_kernels_match_plain(cuda, dtype):
     """P1 and P2 bit-equal to table[idx] (and P2's window form), a row

@@ -311,8 +311,9 @@ def test_smoke_entry_point_on_cpu(tmp_path, monkeypatch, capsys):
 
 
 def test_unported_modes_and_options_raise():
-    with pytest.raises(NotImplementedError, match="render"):
-        cli.main(["render", "-c", "x.yaml"], device="cpu")
+    for mode in ("mesh", "ws"):
+        with pytest.raises(NotImplementedError, match=mode):
+            cli.main([mode, "-c", "x.yaml"], device="cpu")
     cfg = cli.smoke_config()
     cfg["dataset_cfg"]["source"] = "colmap"
     with pytest.raises(NotImplementedError, match="colmap"):
