@@ -85,6 +85,20 @@ Phases, one or more lines each:
      "--path-kind", "spiral", "--path-frames", "4"])` from its checkpoint
      in a temporary directory: 4 frames, K1 and K3 at least once a frame
      (the synthetic scene renders its own views first) and nothing else.
+ 16. a capture on disk at full width: 24 views of the train bench scene
+     on a ring, written as 3116x2076 JPEGs, normals, a COLMAP model and
+     the env ply (write_capture); `cli.main(["train", "-c", <a config
+     stacking envgs_sedan.yaml on it>])` at ratio 0.5 (1558x1038), the
+     config's pools of 2,000,000 / 700,000, 60 iterations with the
+     reflection gate at 20, then its evaluation of the 3 held-out views and
+     `render --path-frames 4` from the checkpoint: K1, K2, K5 once a step
+     and K3 / K4 from the gate, finite loss and params, the cap growth
+     printed if it fired, rgb load ms and the decoder that ran, iteration
+     ms either side of the gate, eval ms per view, peak memory; the ratio
+     moderator (40 iterations: one step built per bucket) and the
+     alternating one with 512x512 patches (20); `train -c` a config
+     stacking gaussiant_synthetic.yaml on the capture (30 iterations: K5
+     and gauss3d K1 / K2 once a step, point_cloud.ply, PSNR / SSIM).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -1182,6 +1196,436 @@ def cli_run(kernels, tmp):
     return launches
 
 
+CAPTURE_VIEWS = 24  # cameras of phase 16's capture, on a ring
+CAPTURE_ITERS = 60  # phase 16a: iterations, the reflection gate at 20
+CAPTURE_GATE = 20
+SEDAN = "configs/exps/envgs/ref_real/envgs_sedan.yaml"
+GAUSSIANT = "configs/exps/gaussiant_synthetic.yaml"
+
+
+def write_capture(root):
+    """Phase 16's capture of the train bench scene in easyvolcap layout
+    under `root`: CAPTURE_VIEWS cameras on a level ring of radius 9 about
+    the scene's centre, each view rendered by the port at 1558x1038 (render
+    mode), upsampled 2x on the host (each pixel repeated) and written as
+    images/<cam>/000000.jpg (3116x2076, PIL, quality 95) with its K doubled,
+    the view-space normals as normals/<cam>/000000.png (also 2x), the base
+    surfels' centres and colours as a binary COLMAP model under sparse/0,
+    the env surfels' as envs/points3D.ply. -> (seconds, spatial scale)."""
+    from PIL import Image
+
+    from envgs_tpu_torch import bench
+    from envgs_tpu_torch.data.synthetic import capture_view
+    from envgs_tpu_torch.utils import colmap
+    from envgs_tpu_torch.utils.easycam import write_cameras
+    from envgs_tpu_torch.utils.ply import save_sfm_ply
+    from envgs_tpu_torch.utils.sh import C0
+
+    t0 = time.perf_counter()
+    base, env, cam, cfg, _ = bench.make_train_scene("cuda")
+    cfg = cfg._replace(render_mode=True)
+    ring = ring_views(cam, (0.0, 0.0, 4.5), 9.0, n=CAPTURE_VIEWS)
+    cams, ccams, ims = {}, {}, {}
+
+    def up2(a):
+        return np.repeat(np.repeat(a, 2, axis=0), 2, axis=1)
+
+    def u8(a):
+        return (np.clip(a, 0, 1) * 255 + 0.5).astype(np.uint8)
+
+    for i, v in enumerate(ring):
+        c = v["camera"]
+        name = f"{i:02d}"
+        image, _, normal = capture_view(base, env, c, cfg)
+        for sub, arr, ext, kw in (("images", image, ".jpg", {"quality": 95}),
+                                  ("normals", normal, ".png",
+                                   {"compress_level": 1})):
+            os.makedirs(os.path.join(root, sub, name), exist_ok=True)
+            Image.fromarray(up2(u8(arr))).save(
+                os.path.join(root, sub, name, "000000" + ext), **kw)
+        K2 = c.K.cpu().numpy().astype(np.float64) * [[2], [2], [1]]
+        R, T = c.R.cpu().numpy(), c.T.cpu().numpy()
+        cams[name] = dict(K=K2, R=R, T=T.reshape(3, 1), H=2 * c.H,
+                          W=2 * c.W)
+        ccams[i + 1] = colmap.ColmapCamera(
+            i + 1, "PINHOLE", 2 * c.W, 2 * c.H,
+            np.array([K2[0, 0], K2[1, 1], K2[0, 2], K2[1, 2]]))
+        ims[i + 1] = colmap.ColmapImage(
+            i + 1, colmap.rotmat_to_qvec(R), T.astype(np.float64), i + 1,
+            f"{name}.jpg", np.zeros((0, 2)), np.zeros(0, np.int64))
+    write_cameras(cams, root)
+
+    def points(pool):
+        act = pool.stats.active
+        rgb = pool.params.features_dc[act][:, 0, :] * C0 + 0.5
+        return (pool.params.xyz[act].cpu().numpy(),
+                u8(rgb.cpu().numpy()))
+
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse)
+    colmap.write_cameras_binary(os.path.join(sparse, "cameras.bin"), ccams)
+    colmap.write_images_binary(os.path.join(sparse, "images.bin"), ims)
+    colmap.write_points3D_binary(os.path.join(sparse, "points3D.bin"),
+                                 *points(base))
+    os.makedirs(os.path.join(root, "envs"))
+    save_sfm_ply(os.path.join(root, "envs", "points3D.ply"), *points(env))
+    centres = np.stack([-c["R"].T @ c["T"][:, 0] for c in cams.values()])
+    scale = float(np.linalg.norm(centres - centres.mean(0), axis=-1).max())
+    return time.perf_counter() - t0, scale
+
+
+def instrumented_cli(argv, kernels):
+    """cli.main(argv) with the Runner it makes instrumented: the kernel
+    counts and the host clock at each iteration's maintenance and at the
+    end of train(), each step's loss, the resolutions whose train step was
+    built, ms and decoder of each rgb load, the outputs of render_view.
+    -> (cli.main's result, info)."""
+    from envgs_tpu_torch import cli
+    from envgs_tpu_torch.data.dataset import MultiViewDataset
+    from envgs_tpu_torch.train import runner as runner_mod
+
+    info = dict(snaps=[], losses=[], dropped=[], built=[], loads=[],
+                renders=[], runner=None)
+    make_runner, load_rgb = cli.make_runner, MultiViewDataset._load_rgb
+    make_step, render_view = runner_mod.make_train_step, \
+        runner_mod.Runner.render_view
+
+    def timed_load(self, v):
+        before = dict(self.decoders)
+        t0 = time.perf_counter()
+        im = load_rgb(self, v)
+        info["loads"].append(((time.perf_counter() - t0) * 1e3, next(
+            k for k, n in self.decoders.items() if n != before.get(k, 0))))
+        return im
+
+    def counted_step(cam, *a, **kw):
+        info["built"].append((cam.H, cam.W))
+        step = make_step(cam, *a, **kw)
+
+        def recorded(*args, **kwargs):
+            out = step(*args, **kwargs)
+            stats = out[-1]
+            info["losses"].append(stats["loss"])
+            info["dropped"].append(stats.get("pair_overflow", 0)
+                                   + stats.get("trace_dropped", 0))
+            return out
+        return recorded
+
+    def recorded_render(self, *a, **kw):
+        out = render_view(self, *a, **kw)
+        info["renders"].append(out)
+        return out
+
+    def made(cfg, device="cuda"):
+        r = make_runner(cfg, device)
+        info["runner"] = r
+        info["caps"] = (r.model_cfg.pair_cap, r.model_cfg.env_pair_cap)
+        maintain, train = r.maintain, r.train
+
+        def snap(it):
+            torch.cuda.synchronize()
+            info["snaps"].append((it, time.perf_counter(),
+                                  dict(kernels.LAUNCHES)))
+
+        def snapped(st, it, log=None):
+            snap(it)
+            return maintain(st, it, log=log)
+
+        def train_then_snap():
+            st = train()
+            snap(None)
+            return st
+
+        r.maintain, r.train = snapped, train_then_snap
+        return r
+
+    cli.make_runner = made
+    MultiViewDataset._load_rgb = timed_load
+    runner_mod.make_train_step = counted_step
+    runner_mod.Runner.render_view = recorded_render
+    try:
+        out = cli.main(argv)
+    finally:
+        cli.make_runner = make_runner
+        MultiViewDataset._load_rgb = load_rgb
+        runner_mod.make_train_step = make_step
+        runner_mod.Runner.render_view = render_view
+    return out, info
+
+
+def check_capture_run(name, info, kernels, gate):
+    """The checks of a training run of phase 16: every step's loss finite,
+    the final params finite, per iteration K1, K2 and K5 once and K3 / K4
+    once from `gate` on, nothing else; the cap growth printed if it fired.
+    -> (iteration ms before / after the gate: medians, the first and last
+    iteration left out; the run's launches)."""
+    r = info["runner"]
+    snaps = info["snaps"]
+    losses = torch.stack(info["losses"]).cpu()
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    for pool in (r.state.base, r.state.env):
+        for field, p in zip(pool.params._fields, pool.params):
+            if not bool(torch.isfinite(p).all()):
+                raise AssertionError(f"{name}: non-finite {field}")
+    total = r.sched.total_iters
+    if len(snaps) != total + 1 or len(losses) != total:
+        raise AssertionError(f"{name}: {len(snaps)} snapshots, "
+                             f"{len(losses)} steps for {total} iterations")
+    ms = {True: [], False: []}
+    for i in range(total):
+        rose = {k: snaps[i + 1][2][k] - snaps[i][2][k] for k in snaps[i][2]}
+        want = TRAIN_KERNELS if i >= gate else (
+            "raster_blend_fwd", "raster_blend_bwd", "fill_forward")
+        if any(v != (k in want) for k, v in rose.items()):
+            raise AssertionError(f"{name} it {i}: launches off: {rose}")
+        if 0 < i < total - 1:
+            ms[i >= gate].append((snaps[i + 1][1] - snaps[i][1]) * 1e3)
+    launches = {k: snaps[-1][2][k] - snaps[0][2][k] for k in snaps[0][2]}
+    return (statistics.median(ms[False]) if ms[False] else float("nan"),
+            statistics.median(ms[True]) if ms[True] else float("nan"),
+            launches)
+
+
+def capture_runs(kernels, tmp, card):
+    """Phase 16: a capture on disk at full width (write_capture) trained
+    through the shipped configs' entry points:
+    a. `train -c` a config stacking envgs_sedan.yaml (data_root, both
+       view_sample lists null with the every-8th split, ratio 0.5 so the
+       decode and resize run at 3116x2076 and the model at 1558x1038,
+       spatial_scale, the preload paths, 60 iterations, the reflection
+       gate at 20; the config's own pools of 2,000,000 / 700,000), which
+       evaluates the held-out views, then `render --path-frames 4` from
+       its checkpoint (with the render caps of phase 15);
+    b. the same with the ratio moderator for 40 iterations, then the
+       alternating moderator with 512x512 patches for 20;
+    c. `train -c` a config stacking gaussiant_synthetic.yaml on the same
+       capture (the multiview source), 30 iterations.
+    `card`: nvidia-smi's name and power limit, printed beside the numbers.
+    -> {path: launch counts}."""
+    import yaml
+
+    from envgs_tpu_torch import bench, cli
+    from envgs_tpu_torch.data import native_loader
+    from envgs_tpu_torch.ops.raster_blend import CHUNK
+    from envgs_tpu_torch.train import gaussiant_loop
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cap = os.path.join(tmp, "capture")
+    secs, sphere = write_capture(cap)
+    try:
+        import cv2  # noqa: F401
+        python_decoder = "cv2"
+    except ImportError:
+        python_decoder = "PIL"
+    print(f"[capture] {CAPTURE_VIEWS} views of 3116x2076 (jpg, normals png),"
+          f" a COLMAP model of the base surfels and the env ply written in "
+          f"{secs:.1f} s; native loader "
+          + ("built: " + native_loader.library_path().name
+             if native_loader.available() else "not built (no compiler or "
+             "library)") + f"; python decoder {python_decoder}", flush=True)
+
+    def write(name, cfg):
+        path = os.path.join(tmp, name)
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return path
+
+    sedan = write("capture_sedan.yaml", {
+        "configs": [os.path.join(repo, SEDAN)],
+        "out_root": os.path.join(tmp, "out"),
+        "dataset_cfg": {"data_root": cap, "view_sample": None, "ratio": 0.5,
+                        "eval_every": 8},
+        "val_dataset_cfg": {"view_sample": None},
+        "model_cfg": {"sampler_cfg": {
+            "spatial_scale": sphere,
+            "preload_gs": os.path.join(cap, "sparse", "0", "points3D.ply"),
+            "env_preload_gs": os.path.join(cap, "envs", "points3D.ply"),
+            "render_reflection_start_iter": CAPTURE_GATE}},
+        "runner_cfg": {"epochs": 1, "ep_iter": CAPTURE_ITERS}})
+    paths = {}
+
+    # ---- a. train, test, render ----
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary, info = instrumented_cli(["train", "-c", sedan], kernels)
+    train_s = time.perf_counter() - t0
+    r = info["runner"]
+    cam0 = r.views[0]["camera"]
+    if (cam0.W, cam0.H) != (1558, 1038):
+        raise AssertionError(f"capture: views of {cam0.W}x{cam0.H}")
+    if (r.state.base.cap, r.state.env.cap) != (2_000_000, 700_000):
+        raise AssertionError(f"capture: pools {r.state.base.cap}, "
+                             f"{r.state.env.cap}")
+    before, after, run = check_capture_run("capture", info, kernels,
+                                           CAPTURE_GATE)
+    paths["capture_train"] = run
+    paths["capture_eval"] = {k: kernels.LAUNCHES[k] - info["snaps"][-1][2][k]
+                             for k in kernels.LAUNCHES}
+    frames = summary["frames"]
+    s = summary["summary"]
+    if (len(frames) != 3 or not np.isfinite(s["psnr_mean"])
+            or not os.path.exists(os.path.join(r.result_dir,
+                                               "metrics.json"))):
+        raise AssertionError(f"capture eval: {s}")
+    loads = [ms for ms, _ in info["loads"]]
+    decoders = sorted({d for _, d in info["loads"]})
+    grown = (r.model_cfg.pair_cap, r.model_cfg.env_pair_cap)
+    n_dropped = sum(float(d) > 0 for d in info["dropped"])
+    if n_dropped and grown == info["caps"]:
+        raise AssertionError(f"capture: {n_dropped} steps dropped pairs and "
+                             "the caps did not grow")
+    eval_ms = 1e3 * np.mean([f["time"] for f in frames])
+    print(f"[capture] train -c {SEDAN} (+ the capture): "
+          f"{len(r.views)} + {len(r.eval_views)} views at 1558x1038 from "
+          f"3116x2076, {int(r.state.base.stats.active.sum())} base surfels "
+          f"in {r.state.base.cap} slots, "
+          f"{int(r.state.env.stats.active.sum())} env in {r.state.env.cap}; "
+          f"rgb load (decode + resize) {statistics.median(loads):.1f} ms "
+          f"(median of {len(loads)}) by {', '.join(decoders)}; "
+          f"{CAPTURE_ITERS} iterations: median {before:.1f} ms before the "
+          f"reflection gate, {after:.1f} ms after; caps (pair, env) "
+          f"{info['caps']} -> {grown}" + (
+              "" if grown == info["caps"] else " (the cap growth fired: "
+              f"{n_dropped} steps dropped pairs)")
+          + f"; loss {float(info['losses'][0]):.4f} -> "
+          f"{float(info['losses'][-1]):.4f}; eval of {len(frames)} held-out "
+          f"views (exact order) {eval_ms:.1f} ms per view, PSNR {s['psnr_mean']:.3f}, SSIM "
+          f"{s['ssim_mean']:.4f}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"{train_s:.1f} s in all [{card}]", flush=True)
+
+    tiles = -(-1558 // 16) * -(-1038 // 16)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    out, info = instrumented_cli(
+        ["render", "-c", sedan, "--path-frames", "4",
+         f"model_cfg.sampler_cfg.pair_cap={2 * grown[0]}",
+         f"model_cfg.sampler_cfg.env_pair_cap={tiles * (2048 + CHUNK)}"],
+        kernels)
+    render_s = time.perf_counter() - t0
+    paths["capture_render"] = dict(kernels.LAUNCHES)
+    frames = sorted(os.listdir(os.path.join(out, "RENDER")))
+    if frames != [f"frame0000_camera{i:04d}.png" for i in range(4)]:
+        raise AssertionError(f"capture render frames: {frames}")
+    if info["runner"].start_iter != CAPTURE_ITERS:
+        raise AssertionError("capture render: not resumed")
+    want = {k: 4 if k in RENDER_KERNELS else 0 for k in kernels.LAUNCHES}
+    if paths["capture_render"] != want:
+        raise AssertionError(f"capture render launches off: "
+                             f"{paths['capture_render']}")
+    stats = [bench.check_render(o, info["runner"].model_cfg)
+             for o in info["renders"]]
+    print(f"[capture] render -c ... --path-frames 4 from the checkpoint of "
+          f"iteration {info['runner'].start_iter}: 4 frames, K1 and K3 once "
+          f"a frame, base pairs {min(p for p, _, _ in stats)}-"
+          f"{max(p for p, _, _ in stats)}, env slots "
+          f"{min(e for _, e, _ in stats)}-{max(e for _, e, _ in stats)}, "
+          f"none dropped; {render_s:.1f} s with the dataset, resume and "
+          f"PNGs", flush=True)
+
+    # ---- b. the moderators ----
+    for name, mod, iters, extra in (
+            ("ratio", {"type": "DatasetRatioModerator",
+                       "milestone_start": 0.25, "milestone_end": 1.0,
+                       "iter_start": 0, "iter_end": 30}, 40, {}),
+            ("alternating", {"type": "AlternatingModerator"}, 20,
+             {"patch_size": [512, 512]})):
+        cfg = write(f"capture_{name}.yaml", {
+            "configs": [sedan], "exp_name": f"capture_{name}",
+            "model_cfg": {"sampler_cfg": extra},
+            "runner_cfg": {"ep_iter": iters, "moderator_cfg": mod}})
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        _, info = instrumented_cli(["train", "-c", cfg], kernels)
+        secs = time.perf_counter() - t0
+        before, after, run = check_capture_run(f"capture {name}", info,
+                                               kernels, CAPTURE_GATE)
+        paths[f"capture_{name}"] = run
+        r = info["runner"]
+        built = info["built"]
+        grew = r.model_cfg.pair_cap, r.model_cfg.env_pair_cap
+        if len(set(built)) != len(built) and grew == info["caps"]:
+            raise AssertionError(f"capture {name}: steps built {built}")
+        H, W = cam0.H, cam0.W
+        want_sizes = ({(int(H * b) // 16 * 16, int(W * b) // 16 * 16)
+                       for b in (0.25, 0.5, 0.75)} | {(H, W)}
+                      if name == "ratio" else {(512, 512), (H, W)})
+        if set(built) != want_sizes:
+            raise AssertionError(f"capture {name}: step sizes {built}")
+        print(f"[capture] {name} moderator, {iters} iterations: train steps "
+              f"built for (H, W) {built} (step cache "
+              f"{sorted(r._step_cache)}), caps {grew}; K1, K2, K5 once a "
+              f"step, K3/K4 from {CAPTURE_GATE}; loss "
+              f"{float(info['losses'][0]):.4f} -> "
+              f"{float(info['losses'][-1]):.4f}; median iteration "
+              f"{before:.1f} / {after:.1f} ms either side of the gate; "
+              f"{secs:.1f} s in all", flush=True)
+
+    # ---- c. the 3DGS family from its config ----
+    cfg = write("capture_gaussiant.yaml", {
+        "configs": [os.path.join(repo, GAUSSIANT)],
+        "out_root": os.path.join(tmp, "out"),
+        "dataset_cfg": {"source": "multiview", "data_root": cap,
+                        "ratio": 0.5, "eval_every": 8},
+        "model_cfg": {"sampler_cfg": {
+            "raster_backend": "pallas", "pool_cap": 2 ** 20,
+            "pair_cap": 2 ** 24}},
+        "runner_cfg": {"ep_iter": 30, "log_interval": 10}})
+    make_step = gaussiant_loop.make_gaussiant_train_step
+    steps = []
+
+    def counted(gcfg, cam):
+        step = make_step(gcfg, cam)
+
+        def recorded(*a):
+            torch.cuda.synchronize()
+            before = dict(kernels.LAUNCHES)
+            out = step(*a)
+            steps.append(({k: kernels.LAUNCHES[k] - before[k]
+                           for k in before}, out[1]["loss"],
+                          out[1]["pair_overflow"]))
+            return out
+        return recorded
+
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    gaussiant_loop.make_gaussiant_train_step = counted
+    t0 = time.perf_counter()
+    try:
+        state, summary = cli.main(["train", "-c", cfg])
+    finally:
+        gaussiant_loop.make_gaussiant_train_step = make_step
+    secs = time.perf_counter() - t0
+    paths["capture_gaussiant"] = dict(kernels.LAUNCHES)
+    if len(steps) != 30:
+        raise AssertionError(f"capture 3DGS: {len(steps)} steps")
+    for i, (rose, loss, overflow) in enumerate(steps):
+        if any(v != (k in GAUSSIANT_TRAIN_KERNELS) for k, v in rose.items()):
+            raise AssertionError(f"capture 3DGS step {i}: {rose}")
+        if not np.isfinite(float(loss)) or float(overflow) > 0:
+            raise AssertionError(f"capture 3DGS step {i}: loss {loss}, "
+                                 f"pairs over the cap {overflow}")
+    ply = os.path.join(tmp, "out", "trained_model", "gaussiant_synthetic",
+                       "point_cloud.ply")
+    s = summary["summary"]
+    if not os.path.exists(ply) or not np.isfinite(s["psnr_mean"]):
+        raise AssertionError(f"capture 3DGS: ply or metrics missing: {s}")
+    print(f"[capture] train -c {GAUSSIANT} (+ the capture): 30 iterations, "
+          f"K5 and gauss3d K1 / K2 once a step, loss "
+          f"{float(steps[0][1]):.4f} -> {float(steps[-1][1]):.4f}, "
+          f"{int(state.pool.stats.active.sum())} Gaussians in "
+          f"{state.pool.cap} slots, point_cloud.ply "
+          f"{os.path.getsize(ply) / 2 ** 20:.0f} MiB; held-out PSNR "
+          f"{s['psnr_mean']:.3f}, SSIM {s['ssim_mean']:.4f} over "
+          f"{len(summary['frames'])} views; {secs:.1f} s in all", flush=True)
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1893,10 +2337,16 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches = cli_run(kernels, tmp)
 
+    # ---- 16. a capture on disk at full width, through the configs ----
+    with tempfile.TemporaryDirectory() as tmp:
+        capture_launches = capture_runs(kernels, tmp,
+                                        smi.strip().splitlines()[0])
+
     paths = {"render": render_launches, "train": train_launches,
              "gaussiant": gaussiant_launches, "run": run_launches,
              "run_eval": eval_launches, "probe": probe_launches,
-             "render_path": path_launches, "cli": cli_launches}
+             "render_path": path_launches, "cli": cli_launches,
+             **capture_launches}
 
     def entry(name, src, replaces, err, ms, plain_ms, bound, library_ms=None,
               **extra):

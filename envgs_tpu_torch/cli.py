@@ -1,10 +1,15 @@
 """Command-line entry points of the port: train / test / render / smoke /
-dist / sig (port of envgs_tpu/cli.py for the EnvGS family on synthetic
-data).
+dist / sig (port of envgs_tpu/cli.py for the EnvGS family and the
+config-driven plain 3DGS family, on the synthetic scene or a capture on
+disk).
 
   python -m envgs_tpu_torch smoke            # synthetic end-to-end run
   python -m envgs_tpu_torch train -c configs/exps/envgs_synthetic.yaml \
       model_cfg.sampler_cfg.tracer_backend=tiled
+  python -m envgs_tpu_torch train -c <scene config> \
+      dataset_cfg.data_root=<capture>
+  python -m envgs_tpu_torch train -c configs/exps/gaussiant_synthetic.yaml \
+      model_cfg.sampler_cfg.raster_backend=pallas
   python -m envgs_tpu_torch test  -c configs/exps/envgs_synthetic.yaml \
       model_cfg.sampler_cfg.tracer_backend=tiled
   python -m envgs_tpu_torch render -c <config> --path-kind orbit \
@@ -24,20 +29,24 @@ Configs are the JAX package's (engine/config.py: parents via `configs:`,
 and raises without one. There is no backend switch: on the card both blends
 run their kernels, and a config that names another backend than `pallas` /
 `tiled` (envgs_synthetic.yaml names the `ref` tracer) raises until it is
-overridden. A mode or option the port lacks (the real-data source,
-the moderators, aux supervisors, the other model families, `mesh`, `ws`)
-raises NotImplementedError naming it.
+overridden. `dataset_cfg.source: multiview` reads a capture in easyvolcap
+layout (data/dataset.py: `images/<cam>/`, `intri.yml` / `extri.yml`,
+`sparse/0`, `normals/`, `envs/points3D.ply`). `train` with
+`sampler_cfg.type: GaussianTSampler` runs the 3DGS family's loop (through
+`engine.TRAINERS`). A mode or option the port lacks (aux supervisors, the
+other model families, `mesh`, `ws`) raises NotImplementedError naming it.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import signal
 
 import numpy as np
 import torch
 
-from envgs_tpu_torch.engine import Config, load_config
+from envgs_tpu_torch.engine import TRAINERS, Config, call_filtered, load_config
 from envgs_tpu_torch.models import gaussians as G
 from envgs_tpu_torch.models.envgs import EnvGSConfig
 from envgs_tpu_torch.train.optimizer import LRConfig
@@ -59,9 +68,10 @@ _SAMPLER_KEYS = frozenset({
     "type", "pool_cap", "env_pool_cap", "sh_deg", "env_sh_deg", "init_occ",
     "env_init_occ", "init_specular", "init_roughness", "env_preload_gs",
     "env_max_gs", "spatial_scale", "white_bg", "render_reflection_start_iter",
-    "xyz_lr_scheduler", "patch_size",
-    # the real-data source's (not ported; the synthetic source ignores them)
-    "preload_gs", "env_bounds"})
+    "xyz_lr_scheduler", "patch_size", "preload_gs", "env_bounds",
+    # the reference sampler's scene box: every shipped dataset config sets
+    # it, and the JAX EnvGS path reads nothing of it either
+    "bounds"})
 
 
 def _named(cls, cfg: dict, elsewhere=frozenset()):
@@ -90,13 +100,33 @@ def _sampler_keys():
 
 def _load_views(cfg: Config, device="cuda"):
     """dataset_cfg -> (views, eval_views, init_xyz, init_rgb, env_bounds,
-    spatial_scale); the synthetic source only."""
+    spatial_scale): the synthetic scene, or (any other source) a capture on
+    disk read by MultiViewDataset, cameras on `device`."""
     dcfg = cfg.get("dataset_cfg", {})
     source = dcfg.get("source", "synthetic")
     if source != "synthetic":
-        raise NotImplementedError(
-            f"dataset_cfg.source={source!r}: only the synthetic source is "
-            "ported (data/dataset.py is not)")
+        from envgs_tpu_torch.data.dataset import MultiViewDataset
+
+        scfg = cfg.get("model_cfg", {}).get("sampler_cfg", {}) or {}
+        # val_dataset_cfg overlays dataset_cfg for the eval split (explicit
+        # per-split view_sample lists, or another data_root)
+        vcfg = dict(dcfg, **(cfg.get("val_dataset_cfg", {}) or {}))
+        ds = call_filtered(MultiViewDataset,
+                           dict(dcfg, split="train", device=device))
+        vs = call_filtered(MultiViewDataset,
+                           dict(vcfg, split="val", device=device))
+        views = [ds[i] for i in range(len(ds))]
+        eval_views = [vs[i] for i in range(len(vs))]
+        # preload_gs sits under sampler_cfg in the reference; either place
+        init_xyz, init_rgb = ds.load_sfm(
+            scfg.get("preload_gs") or dcfg.get("preload_gs"))
+        env_bounds = (scfg.get("env_bounds") or dcfg.get("env_bounds")
+                      or [[-1, -1, -1], [1, 1, 1]])
+        # a scene config pins the SfM-derived spatial_scale; it wins over
+        # the camera sphere's
+        spatial_scale = float(scfg.get("spatial_scale", ds.spatial_scale))
+        return (views, eval_views, init_xyz, init_rgb, env_bounds,
+                spatial_scale)
     from envgs_tpu_torch.data.synthetic import make_scene
 
     scene = make_scene(n_views=dcfg.get("n_views", 12), H=dcfg.get("H", 128),
@@ -217,18 +247,45 @@ def build_from_config(cfg: Config, device="cuda"):
             dens_base, dens_env, lr_base, lr_env)
 
 
-def make_runner(cfg: Config, device="cuda") -> Runner:
-    rcfg = cfg.get("runner_cfg", {})
-    modcfg = rcfg.get("moderator_cfg", {}) or {}
-    if modcfg.get("type"):
+def _moderators(cfg: Config) -> dict:
+    """runner_cfg.moderator_cfg and sampler_cfg.patch_size -> the Runner's
+    ratio_sched / crop_sched / alternating / patch_size arguments."""
+    from envgs_tpu_torch.train.moderators import (
+        AlternatingSchedule,
+        CenterCropSchedule,
+        RatioSchedule,
+    )
+
+    modcfg = cfg.get("runner_cfg", {}).get("moderator_cfg", {}) or {}
+    typ = modcfg.get("type")
+    out = dict(ratio_sched=None, crop_sched=None, alternating=None)
+    if typ == "AlternatingModerator":
+        out["alternating"] = AlternatingSchedule(
+            patterns=tuple(modcfg.get("patterns", ("patch", "full"))))
+    elif typ == "DatasetRatioModerator":
+        out["ratio_sched"] = RatioSchedule(
+            ratio_start=float(modcfg.get("milestone_start", 0.25)),
+            ratio_end=float(modcfg.get("milestone_end", 1.0)),
+            iter_start=int(modcfg.get("iter_start", 0)),
+            iter_end=int(modcfg.get("iter_end", 10000)))
+    elif typ == "DatasetCenterCropRatioModerator":
+        out["crop_sched"] = CenterCropSchedule(
+            crop_start=float(modcfg.get("milestone_start", 0.5)),
+            crop_end=float(modcfg.get("milestone_end", 1.0)),
+            iter_start=int(modcfg.get("iter_start", 0)),
+            iter_end=int(modcfg.get("iter_end", 5000)))
+    elif typ not in (None, "NoopModerator"):
         raise NotImplementedError(
-            f"runner_cfg.moderator_cfg.type={modcfg['type']!r}: the "
-            "moderators are not ported")
+            f"runner_cfg.moderator_cfg.type={typ!r}: no such moderator")
     scfg = cfg.get("model_cfg", {}).get("sampler_cfg", {}) or {}
     patch = scfg.get("patch_size", [-1, -1])
-    if patch and patch[0] > 0:
-        raise NotImplementedError(
-            "sampler_cfg.patch_size: patch training is not ported")
+    out["patch_size"] = tuple(patch) if patch and patch[0] > 0 else None
+    return out
+
+
+def make_runner(cfg: Config, device="cuda") -> Runner:
+    rcfg = cfg.get("runner_cfg", {})
+    moderators = _moderators(cfg)
     (views, eval_views, base, env, model_cfg, loss_cfg, sched, dens_base,
      dens_env, lr_base, lr_env) = build_from_config(cfg, device)
 
@@ -252,6 +309,7 @@ def make_runner(cfg: Config, device="cuda") -> Runner:
         eval_every_iters=rcfg.get("eval_every_iters", 0),
         resume=rcfg.get("resume", True),
         cam_opt=cam_opt,
+        **moderators,
         collect_timing=bool(rcfg.get("collect_timing", False)),
         timer_sync=bool(rcfg.get("timer_sync_cuda", False)),
         timer_record_to_file=rcfg.get("timer_record_to_file"),
@@ -261,6 +319,73 @@ def make_runner(cfg: Config, device="cuda") -> Runner:
         profiler_steps=int(pcfg.get("active", 5)),
         record=bool(rcfg.get("record", True)),
         resolved_config=cfg.to_dict())
+
+
+# sampler_cfg keys of the 3DGS entry point that no 3DGS tuple holds: read
+# here (type, pool_cap, raster_backend) or by _load_views (the dataset
+# stack's), or EnvGS options of configs/base.yaml the family ignores
+_GAUSSIANT_KEYS = frozenset({
+    "type", "pool_cap", "raster_backend", "preload_gs", "spatial_scale",
+    "bounds", "env_bounds", "env_preload_gs", "white_bg", "sh_deg",
+    "init_occ", "tracer_backend"})
+
+
+def train_gaussiant(cfg: Config, device="cuda"):
+    """The plain 3DGS family from its config (the `train` mode of a config
+    whose sampler_cfg.type is GaussianTSampler): the views of
+    dataset_cfg, the loop of train/gaussiant_loop.py, the active pool as
+    `<out_root>/trained_model/<exp>/point_cloud.ply`, and PSNR / SSIM of
+    the held-out views in `<out_root>/result/<exp>/metrics.json`.
+    -> (final state, the metrics.json dict or None without held-out
+    views)."""
+    from envgs_tpu_torch.models.gaussiant import (
+        GaussianTConfig,
+        render_gaussiant,
+    )
+    from envgs_tpu_torch.train.evaluator import Evaluator
+    from envgs_tpu_torch.train.gaussiant_loop import (
+        train_gaussiant as train_loop,
+    )
+    from envgs_tpu_torch.utils.ply import save_gaussian_ply
+
+    scfg = dict(cfg.get("model_cfg", {}).get("sampler_cfg", {}) or {})
+    if scfg.get("raster_backend", "pallas") != "pallas":
+        raise NotImplementedError(
+            f"sampler_cfg.raster_backend={scfg['raster_backend']!r}: the "
+            "port has no backend switch and runs only 'pallas' (its kernels "
+            "on the card); override with "
+            "model_cfg.sampler_cfg.raster_backend=pallas")
+    gcfg = _named(GaussianTConfig, scfg,
+                  frozenset(G.DensifyConfig._fields) | _GAUSSIANT_KEYS)
+    views, eval_views, init_xyz, init_rgb, _, spatial_scale = _load_views(
+        cfg, device)
+    rcfg = cfg.get("runner_cfg", {}) or {}
+    state, _ = train_loop(views, [], init_xyz, init_rgb, scfg, rcfg,
+                          spatial_scale,
+                          torch.Generator(device=device).manual_seed(0))
+    exp = cfg.get("exp_name", "gaussiant")
+    out_root = cfg.get("out_root", "data")
+    model_dir = os.path.join(out_root, "trained_model", exp)
+    os.makedirs(model_dir, exist_ok=True)
+    act = state.pool.stats.active
+    p = state.pool.params
+    save_gaussian_ply(os.path.join(model_dir, "point_cloud.ply"),
+                      *(t[act].detach().cpu().numpy() for t in (
+                          p.xyz, p.features_dc, p.features_rest, p.opacity,
+                          p.scaling, p.rotation)))
+    if not eval_views:
+        return state, None
+    ev = Evaluator(os.path.join(out_root, "result", exp))
+    with torch.no_grad():
+        for i, v in enumerate(eval_views):
+            out = render_gaussiant(state.pool, v["camera"], gcfg)
+            ev.evaluate(out.rgb, v["rgb"], name=f"{i:04d}")
+    summary = ev.summarize()
+    print(json.dumps(summary["summary"], indent=2))
+    return state, summary
+
+
+TRAINERS.register(train_gaussiant, name="GaussianTSampler")
 
 
 def smoke_config() -> Config:
@@ -359,11 +484,14 @@ def main(argv=None, device="cuda"):
     mcfg = cfg.get("model_cfg", {}) or {}
     styp = (mcfg.get("sampler_cfg", {}) or {}).get("type")
     ntyp = (mcfg.get("network_cfg", {}) or {}).get("type")
+    if a.mode == "train" and styp in TRAINERS:
+        return TRAINERS.get(styp)(cfg, device)
     for typ in (styp, ntyp):
         if typ and typ != "EnvGSSampler":
             raise NotImplementedError(
-                f"model family {typ!r}: only the EnvGS family has a "
-                "config-driven entry point in the port")
+                f"model family {typ!r} in {a.mode} mode: the port's "
+                "config-driven entry points are EnvGS (every mode) and "
+                f"{', '.join(sorted(TRAINERS._modules))} (train)")
     runner = make_runner(cfg, device)
     if a.mode == "render":
         out = runner.render_path(

@@ -1,4 +1,28 @@
 from envgs_tpu_torch.engine.config import Config, load_config, merge_dotted
-from envgs_tpu_torch.engine.registry import call_filtered
+from envgs_tpu_torch.engine.registry import Registry, call_filtered
 
-__all__ = ["Config", "load_config", "merge_dotted", "call_filtered"]
+# The registries the port fills (the JAX package's engine/__init__.py has
+# the reference's whole taxonomy): datasets, the moderators' schedules and
+# the model-family training entry points, keyed by the reference's names.
+# Components register where they are defined; importing them fills these.
+DATASETS = Registry("datasets")
+MODERATORS = Registry("moderators")
+TRAINERS = Registry("trainers")
+
+# the JAX package's other registries: nothing of the port registers there
+UNPORTED_REGISTRIES = (
+    "DATALOADERS", "DATASAMPLERS", "MODELS", "CAMERAS", "SAMPLERS",
+    "NETWORKS", "EMBEDDERS", "REGRESSORS", "RENDERERS", "SUPERVISORS",
+    "RUNNERS", "OPTIMIZERS", "SCHEDULERS", "RECORDERS", "EVALUATORS",
+    "VISUALIZERS")
+
+
+def __getattr__(name):
+    if name in UNPORTED_REGISTRIES:
+        raise NotImplementedError(
+            f"registry {name}: nothing of the port registers there")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["Config", "load_config", "merge_dotted", "Registry",
+           "call_filtered", "DATASETS", "MODERATORS", "TRAINERS"]

@@ -1,11 +1,49 @@
-"""Config-driven calls (the port's own copy of `call_filtered` of
-envgs_tpu/engine/registry.py; the name -> constructor registries are not
-ported, the port builds its few components directly)."""
+"""Name -> constructor registries with config-driven build (the port's own
+copy of envgs_tpu/engine/registry.py): `build` pops `type`, filters the
+keyword arguments by the constructor's signature (warning on, not
+rejecting, unknown keys), and `type=None` builds to None."""
 from __future__ import annotations
 
 import inspect
 import warnings
 from typing import Any, Callable
+
+
+class Registry:
+    def __init__(self, name: str):
+        self.name = name
+        self._modules: dict[str, Callable] = {}
+
+    def register(self, cls=None, *, name: str | None = None):
+        def _do(c):
+            key = name or c.__name__
+            if key in self._modules and self._modules[key] is not c:
+                warnings.warn(f"{self.name}: overriding registration of {key}")
+            self._modules[key] = c
+            return c
+
+        return _do(cls) if cls is not None else _do
+
+    def get(self, key: str) -> Callable:
+        if key not in self._modules:
+            raise KeyError(
+                f"{key!r} not registered in {self.name} "
+                f"(available: {sorted(self._modules)})")
+        return self._modules[key]
+
+    def __contains__(self, key):
+        return key in self._modules
+
+    def build(self, cfg: dict | None, **extra) -> Any:
+        if cfg is None:
+            return None
+        cfg = dict(cfg)
+        typ = cfg.pop("type", None)
+        if typ is None:
+            return None
+        ctor = self.get(typ) if isinstance(typ, str) else typ
+        return call_filtered(ctor, {**cfg, **extra},
+                             context=f"{self.name}.{typ}")
 
 
 def call_filtered(fn: Callable, kwargs: dict, context: str = "") -> Any:

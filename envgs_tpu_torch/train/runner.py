@@ -8,11 +8,13 @@ scalars (TRAIN every log step, VAL and the last eval render per test), the
 cap growth that doubles a pair cap when a step dropped pairs, the test loop
 that writes metrics.json and typed image dumps, and camera-path rendering
 (`render_path`). Evaluation renders in the tracer's exact per-ray order by
-default.
+default. The dataset moderators pick each iteration's training view: the
+ratio and centre-crop schedules (train/moderators.py) and patch training,
+on every iteration or, with `alternating`, on its "patch" iterations.
 
-Not ported, so not accepted as arguments: the ratio / crop / patch /
-alternating moderators, the aux supervisors, the multi-host hooks and
-`extract_mesh`. LPIPS stays inert (no VGG16 weights in the repository).
+Not ported, so not accepted as arguments: the aux supervisors, the
+multi-host hooks and `extract_mesh`. LPIPS stays inert (no VGG16 weights
+in the repository).
 """
 from __future__ import annotations
 
@@ -52,6 +54,13 @@ from envgs_tpu_torch.ops.tracer import (
 from envgs_tpu_torch.ops.tracer_ref import prepare_trace_scene
 from envgs_tpu_torch.train import checkpoints as ckpt
 from envgs_tpu_torch.train.evaluator import Evaluator, Visualizer
+from envgs_tpu_torch.train.moderators import (
+    AlternatingSchedule,
+    CenterCropSchedule,
+    RatioSchedule,
+    center_crop_view,
+    resize_view,
+)
 from envgs_tpu_torch.train.optimizer import LRConfig
 from envgs_tpu_torch.train.recorder import Recorder, SmoothedValue
 from envgs_tpu_torch.train.supervisor import LossConfig
@@ -150,6 +159,10 @@ class Runner:
         seed: int = 0,
         resume: bool = True,
         cam_opt: CamOptConfig = CamOptConfig(),
+        ratio_sched: RatioSchedule | None = None,
+        crop_sched: CenterCropSchedule | None = None,
+        patch_size: tuple[int, int] | None = None,
+        alternating: AlternatingSchedule | None = None,
         collect_timing: bool = False,
         timer_sync: bool = False,
         timer_record_to_file: str | None = None,
@@ -161,8 +174,11 @@ class Runner:
         resolved_config: dict | None = None,
     ):
         """The pools' device is the runner's: views' cameras must live on
-        it, their maps are numpy arrays uploaded per step. With `record`,
-        tensorboard events go to `record_dir` (default
+        it, their maps are numpy arrays uploaded per step. ratio_sched /
+        crop_sched resize / centre-crop the training views by iteration;
+        patch_size (H, W) trains a random crop of that size, on every
+        iteration or only on the "patch" iterations of `alternating`. With
+        `record`, tensorboard events go to `record_dir` (default
         `<out_root>/record/<exp_name>`) with `resolved_config` beside them
         as config.yaml."""
         self.views = views
@@ -181,8 +197,16 @@ class Runner:
         self.cam_opt_cfg = cam_opt
         self.device = base.params.xyz.device
 
+        self.ratio_sched = ratio_sched
+        self.crop_sched = crop_sched
+        self.patch_size = patch_size
+        self.alternating = alternating
+        # the moderated views: {ratio: {view: view}}, {(crop, H, W): ...}
+        self._ratio_views: dict[float, dict[int, dict]] = {}
+        self._crop_views: dict[tuple, dict[int, dict]] = {}
+
         self.has_norm = "norm" in views[0]
-        # one train step per resolution
+        # one train step per resolution (ratio bucket, crop, patch)
         self._step_cache: dict[tuple[int, int], Any] = {}
         self.maintain = make_maintenance(sched, dens_base, dens_env)
         self.events: list = []  # (iteration, event) of every event fired
@@ -224,10 +248,46 @@ class Runner:
             msk=t(view.get("msk", np.ones((H, W, 1), np.float32))),
             norm=t(view.get("norm", np.zeros((H, W, 3), np.float32))))
 
-    def _train_view(self, view_i: int) -> tuple[dict, Camera, int]:
-        """The training view (no moderators: always the full image)."""
+    def _train_view(self, view_i: int, it: int,
+                    rng: np.random.Generator) -> tuple[dict, Camera, int]:
+        """View `view_i` as iteration `it` trains it: resized to the ratio
+        schedule's bucket, centre-cropped to the crop schedule's, then a
+        patch at a position drawn from `rng` (K shifted by its origin)."""
         view = self.views[view_i]
-        return view, view["camera"], view_i
+        if self.ratio_sched is not None:
+            ratio = self.ratio_sched(it)
+            if abs(ratio - 1.0) > 1e-6:
+                bucket = self._ratio_views.setdefault(ratio, {})
+                if view_i not in bucket:
+                    bucket[view_i] = resize_view(view, ratio)
+                view = bucket[view_i]
+        if self.crop_sched is not None:
+            crop = self.crop_sched(it)
+            if abs(crop - 1.0) > 1e-6:
+                # keyed by the source size too: a crop of another ratio
+                # bucket must not be served
+                ck = (crop, view["camera"].H, view["camera"].W)
+                bucket = self._crop_views.setdefault(ck, {})
+                if view_i not in bucket:
+                    bucket[view_i] = center_crop_view(view, crop)
+                view = bucket[view_i]
+        cam: Camera = view["camera"]
+        use_patch = self.patch_size is not None
+        if use_patch and self.alternating is not None:
+            use_patch = self.alternating(it) == "patch"
+        if use_patch:
+            ph, pw = self.patch_size
+            ph, pw = min(ph, cam.H), min(pw, cam.W)
+            y0 = int(rng.integers(0, cam.H - ph + 1))
+            x0 = int(rng.integers(0, cam.W - pw + 1))
+            K = cam.K.clone()
+            K[0, 2] -= x0
+            K[1, 2] -= y0
+            view = dict(view, **{k: view[k][y0:y0 + ph, x0:x0 + pw]
+                                 for k in ("rgb", "msk", "norm", "dpt")
+                                 if k in view})
+            cam = cam._replace(H=ph, W=pw, K=K)
+        return view, cam, view_i
 
     def train(self):
         total = self.sched.total_iters
@@ -263,11 +323,14 @@ class Runner:
                 self.state = self.maintain(self.state, it, log=self.events)
                 self.timer.record("maintain")
 
-                view, cam, view_i = self._train_view(int(order[oi]))
+                # the next permutation is drawn before the patch position,
+                # as the reference does: both come from `rng`
+                vi = int(order[oi])
                 oi += 1
                 if oi >= len(order):
                     order = rng.permutation(len(self.views))
                     oi = 0
+                view, cam, view_i = self._train_view(vi, it, rng)
                 batch = self._batch(view)
                 self.timer.record("data")
                 if self.cam_opt_cfg.enabled:

@@ -124,8 +124,12 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 
 def eval_sh_color(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """SH -> RGB with the 3DGS +0.5 shift and clamp-min-0 (`deg` is the
-    maximum degree; the caller masks coefficients above the active one)."""
-    return torch.clamp(eval_sh(deg, sh, dirs) + 0.5, min=0.0)
+    maximum degree; the caller masks coefficients above the active one).
+    At a color of exactly 0 (a black SfM point: rgb2sh0(0) comes back as
+    0.0) the gradient is halved, as the JAX package's `jnp.clip` gives it:
+    the mean of relu's (0 there) and clamp's (1)."""
+    x = eval_sh(deg, sh, dirs) + 0.5
+    return 0.5 * (torch.relu(x) + torch.clamp(x, min=0.0))
 
 
 def rgb2sh0(rgb: torch.Tensor) -> torch.Tensor:

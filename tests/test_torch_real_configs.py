@@ -1,0 +1,420 @@
+"""The shipped scene configs and the whole slice on a capture on disk,
+against the JAX package: every configs/exps/envgs/*/*.yaml resolves in the
+port (sampler_cfg.bounds accepted, a misspelt key still raising) to config
+tuples equal to JAX's field by field; the moderator and patch wiring of
+make_runner; three Runner iterations from both packages' make_runner on a
+capture in tmp_path; the config-driven 3DGS entry point against JAX's
+train_gaussiant; and the entry point's train / test / render on a capture.
+
+    python -m pytest tests/test_torch_real_configs.py
+"""
+import copy
+import glob
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import envgs_tpu_torch
+from envgs_tpu import cli as jcli
+from envgs_tpu.engine import load_config as jload
+from envgs_tpu.models import gaussians as jg
+from envgs_tpu.models import gaussiant as jgt
+from envgs_tpu.train import optimizer as jopt
+from envgs_tpu_torch import cli
+from envgs_tpu_torch.engine import TRAINERS, load_config
+from envgs_tpu_torch.models import gaussians as tg
+from envgs_tpu_torch.train import trainer as ttrain
+from envgs_tpu_torch.utils.ply import load_gaussian_ply
+from test_torch_data import write_capture
+from test_torch_gaussiant import _close
+from test_torch_runner import ADAM_RTOL, GRAD_RTOL, LOSS, MODEL, SCHED, \
+    _draws, _to_numpy
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(
+    envgs_tpu_torch.__file__)))
+SCENES = sorted(os.path.relpath(p, ROOT) for p in glob.glob(
+    os.path.join(ROOT, "configs", "exps", "envgs", "*", "*.yaml")))
+# the 3DGS entry point against JAX's: loss per iteration, the ply's
+# positions (the other arrays as test_torch_gaussiant_loop.py holds its
+# final pool: Adam's quotient turns a gradient difference of rounding size
+# into a move of a fraction of the learning rate; after 3 steps on the
+# 32x32 capture f_dc moves 2.5e-5 on one element of 2700, scaling 7.2e-4
+# on 570 of 2700, rotations 4.8e-3: their gradients are rounding noise on
+# a pool that starts isotropic)
+LOSS_ATOL = 1e-4
+PLY_ATOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def capture(tmp_path_factory):
+    """6 views of 24x32 (normals, a binary COLMAP model, envs ply)."""
+    root = str(tmp_path_factory.mktemp("capture"))
+    write_capture(root, n_views=6, H=24, W=32)
+    return root
+
+
+def _scene_overrides(root):
+    """A scene config pointed at the capture: its data_root, all views,
+    pools of a few thousand slots (the caps max_gs / env_max_gs stay)."""
+    return [f"dataset_cfg.data_root={root}", "dataset_cfg.view_sample=null",
+            f"val_dataset_cfg.data_root={root}",
+            "val_dataset_cfg.view_sample=null",
+            "model_cfg.sampler_cfg.pool_cap=2048",
+            "model_cfg.sampler_cfg.env_pool_cap=1024"]
+
+
+def test_sixteen_shipped_scene_configs():
+    assert len(SCENES) == 16
+
+
+@pytest.mark.parametrize("path", SCENES, ids=[os.path.basename(p)[6:-5]
+                                              for p in SCENES])
+def test_scene_config_resolves_to_the_jax_tuples(capture, path):
+    """build_from_config on the shipped scene config (every key checked,
+    `bounds` among them) gives the JAX package's EnvGSConfig, LossConfig,
+    ScheduleConfig, both DensifyConfigs and both LRConfigs, field by
+    field."""
+    ov = _scene_overrides(capture)
+    cfg = load_config(path, overrides=ov, root=ROOT)
+    assert cfg.model_cfg.sampler_cfg.bounds  # the key every scene sets
+    got = cli.build_from_config(cfg, "cpu")
+    want = jcli.build_from_config(jload(path, overrides=ov, root=ROOT))
+    assert len(got[0]) == len(want[0]) and len(got[1]) == len(want[1])
+    for i, name in ((4, "EnvGSConfig"), (5, "LossConfig"),
+                    (6, "ScheduleConfig"), (7, "DensifyConfig base"),
+                    (8, "DensifyConfig env"), (9, "LRConfig base"),
+                    (10, "LRConfig env")):
+        g, w = got[i], want[i]
+        for f in g._fields:
+            assert getattr(g, f) == getattr(w, f), (name, f)
+    assert got[7].max_gs == 2_000_000 and got[8].max_gs == 700_000
+
+
+def test_a_misspelt_scene_key_still_raises(capture):
+    path = "configs/exps/envgs/ref_real/envgs_sedan.yaml"
+    cfg = load_config(path, overrides=_scene_overrides(capture) + [
+        "model_cfg.sampler_cfg.bonuds=[[-1,-1,-1],[1,1,1]]"], root=ROOT)
+    with pytest.raises(KeyError, match="bonuds"):
+        cli.build_from_config(cfg, "cpu")
+
+
+@pytest.mark.parametrize("moderator", [
+    {"type": "DatasetRatioModerator", "milestone_start": 0.5,
+     "iter_end": 20},
+    {"type": "DatasetCenterCropRatioModerator", "milestone_start": 0.75},
+    {"type": "AlternatingModerator"},
+], ids=["ratio", "crop", "alternating"])
+def test_make_runner_moderators_equal(capture, tmp_path, moderator):
+    raw = _run_config(capture, str(tmp_path))
+    raw["runner_cfg"]["moderator_cfg"] = moderator
+    raw["model_cfg"]["sampler_cfg"]["patch_size"] = [16, 16]
+    tr = cli.make_runner(cli.Config.wrap(copy.deepcopy(raw)), "cpu")
+    jr = jcli.make_runner(jcli.Config.wrap(raw))
+    for k in ("ratio_sched", "crop_sched", "alternating", "patch_size"):
+        g, w = getattr(tr, k), getattr(jr, k)
+        assert (g is None) == (w is None), k
+        if g is not None:
+            assert tuple(g) == tuple(w), k
+    assert tr.patch_size == (16, 16)
+
+
+def test_unknown_moderator_raises(capture, tmp_path):
+    raw = _run_config(capture, str(tmp_path))
+    raw["runner_cfg"]["moderator_cfg"] = {"type": "DatasetRatioModerater"}
+    with pytest.raises(NotImplementedError, match="DatasetRatioModerater"):
+        cli.make_runner(cli.Config.wrap(raw), "cpu")
+
+
+def _run_config(root, out_root):
+    """The compressed three-iteration schedule of test_torch_runner.py on
+    the capture (densify at 1 and 2, the opacity reset at 2, reflections
+    from the start)."""
+    return {
+        "exp_name": "capture", "out_root": out_root,
+        "dataset_cfg": {"source": "multiview", "data_root": root,
+                        "eval_every": 4, "use_normals": True},
+        "model_cfg": {
+            "sampler_cfg": {
+                "pool_cap": 1280, "env_pool_cap": 640, "sh_deg": 1,
+                "env_sh_deg": 1, "init_specular": 0.3, "spatial_scale": 2.5,
+                "densify_grad_threshold": 5e-5, **MODEL, **SCHED},
+            "supervisor_cfg": dict(LOSS)},
+        "runner_cfg": {"resume": False, "record": False, "log_interval": 1,
+                       "save_latest_every": 0},
+    }
+
+
+def _assert_step(got, grads, s0, want, j0, it, lr, what):
+    """test_torch_runner.py's step check with the runner's learning rates
+    (`lr`: the JAX LRConfig of each pool): visit counts equal but for two
+    flips at the alpha floor, each gradient within GRAD_RTOL of its array's
+    largest, and JAX's Adam on the port's gradients giving the port's
+    parameters and moments within ADAM_RTOL."""
+    b1 = 0.9
+    for name in ("base", "env"):
+        g, w, z = got[name], want[name], s0[name]
+        assert g["step"] == w["step"]
+        np.testing.assert_array_equal(g["stats"]["active"],
+                                      w["stats"]["active"])
+        flip = g["stats"]["denom"] != w["stats"]["denom"]
+        assert flip.sum() <= 2, (what, name, flip.sum())
+        assert (g["stats"]["weight_accum"][flip] < 1e-3).all()
+        for k, gp in grads[name].items():
+            mu0, mu1 = (d[name]["mu"][k].astype(np.float64)
+                        for d in (j0, want))
+            gj = np.where(mu1 != mu0, (mu1 - b1 * mu0) / (1 - b1), 0.0)
+            atol = 2 * np.spacing(np.float32(np.abs(mu0).max())) / (1 - b1)
+            err = np.abs(gp - gj)[~flip].max()
+            assert err <= GRAD_RTOL * np.abs(gj[~flip]).max() + atol, (
+                what, name, k, err, np.abs(gj).max())
+        tree = lambda d: jg.GaussianParams(  # noqa: E731
+            *(jnp.asarray(d[f]) if f in d else None
+              for f in jg.GaussianParams._fields))
+        new_p, new_opt = jopt.sparse_adam_update(
+            tree(z["params"]), tree(grads[name]),
+            jopt.AdamState(tree(z["mu"]), tree(z["nu"]),
+                           jnp.asarray(z["step"], jnp.int32)),
+            jopt.lr_tree_for(jnp.asarray(it), lr[name]))
+        for grp, ref in (("params", new_p), ("mu", new_opt.mu),
+                         ("nu", new_opt.nu)):
+            for k in z[grp]:
+                d_want = np.asarray(getattr(ref, k)) - z[grp][k]
+                ulps = 2 * np.spacing(np.abs(z[grp][k]).max()) \
+                    if grp == "params" else 0.0
+                err = np.abs(g[grp][k] - z[grp][k] - d_want).max()
+                assert err <= ADAM_RTOL * np.abs(d_want).max() + ulps, (
+                    what, name, grp, k, err, np.abs(d_want).max())
+
+
+def _copy(tree):
+    """A deep copy of a _to_numpy dict (the JAX step donates its input)."""
+    return jax.tree_util.tree_map(np.array, tree)
+
+
+def test_runner_iterations_on_a_capture_match_jax(capture, tmp_path):
+    """Both packages' make_runner on one capture (their views, cameras and
+    first pools equal), then three iterations held as
+    test_torch_runner.py::test_runner_iterations_match_jax holds them:
+    each port iteration starts from JAX's state and takes JAX's split
+    draws; per iteration the state after maintenance (masks and stats
+    exactly, arrays 1e-6), the step's gradients (5e-4 of each array's
+    largest) and JAX's Adam on the port's gradients."""
+    raw = _run_config(capture, str(tmp_path))
+    jr = jcli.make_runner(jcli.Config.wrap(copy.deepcopy(raw)))
+    tr = cli.make_runner(cli.Config.wrap(raw), "cpu")
+    assert [v["name"] for v in tr.views] == [v["name"] for v in jr.views]
+    assert [v["name"] for v in tr.eval_views] == ["00", "04"]
+    for a, b in zip(tr.views, jr.views):
+        np.testing.assert_array_equal(a["rgb"], b["rgb"])
+        np.testing.assert_array_equal(a["norm"], b["norm"])
+        np.testing.assert_allclose(a["camera"].K.numpy(),
+                                   np.asarray(b["camera"].K), atol=1e-6)
+    start = _copy(_to_numpy(jr.state))
+    first = ttrain.state_to_numpy(tr.state)
+    for name in ("base", "env"):
+        np.testing.assert_array_equal(first[name]["stats"]["active"],
+                                      start[name]["stats"]["active"])
+        for k, v in start[name]["params"].items():
+            np.testing.assert_allclose(first[name]["params"][k], v,
+                                       rtol=1e-6, atol=1e-6, err_msg=k)
+
+    # ---- JAX: its Runner.train, maintenance and step recorded ----
+    mkeys, jmaint, jpost = [], [], []
+    maintain, step_fn = jr.maintain, jr._step_fn
+
+    def jmaintain(st, it, mkey):
+        mkeys.append(mkey)
+        st = maintain(st, it, mkey)
+        jmaint.append(_copy(_to_numpy(st)))
+        return st
+
+    def jstep_fn(cam):
+        step = step_fn(cam)
+
+        def recorded(*args):
+            st, stats = step(*args)
+            jpost.append(_copy(_to_numpy(st)))
+            return st, stats
+        return recorded
+
+    jr.maintain, jr._step_fn = jmaintain, jstep_fn
+    jr.train()
+
+    # ---- the port: its Runner.train from JAX's states and draws ----
+    tr.state = ttrain.state_from_numpy(start)._replace(gen=tr.state.gen)
+    tmaintain, tstep_fn = tr.maintain, tr._step_fn
+    tmaint, tpost, tgrads = [], [], []
+    n_eps = tg.DensifyConfig().split_n + tg.DensifyConfig().weight_split_n
+
+    def with_jax_draws(st, it, log=None):
+        if it > 0:
+            tpost.append(ttrain.state_to_numpy(st))
+            st = ttrain.state_from_numpy(jpost[it - 1])._replace(gen=st.gen)
+        st = tmaintain(st, it, log=log, draws=_draws(
+            mkeys[it], it, tr.sched, 1280, n_eps))
+        tmaint.append(ttrain.state_to_numpy(st))
+        return st
+
+    def recording(cam):
+        step = tstep_fn(cam)
+
+        def with_grads(*args):
+            out = {}
+            res = step(*args, grads_out=out)
+            tgrads.append({name: {k: v.numpy() for k, v in
+                                  out[name]._asdict().items()}
+                           for name in ("base", "env")})
+            return res
+        return with_grads
+
+    tr.maintain, tr._step_fn = with_jax_draws, recording
+    final = tr.train()
+    tpost.append(ttrain.state_to_numpy(final))
+
+    assert tr.events == [(1, "densify_base"), (2, "densify_base"),
+                         (2, "reset_opacity_base")]
+    assert len(jmaint) == len(jpost) == len(tgrads) == 3
+    for it in range(3):
+        for name in ("base", "env"):
+            g, w = tmaint[it][name], jmaint[it][name]
+            for k, v in w["stats"].items():
+                np.testing.assert_array_equal(g["stats"][k], v,
+                                              err_msg=f"{it} {name} {k}")
+            for grp in ("params", "mu", "nu"):
+                for k, v in w[grp].items():
+                    np.testing.assert_allclose(g[grp][k], v, rtol=1e-6,
+                                               atol=1e-6, err_msg=f"{it} {k}")
+        _assert_step(tpost[it], tgrads[it], tmaint[it], jpost[it],
+                     jmaint[it], it, {"base": jr.lr_base, "env": jr.lr_env},
+                     f"step {it}")
+    n_active = [int(m["base"]["stats"]["active"].sum()) for m in jmaint]
+    assert n_active[1] != n_active[0] and n_active[2] != n_active[1]
+
+
+def _gaussiant_config(root, out_root):
+    """configs/exps/gaussiant_synthetic.yaml on the capture, 3 iterations,
+    the port's backend name."""
+    return ["dataset_cfg.source=multiview", f"dataset_cfg.data_root={root}",
+            "dataset_cfg.eval_every=4", f"out_root={out_root}",
+            "model_cfg.sampler_cfg.raster_backend=pallas",
+            "runner_cfg.ep_iter=3", "runner_cfg.log_interval=1"]
+
+
+def test_gaussiant_config_entry_point_matches_jax(tmp_path, monkeypatch):
+    """`train -c configs/exps/gaussiant_synthetic.yaml` with the multiview
+    source on a 32x32 capture, through the port's TRAINERS and JAX's
+    train_gaussiant: the loss of each of the 3 iterations within
+    LOSS_ATOL, the active count equal, point_cloud.ply's positions within
+    PLY_ATOL and its other arrays but rotations within GRAD_RTOL of each
+    array's largest, metrics.json with PSNR / SSIM of the held-out views
+    (JAX's within 1e-4)."""
+    root = str(tmp_path / "capture")
+    write_capture(root, n_views=5, H=32, W=32)
+    path = os.path.join(ROOT, "configs", "exps", "gaussiant_synthetic.yaml")
+    losses = {"jax": [], "port": []}
+
+    def recording(module, key):
+        make = module.make_gaussiant_train_step
+
+        def make_step(*args, **kw):
+            step = make(*args, **kw)
+
+            def recorded(*a):
+                st, aux = step(*a)
+                losses[key].append(float(aux["loss"]))
+                return st, aux
+            return recorded
+        monkeypatch.setattr(module, "make_gaussiant_train_step", make_step)
+
+    recording(jgt, "jax")
+    render = jgt.render_gaussiant
+
+    def jitted_eval_render(pool, cam, cfg, means2d_zero=None):
+        """JAX's eval render, jitted (eager interpret mode is slow)."""
+        if means2d_zero is not None:
+            return render(pool, cam, cfg, means2d_zero)
+        return jax.jit(lambda p: render(p, cam, cfg))(pool)
+
+    monkeypatch.setattr(jgt, "render_gaussiant", jitted_eval_render)
+    import envgs_tpu_torch.train.gaussiant_loop as loop
+    recording(loop, "port")
+    jstate = jcli.train_gaussiant(jload(path, overrides=_gaussiant_config(
+        root, str(tmp_path / "jax")), root=ROOT))
+    assert TRAINERS.get("GaussianTSampler") is cli.train_gaussiant
+    tstate, summary = cli.main(["train", "-c", path, *_gaussiant_config(
+        root, str(tmp_path / "port"))], device="cpu")
+    assert len(losses["port"]) == len(losses["jax"]) == 3
+    np.testing.assert_allclose(losses["port"], losses["jax"], atol=LOSS_ATOL)
+    n = int(np.asarray(jstate.pool.stats.active).sum())
+    assert int(tstate.pool.stats.active.sum()) == n > 0
+    plys = [load_gaussian_ply(str(tmp_path / side / "trained_model" /
+                                  "gaussiant_synthetic" / "point_cloud.ply"))
+            for side in ("port", "jax")]
+    assert plys[0].keys() == plys[1].keys()
+    for k, b in plys[1].items():
+        a = plys[0][k]
+        assert a.shape == b.shape and len(a) == n
+        if k == "xyz":
+            np.testing.assert_allclose(a, b, atol=PLY_ATOL, rtol=0)
+        elif k != "rotation":
+            _close(a, b, name=k)
+    with open(tmp_path / "port" / "result" / "gaussiant_synthetic"
+              / "metrics.json") as f:
+        on_disk = json.load(f)
+    assert len(on_disk["frames"]) == 2  # views 00 and 04 held out
+    s = on_disk["summary"]
+    assert np.isfinite(s["psnr_mean"]) and np.isfinite(s["ssim_mean"])
+    assert s == json.loads(json.dumps(summary["summary"]))
+    jsum = json.loads(open(tmp_path / "jax" / "result" / "gaussiant_synthetic"
+                           / "metrics.json").read())["summary"]
+    for k in ("psnr_mean", "ssim_mean"):
+        np.testing.assert_allclose(s[k], jsum[k], rtol=1e-4)
+
+
+def test_gaussiant_config_names_a_backend_the_port_lacks(tmp_path):
+    path = os.path.join(ROOT, "configs", "exps", "gaussiant_synthetic.yaml")
+    with pytest.raises(NotImplementedError, match="raster_backend"):
+        cli.main(["train", "-c", path], device="cpu")  # names `ref`
+    with pytest.raises(KeyError, match="ssim_wieght"):
+        cli.main(["train", "-c", path, "model_cfg.sampler_cfg.raster_backend"
+                  "=pallas", "model_cfg.sampler_cfg.ssim_wieght=0.1"],
+                 device="cpu")
+
+
+def test_train_test_render_on_a_capture(tmp_path, monkeypatch, capsys):
+    """The entry point on a capture, cut down: `train` (6 iterations, the
+    ratio moderator then patches) writes the checkpoint and evaluates the
+    held-out views; `render` resumes it and writes a 2-frame path."""
+    root = str(tmp_path / "capture")
+    write_capture(root, n_views=5, H=32, W=32)
+    cfg = {
+        "exp_name": "capture", "out_root": str(tmp_path / "out"),
+        "dataset_cfg": {"source": "multiview", "data_root": root,
+                        "eval_every": 4, "use_normals": True},
+        "model_cfg": {"sampler_cfg": {
+            "pool_cap": 1280, "env_pool_cap": 768, "sh_deg": 1,
+            "env_sh_deg": 1, "render_reflection_start_iter": 3,
+            "pair_cap": 2 ** 14, "patch_size": [16, 32]}},
+        "runner_cfg": {"epochs": 1, "ep_iter": 6, "log_interval": 3,
+                       "record": False,
+                       "moderator_cfg": {"type": "AlternatingModerator"}},
+    }
+    path = str(tmp_path / "capture.yaml")
+    with open(path, "w") as f:
+        json.dump(cfg, f)  # JSON is YAML
+    summary = cli.main(["train", "-c", path], device="cpu")
+    s = summary["summary"]
+    assert np.isfinite(s["psnr_mean"]) and s["tracer_order"] == "exact"
+    model_dir = tmp_path / "out" / "trained_model" / "capture"
+    assert {"latest.npz", "6.npz", "base.ply", "env.ply"} <= {
+        p.name for p in model_dir.iterdir()}
+    assert "iter 5/6" in capsys.readouterr().out
+    out = cli.main(["render", "-c", path, "--path-frames", "2"],
+                   device="cpu")
+    assert sorted(os.listdir(os.path.join(out, "RENDER"))) == [
+        "frame0000_camera0000.png", "frame0000_camera0001.png"]
+    assert "[resume]" in capsys.readouterr().out

@@ -311,30 +311,33 @@ def test_smoke_entry_point_on_cpu(tmp_path, monkeypatch, capsys):
 
 
 def test_unported_modes_and_options_raise():
+    """The modes and options the port lacks raise by name. (The real-data
+    source, the moderators and patch training run since they were ported:
+    tests/test_torch_data.py, test_torch_moderators.py and
+    test_torch_real_configs.py.)"""
     for mode in ("mesh", "ws"):
         with pytest.raises(NotImplementedError, match=mode):
             cli.main([mode, "-c", "x.yaml"], device="cpu")
     cfg = cli.smoke_config()
-    cfg["dataset_cfg"]["source"] = "colmap"
-    with pytest.raises(NotImplementedError, match="colmap"):
-        cli.make_runner(cfg, device="cpu")
-    cfg = cli.smoke_config()
-    cfg["runner_cfg"]["moderator_cfg"] = {"type": "DatasetRatioModerator"}
-    with pytest.raises(NotImplementedError, match="moderator"):
-        cli.make_runner(cfg, device="cpu")
-    cfg = cli.smoke_config()
-    cfg["model_cfg"]["sampler_cfg"]["patch_size"] = [16, 16]
-    with pytest.raises(NotImplementedError, match="patch"):
+    cfg["model_cfg"]["supervisor_cfg"] = {"aux_cfg": {"dpt_loss_weight": 1}}
+    with pytest.raises(NotImplementedError, match="aux_cfg"):
         cli.make_runner(cfg, device="cpu")
     root = os.path.dirname(os.path.dirname(os.path.abspath(
         envgs_tpu_torch.__file__)))
     path = os.path.join(root, "configs", "exps", "envgs_synthetic.yaml")
     with pytest.raises(NotImplementedError, match="tracer_backend"):
         cli.main(["train", "-c", path], device="cpu")  # names the ref tracer
-    with pytest.raises(NotImplementedError, match="colmap"):
-        cli.main(["train", "-c", path, "dataset_cfg.source=colmap",
+    with pytest.raises(NotImplementedError, match="aux_cfg"):
+        cli.main(["train", "-c", path,
+                  "model_cfg.supervisor_cfg.aux_cfg.dpt_loss_weight=1",
                   "model_cfg.sampler_cfg.tracer_backend=tiled"],
                  device="cpu")  # overrides after -c are read
+    for mode in ("train", "test"):  # another model family
+        with pytest.raises(NotImplementedError,
+                           match="VolumetricVideoNetwork"):
+            cli.main([mode, "-c", path,
+                      "model_cfg.network_cfg.type=VolumetricVideoNetwork"],
+                     device="cpu")
     for key in ("raster_backend", "tracer_backend"):
         cfg = cli.smoke_config()
         cfg["model_cfg"]["sampler_cfg"][key] = "ref"
