@@ -7,8 +7,9 @@ Phases, one or more lines each:
      power limit as nvidia-smi reports them, torch and CUDA versions;
   2. build: compiles the CUDA kernels from the sources in this checkout;
      registers, shared bytes, spill bytes and resident blocks per SM of K1
-     (render, training, gauss3d with the wet), K2 (both modes), K3 (render
-     and training), K4, K5 and K6 as compiled;
+     (render, training, gauss3d with the wet), K2 (both modes), K3 (render,
+     training, geometry with A = 2, the forward wet with A = 0 and 2), K4,
+     K5 and K6 as compiled;
   3. kernels: K1 (raster blend) and K3 (trace blend) against their plain
      PyTorch versions on the bench scene's own inputs, max abs error per
      output against a stated bound, median ms of each over repeated runs;
@@ -99,9 +100,30 @@ Phases, one or more lines each:
      alternating one with 512x512 patches (20); `train -c` a config
      stacking gaussiant_synthetic.yaml on the capture (30 iterations: K5
      and gauss3d K1 / K2 once a step, point_cloud.ply, PSNR / SSIM).
+ 17. the train bench scene with the base pass traced along the camera rays
+     (use_base_tracing, pair cap 2^24) and with two bounces
+     (max_trace_depth = 1, env cap 2^23): K3's geometry configuration
+     (A = 2), its training one with A = 2 and K4 with A = 2 on the traced
+     base's inputs, K3 with the forward wet (A = 0 and 2, the per-slot and
+     per-splat wet) on the reflected rays' against their plain versions,
+     times and bounds; the traced base's dropped slots read from
+     trace_rays on its inputs (forward_envgs reports none); 3 renders and
+     1 + 10 steps of each configuration with their exact launches (traced
+     base: K3 geometry + K3 render a render, K3 twice + K4 twice a step;
+     two bounces: K1 + K3 wet twice a render, K1, K2, K5, K3 wet twice and
+     K4 twice a step), render and step stage ms, fps, steps/s, peak memory;
+     the rays the second bounce traces and a fault probe of its backward
+     (the T rebuild, ROADMAP Queue 3: the two-bounce steps restart from the
+     scene's state and report the non-finite gradients instead of refusing
+     them); the committed golden scenes (tests/golden) rendered with the
+     kernels: PSNR against golden.png at its threshold, equal to the plain
+     blends on the card's own inputs, and against the CPU render within
+     SMALL_ATOL but for at most BRANCH_ROWS pixels within BRANCH_RTOL (a
+     blend's discrete choice at the alpha floor on last-bit differences).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
+import contextlib
 import json
 import os
 import statistics
@@ -157,6 +179,10 @@ FLIP_MAX = 2
 # of an isotropic surfel), whatever the gradient's size
 BRANCH_ROWS = 3
 BRANCH_RTOL = 2e-2
+# (phase 17 allows the golden renders, card against CPU, as many pixels
+# past SMALL_ATOL, each within BRANCH_RTOL, for the same cause: a pair at
+# the blend's alpha floor taken on one device and not on the other; the
+# kernels themselves equal the plain blends on the card's own inputs)
 ADAM_RTOL = 1e-6
 # base surfels of a few pixels, as 0.012 gives at the bench's full size
 SMALL_RUN = dict(P=1500, Pe=400, Ht=48, Wt=64, base_scale=0.1)
@@ -1626,6 +1652,429 @@ def capture_runs(kernels, tmp, card):
     return paths
 
 
+def _rose(before, kernels):
+    """The launches since `before`, the kernels that ran alone."""
+    return {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v != before[k]}
+
+
+def stage_ms(stages, reps=3):
+    """Median device ms (CUDA events) of each of `stages`, (name, fn)
+    pairs called in order, the first call of all a warm-up; fn takes the
+    result of the stage before it (None for the first)."""
+    times = {}
+    for rep in range(reps + 1):
+        res = None
+        for name, fn in stages:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            res = fn(res)
+            e1.record()
+            if rep:
+                times.setdefault(name, []).append((e0, e1))
+    torch.cuda.synchronize()
+    return {k: round(statistics.median(a.elapsed_time(b) for a, b in v), 4)
+            for k, v in times.items()}
+
+
+@contextlib.contextmanager
+def plain_forward_blends(kernels):
+    """Within it the forward blends' wrappers (K1, K3) run their plain
+    versions on the card's own tensors and count nothing: a render through
+    them differs from the kernels' by the kernels alone."""
+    from envgs_tpu_torch.ops.raster_blend import blend_tiles_torch
+    from envgs_tpu_torch.ops.trace_blend import trace_blend_torch
+
+    saved = kernels.raster_blend_fwd, kernels.trace_blend_fwd
+    kernels.raster_blend_fwd = blend_tiles_torch
+    kernels.trace_blend_fwd = trace_blend_torch
+    try:
+        yield
+    finally:
+        kernels.raster_blend_fwd, kernels.trace_blend_fwd = saved
+
+
+def nonfinite(tree) -> dict:
+    """{name: count} of the non-finite entries of a dict of tensors and
+    GaussianParams (the names of those with any)."""
+    out = {}
+    for k, v in tree.items():
+        for f, x in (zip(v._fields, v) if hasattr(v, "_fields")
+                     else ((None, v),)):
+            n = int((~torch.isfinite(x)).sum())
+            if n:
+                out[k if f is None else f"{k}.{f}"] = n
+    return out
+
+
+def traced_slice(name, kernels, base, env, cam, cfg, batch, render_rose,
+                 step_rose, restart=False):
+    """3 renders and 1 + 10 train steps of one configuration of the train
+    bench scene: each render and step launching exactly `render_rose` /
+    `step_rose`, finite loss and params, nothing dropped by the env trace;
+    fps, steps/s, the step's stage ms, peak memory. With `restart` every
+    step starts from the scene's state, and the non-finite entries of the
+    first step's gradients and of the state it leaves are reported rather
+    than refused (the blend backward's T-rebuild fault, ROADMAP Queue 3).
+    -> (launches of the renders, launches of the steps, stats of the last
+    step)."""
+    from envgs_tpu_torch import bench
+    from envgs_tpu_torch.models.envgs import forward_envgs
+    from envgs_tpu_torch.train.trainer import init_train_state
+
+    rcfg = cfg._replace(render_mode=True)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    render_ms = []
+    for i in range(3):
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = forward_envgs(base, env, cam, bench.TRAIN_IT, rcfg)
+        torch.cuda.synchronize()
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+        rose = _rose(before, kernels)
+        rgb = out.rgb_map
+        if rose != render_rose or not bool(torch.isfinite(rgb).all()) or not (
+                float(rgb.std()) > 0.01) or int(out.env_dropped_pairs):
+            raise AssertionError(f"{name} render {i}: launches {rose}, rgb "
+                                 f"std {float(rgb.std())}, env dropped "
+                                 f"{int(out.env_dropped_pairs)}")
+    renders = dict(kernels.LAUNCHES)
+    print(f"[{name}] 3 renders: {', '.join(f'{m:.1f}' for m in render_ms)} "
+          f"ms ({2e3 / sum(render_ms[1:]):.3f} fps over the last two), "
+          f"launches each {render_rose}, env slots "
+          f"{int(out.env_num_pairs)}/{cfg.env_pair_cap}, rgb std "
+          f"{float(rgb.std()):.4f}", flush=True)
+    del out, rgb
+    step = bench.make_bench_step(cam, cfg)
+    start = state = init_train_state(base, env)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30  # what the steps find
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    n_steps = 10
+    grads = {}
+    for i in range(n_steps + 1):
+        before = dict(kernels.LAUNCHES)
+        if i == 1:  # after the warm-up step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, stats = step(start if restart else state, batch, cam.K, cam.R,
+                            cam.T, bench.TRAIN_IT,
+                            grads_out=grads if i == 0 else None)
+        rose = _rose(before, kernels)
+        loss, dr = float(stats["loss"]), int(stats["trace_dropped"])
+        if rose != step_rose or not np.isfinite(loss) or dr:
+            raise AssertionError(f"{name} step {i}: launches {rose}, loss "
+                                 f"{loss}, trace_dropped {dr}")
+    torch.cuda.synchronize()
+    sps = n_steps / (time.perf_counter() - t0)
+    steps = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bad = nonfinite({"base": state.base.params, "env": state.env.params})
+    if restart:
+        print(f"[{name}] fault probe: non-finite entries of the first "
+              f"step's gradients {nonfinite(grads)}, of the state one step "
+              f"leaves {bad}", flush=True)
+    elif bad:
+        raise AssertionError(f"{name}: non-finite params {bad}")
+    print(f"[{name}] train steps/s over {n_steps} steps: {sps:.4f} "
+          f"({1e3 / sps:.1f} ms per step), loss {loss:.6f}, launches each "
+          f"{step_rose}, stats keys {sorted(stats)}, peak device memory "
+          f"{peak:.2f} GiB ({held:.2f} held before the first step)",
+          flush=True)
+    stages = bench.train_stage_times(step, state, batch, cam, reps=3)
+    print(f"[{name}] step stage ms (median of 3, CUDA events): "
+          + json.dumps({k: round(v, 3) for k, v in stages.items()}),
+          flush=True)
+    return renders, steps, stats
+
+
+def traced_runs(kernels):
+    """Phase 17: the base pass traced along the camera rays and two-bounce
+    reflections on the train bench scene at full width, K3's geometry and
+    forward-wet configurations and K4 with A = 2 against their plain
+    versions on those inputs, and the committed golden scenes rendered
+    with the kernels. -> (numbers for the kernels line, launches by
+    path)."""
+    from envgs_tpu_torch import bench
+    from envgs_tpu_torch.models.envgs import (
+        render_base,
+        render_base_traced,
+        render_env,
+        reflect_rays,
+    )
+    from envgs_tpu_torch.ops import tracer
+    from envgs_tpu_torch.ops.trace_blend import (
+        bwd_slot_columns,
+        trace_blend_bwd_torch,
+        trace_blend_torch,
+    )
+    from envgs_tpu_torch.ops.trace_blend import rows as trace_rows
+    from envgs_tpu_torch.utils import golden
+
+    res, paths = {}, {}
+    t0 = time.perf_counter()
+    base, env, cam, cfg, batch = bench.make_train_scene("cuda")
+    print(f"[traced] train bench scene built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    def held(label, got, want, names):
+        return compare(label, got, want, names, KERNEL_ATOL)
+
+    def planes(A, train):
+        r = trace_rows(A)
+        out = {"rgb": slice(0, 3), "dpt": r["dpt"], "acc": r["acc"],
+               "normal": slice(r["normal"], r["normal"] + 3),
+               "dist": r["dist"], "T": r["trans"]}
+        if A:
+            out["aux"] = slice(r["aux"], r["aux"] + A)
+        if train:
+            out.update(d1=r["d1"], d2=r["d2"], last=r["last"])
+        return out
+
+    # ---- a. the traced base: K3 geometry (render), training + K4 (step)
+    bcfg = cfg._replace(use_base_tracing=True, pair_cap=2 ** 24)
+    scene, ray_o, ray_d = bench.traced_base_scene(base, cam, bcfg)
+    k3, dropped = bench.trace_inputs(scene, ray_o, ray_d, bcfg.pair_cap)
+    packed, gidx, rays, bounds, tx, ty = k3
+    npix = tx * ty * 256
+    print(f"[traced] base K3 inputs: {tx * ty} tiles, {int(bounds[-1])} "
+          f"candidate slots of {gidx.numel()}, {int(dropped)} dropped by "
+          f"the cap of {bcfg.pair_cap}", flush=True)
+    if int(dropped):
+        raise AssertionError("the traced base's cull dropped slots")
+    geo = kernels.trace_blend_fwd(*k3, False, 2, True)
+    res["geo_err"] = held("trace_blend_fwd (geometry, A = 2)", geo,
+                          trace_blend_torch(*k3, False, 2, True),
+                          planes(2, False))
+    del geo
+    out = kernels.trace_blend_fwd(*k3, True, 2)
+    res["a2_fwd_err"] = held("trace_blend_fwd (train, A = 2, traced base)",
+                             out, trace_blend_torch(*k3, True, 2),
+                             planes(2, True))
+    ev = walked(out[trace_rows(2)["last"]])
+    res["a2_fwd_ms"] = cuda_ms(lambda: kernels.trace_blend_fwd(*k3, True, 2),
+                               10)
+    res["a2_fwd_plain_ms"] = cuda_ms(lambda: trace_blend_torch(
+        *k3, True, 2), 1)
+    res["a2_fwd_bound"] = blend_bound(packed, int(bounds[-1]), 0, 15 * npix,
+                                      ev, OPS_RAY_TERMS,
+                                      extra_bytes=rays.numel() * 4)
+    print(f"[kernels] trace_blend_fwd (train, A = 2, traced base) "
+          f"{res['a2_fwd_ms']:.4f} ms, plain {res['a2_fwd_plain_ms']:.2f} ms, "
+          f"bound {res['a2_fwd_bound'][0]:.4f} ms by "
+          f"{res['a2_fwd_bound'][1]}", flush=True)
+    res["geo_ms"] = cuda_ms(lambda: kernels.trace_blend_fwd(
+        *k3, False, 2, True), 10)
+    res["geo_plain_ms"] = cuda_ms(lambda: trace_blend_torch(
+        *k3, False, 2, True), 1)
+    res["geo_bound"] = blend_bound(packed, int(bounds[-1]), 0, 12 * npix, ev,
+                                   OPS_RAY_TERMS,
+                                   extra_bytes=rays.numel() * 4)
+    print(f"[kernels] trace_blend_fwd (geometry, A = 2) {res['geo_ms']:.4f} "
+          f"ms, plain {res['geo_plain_ms']:.2f} ms, bound "
+          f"{res['geo_bound'][0]:.4f} ms by {res['geo_bound'][1]} ({ev:.4g} "
+          f"slot-ray pairs walked)", flush=True)
+    chunk_spread("trace_blend_bwd (traced base)", bounds,
+                 out[trace_rows(2)["last"]], tx, ty)
+    g = torch.randn(out.shape, generator=torch.Generator(
+        device="cuda").manual_seed(3), device="cuda")
+    k4 = (packed, gidx, rays, bounds, out, g, tx, ty, 2)
+    got, got_rays = kernels.trace_blend_bwd(*k4)
+    want, want_rays = trace_blend_bwd_torch(*k4)
+    cols = sum(bwd_slot_columns(2), [])
+    err, rel = compare_columns("trace_blend_bwd (A = 2)", got, want, cols,
+                               GRAD_RTOL)
+    rel = max(rel, compare_columns_by_size("trace_blend_bwd (A = 2)", got,
+                                           want, cols, GRAD_RTOL))
+    per_row = lambda x: x[:, :6].transpose(0, 1).reshape(6, -1).T  # noqa: E731
+    rerr, rrel = compare_columns("trace_blend_bwd (A = 2, rays)",
+                                 per_row(got_rays), per_row(want_rays),
+                                 list(range(6)), GRAD_RTOL)
+    res["a2_err"], res["a2_rel"] = max(err, rerr), max(rel, rrel)
+    res["a2_ms"] = cuda_ms(lambda: kernels.trace_blend_bwd(*k4), 10)
+    res["a2_plain_ms"] = cuda_ms(lambda: trace_blend_bwd_torch(*k4), 1)
+    res["a2_bound"] = blend_bound(
+        packed, int(bounds[-1]), 2 * 15 * npix, 0, ev,
+        OPS_RAY_TERMS + 2 * (len(cols) + 6),
+        extra_bytes=(packed.numel() + 2 * rays.numel()) * 4)
+    print(f"[kernels] trace_blend_bwd (A = 2, traced base) "
+          f"{res['a2_ms']:.4f} ms, plain {res['a2_plain_ms']:.2f} ms, bound "
+          f"{res['a2_bound'][0]:.4f} ms by {res['a2_bound'][1]}", flush=True)
+    del k3, k4, out, g, got, want, got_rays, want_rays, packed, gidx, rays
+    # the traced base's dropped slots reach no output of forward_envgs (as
+    # in the JAX package): read them from trace_rays on the same inputs
+    with torch.no_grad():
+        t = tracer.trace_rays(scene, ray_o, ray_d,
+                              torch.zeros(3, device="cuda"),
+                              total_pair_cap=bcfg.pair_cap,
+                              needs=(False, False))
+        print(f"[traced] trace_rays on the base pass's inputs: "
+              f"{int(t.num_pairs)} slots, {int(t.dropped_pairs)} dropped; "
+              f"acc > 0.5 on {float((t.acc > 0.5).float().mean()):.1%} of "
+              f"the rays", flush=True)
+        if int(t.dropped_pairs):
+            raise AssertionError("the traced base pass dropped slots")
+        del t, scene, ray_o, ray_d
+    res["traced_stage_ms"] = stage_ms([
+        ("base_traced", lambda _: render_base_traced(
+            base, cam, bcfg._replace(render_mode=True))),
+        ("reflect", lambda b: reflect_rays(cam, b)),
+        ("env_trace", lambda r: render_env(
+            env, r[0], r[1], bcfg._replace(render_mode=True)))])
+    print("[traced] render stage ms (median of 3, CUDA events): "
+          + json.dumps(res["traced_stage_ms"]), flush=True)
+    paths["traced_render"], paths["traced_train"], stats = traced_slice(
+        "traced", kernels, base, env, cam, bcfg, batch,
+        {"trace_blend_fwd_geo": 1, "trace_blend_fwd": 1},
+        {"trace_blend_fwd": 2, "trace_blend_bwd": 2})
+    if "pair_overflow" in stats:
+        raise AssertionError("a traced base pass reports raster pairs")
+
+    # ---- b. two bounces: K3 with the forward wet (A = 0 and 2) ----
+    # the second bounce starts on the env dome and its tiles hold more
+    # candidates than the reflected rays': a cap that drops none
+    mcfg = cfg._replace(max_trace_depth=1, env_pair_cap=2 ** 23)
+    for A in (0, 2):
+        k3, dropped = bench.trace_inputs(
+            *bench.bounce_scene(base, env, cam, mcfg, aux=A > 0),
+            mcfg.env_pair_cap)
+        packed, gidx, rays, bounds, tx, ty = k3
+        out, wet = kernels.trace_blend_fwd(*k3, True, A, False, True)
+        want, want_wet = trace_blend_torch(*k3, True, A, False, True)
+        err = held(f"trace_blend_fwd (forward wet, A = {A})", out, want,
+                   planes(A, True))
+        werr = float((wet - want_wet).abs().max())
+        # per splat, summed in float64: index_add_'s float32 atomics add in
+        # another order on every call (the port's own per-splat sum)
+        splat = lambda w: torch.zeros(  # noqa: E731
+            packed.shape[0], dtype=torch.float64, device="cuda").index_add_(
+                0, gidx.to(torch.int64), w.double())
+        serr = float((splat(wet) - splat(want_wet)).abs().max())
+        print(f"[kernels] trace_blend_fwd (forward wet, A = {A}) per-slot "
+              f"wet max_abs_err {werr:.3g}, per-splat {serr:.3g} (bound "
+              f"{KERNEL_ATOL:g}; wet up to {float(want_wet.max()):.4g}), "
+              f"{int(bounds[-1])} slots, {int(dropped)} dropped", flush=True)
+        if not max(werr, serr) <= KERNEL_ATOL or int(dropped):
+            raise AssertionError("the forward wet disagrees with its plain "
+                                 "version, or the cull dropped slots")
+        ev = walked(out[trace_rows(A)["last"]])
+        ms = cuda_ms(lambda: kernels.trace_blend_fwd(
+            *k3, True, A, False, True), 10)
+        plain_ms = cuda_ms(lambda: trace_blend_torch(
+            *k3, True, A, False, True), 1)
+        bound = blend_bound(packed, int(bounds[-1]), 0, (13 + A) * npix, ev,
+                            OPS_RAY_TERMS, extra_bytes=rays.numel() * 4
+                            + gidx.numel() * 4)
+        print(f"[kernels] trace_blend_fwd (forward wet, A = {A}) {ms:.4f} "
+              f"ms, plain {plain_ms:.2f} ms, bound {bound[0]:.4f} ms by "
+              f"{bound[1]} ({ev:.4g} slot-ray pairs walked)", flush=True)
+        res[f"wet_a{A}"] = dict(err=max(err, werr, serr), ms=ms,
+                                plain_ms=plain_ms, bound=bound)
+        del k3, out, wet, want, want_wet, packed, gidx, rays
+    # the rays the second bounce traces, and both bounces' dropped slots
+    with torch.no_grad():
+        scene, ref_o, ref_d = bench.bounce_scene(base, env, cam, mcfg)
+        e = render_env(env, ref_o, ref_d, mcfg._replace(render_mode=True))
+        _, mids = tracer.trace_rays_multibounce(
+            scene, ref_o, ref_d, torch.zeros(3, device="cuda"),
+            max_trace_depth=1, specular_threshold=mcfg.specular_threshold,
+            total_pair_cap=mcfg.env_pair_cap)
+        m0 = mids[0]
+        mask1 = (m0.aux[..., 0] > mcfg.specular_threshold) & (m0.acc > 0.5)
+        bounced = int(mask1.sum())
+        # bounce 1's rays, as trace_rays_multibounce makes them
+        n0 = m0.norm * torch.rsqrt(
+            torch.sum(m0.norm * m0.norm, -1, keepdim=True) + 1e-12)
+        d1 = ref_d - 2.0 * torch.sum(ref_d * n0, -1, keepdim=True) * n0
+        o1 = ref_o + ref_d * m0.dpt[..., None]
+        scene1, tmask1 = scene, mask1
+        res["bounce_rays"] = bounced
+        drops = [int(m.dropped_pairs) for m in mids]
+        print(f"[bounce] bounce 1 traces {bounced} of {m0.acc.numel()} rays "
+              f"(specular > {mcfg.specular_threshold:g} and acc > 0.5), "
+              f"env slots per bounce {[int(m.num_pairs) for m in mids]}, "
+              f"dropped {drops}; composite acc > 0.5 on "
+              f"{float((e.acc > 0.5).float().mean()):.1%}", flush=True)
+        if any(drops):
+            raise AssertionError("a bounce dropped slots")
+        del ref_o, ref_d, e, scene, mids, m0, n0, mask1
+    res["bounce_stage_ms"] = stage_ms([
+        ("base", lambda _: render_base(
+            base, cam, mcfg._replace(render_mode=True))),
+        ("reflect", lambda b: reflect_rays(cam, b)),
+        ("env_two_bounces", lambda r: render_env(
+            env, r[0], r[1], mcfg._replace(render_mode=True)))])
+    print("[bounce] render stage ms (median of 3, CUDA events): "
+          + json.dumps(res["bounce_stage_ms"]), flush=True)
+    # the second bounce's backward on its own inputs: its rays run along
+    # the env dome, T reaches the 1e-4 floor and rays take slots again in
+    # later chunks, so the rebuilt T overflows in the kernel and in the
+    # plain version (the JAX reverse loop) alike
+    with torch.no_grad():
+        k3b, _ = bench.trace_inputs(scene1, o1, d1, mcfg.env_pair_cap, tmask1)
+        out = kernels.trace_blend_fwd(*k3b, True, 2)
+        g = torch.zeros_like(out)
+        g[:3] = 1.0  # the colour's cotangent alone
+        r2 = trace_rows(2)
+        bad_k = [int((~torch.isfinite(x)).sum())
+                 for x in kernels.trace_blend_bwd(*k3b[:4], out, g,
+                                                  *k3b[4:], 2)]
+        bad_p = [int((~torch.isfinite(x)).sum())
+                 for x in trace_blend_bwd_torch(*k3b[:4], out, g, *k3b[4:],
+                                                2)]
+        print(f"[bounce] fault probe, bounce 1's blend: final T down to "
+              f"{float(out[r2['trans']].min()):.4g}, "
+              f"{int((out[r2['last']] >= 64).sum())} rays taking slots past "
+              f"their first chunk; non-finite (table, ray) gradient entries "
+              f"of K4 {bad_k}, of its plain version {bad_p}", flush=True)
+        del k3b, out, g, scene1, o1, d1, tmask1
+    paths["bounce_render"], paths["bounce_train"], _ = traced_slice(
+        "bounce", kernels, base, env, cam, mcfg, batch,
+        {"raster_blend_fwd": 1, "trace_blend_fwd_wet": 2},
+        {"fill_forward": 1, "raster_blend_fwd": 1, "raster_blend_bwd": 1,
+         "trace_blend_fwd_wet": 2, "trace_blend_bwd": 2}, restart=True)
+    del base, env, batch
+
+    # ---- c. the committed golden scenes through the kernels ----
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "golden")
+    scenes = golden.golden_dirs(root)
+    if not scenes:
+        raise AssertionError(f"no golden scene under {root}")
+    for scene_dir in scenes:
+        thr = golden.scene_spec(scene_dir).get("psnr_threshold", 35.0)
+        before = dict(kernels.LAUNCHES)
+        psnr, rgb = golden.psnr_vs_golden(scene_dir, "cuda")
+        rose = _rose(before, kernels)
+        counts = dict(kernels.LAUNCHES)
+        with plain_forward_blends(kernels):
+            _, plain_rgb = golden.psnr_vs_golden(scene_dir, "cuda")
+        kerr = float((rgb - plain_rgb).abs().max())
+        cpu_psnr, cpu_rgb = golden.psnr_vs_golden(scene_dir, "cpu")
+        diff = (rgb.cpu() - cpu_rgb).abs().amax(-1)
+        off = (diff > SMALL_ATOL).nonzero().tolist()
+        print(f"[golden] {os.path.basename(scene_dir)}: PSNR {psnr:.3f} dB "
+              f"with the kernels (threshold {thr:g}; the CPU's plain "
+              f"versions {cpu_psnr:.3f}); max abs against the plain blends "
+              f"on the card's own inputs {kerr:.3g} (bound {KERNEL_ATOL:g}), "
+              f"against the CPU render {float(diff.max()):.3g}, pixels past "
+              f"{SMALL_ATOL:g}: {off} (at most {BRANCH_ROWS}, each within "
+              f"{BRANCH_RTOL:g}); launches {rose}", flush=True)
+        if not (psnr >= thr and kerr <= KERNEL_ATOL and rose
+                and len(off) <= BRANCH_ROWS
+                and float(diff.max()) <= BRANCH_RTOL):
+            raise AssertionError(f"golden {scene_dir} off")
+        kernels.LAUNCHES.update(counts)  # the plain renders launch nothing
+    paths["golden"] = dict(kernels.LAUNCHES)
+    return res, paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1679,15 +2128,21 @@ def main():
     k1_resources = {cfg: kernels.raster_blend_fwd_resources(*args)
                     for cfg, args in K1_CONFIGS.items()}
     k3_resources = {"render": kernels.trace_blend_fwd_resources(False),
-                    "train": kernels.trace_blend_fwd_resources(True, 0)}
+                    "train": kernels.trace_blend_fwd_resources(True, 0),
+                    "geo_a2": kernels.trace_blend_fwd_resources(
+                        False, 2, geo=True),
+                    "wet_a0": kernels.trace_blend_fwd_resources(
+                        True, 0, wet=True),
+                    "wet_a2": kernels.trace_blend_fwd_resources(
+                        True, 2, wet=True)}
     k4_resources = kernels.trace_blend_bwd_resources(0)
     k5_resources = kernels.fill_forward_resources()
     k6_resources = kernels.segscan_resources()
     for name, res, threads in (
             *((f"raster_blend_fwd ({cfg})", res, 256)
               for cfg, res in k1_resources.items()),
-            ("trace_blend_fwd (render)", k3_resources["render"], 256),
-            ("trace_blend_fwd (train)", k3_resources["train"], 256),
+            *((f"trace_blend_fwd ({cfg})", res, 256)
+              for cfg, res in k3_resources.items()),
             ("trace_blend_bwd", k4_resources, 32),
             ("fill_forward", k5_resources, 256),
             ("segscan", k6_resources, 256)):
@@ -2342,17 +2797,22 @@ def main():
         capture_launches = capture_runs(kernels, tmp,
                                         smi.strip().splitlines()[0])
 
+    # ---- 17. base tracing, two bounces, the goldens ----
+    traced, traced_paths = traced_runs(kernels)
+
     paths = {"render": render_launches, "train": train_launches,
              "gaussiant": gaussiant_launches, "run": run_launches,
              "run_eval": eval_launches, "probe": probe_launches,
              "render_path": path_launches, "cli": cli_launches,
-             **capture_launches}
+             **capture_launches, **traced_paths}
 
     def entry(name, src, replaces, err, ms, plain_ms, bound, library_ms=None,
-              **extra):
+              keys=None, **extra):
         """A kernel's line: `launches` sums the paths driven above, each
-        with the counts set to 0 before it and read after it."""
-        by_path = {p: n[name] for p, n in paths.items()}
+        with the counts set to 0 before it and read after it, over the
+        LAUNCHES `keys` of the kernel (default: its name)."""
+        by_path = {p: sum(n[k] for k in keys or (name,))
+                   for p, n in paths.items()}
         return {"name": name, "route": "cuda",
                 "source": f"envgs_tpu_torch/kernels/csrc/{src}",
                 "replaces": replaces,
@@ -2386,13 +2846,37 @@ def main():
               k2_plain_ms, k2_bound, max_rel_err=k2_rel,
               resources=k2_resources["surfel"]),
         entry("trace_blend_fwd", "trace_blend_fwd.cu",
-              "envgs_tpu/ops/tracer.py:645", max(k3_err, k3t_err), k3t_ms,
-              k3t_plain_ms, k3t_bound, render_ms=k3_ms,
+              "envgs_tpu/ops/tracer.py:645",
+              max(k3_err, k3t_err, traced["geo_err"], traced["a2_fwd_err"],
+                  traced["wet_a0"]["err"], traced["wet_a2"]["err"]), k3t_ms,
+              k3t_plain_ms, k3t_bound,
+              keys=("trace_blend_fwd", "trace_blend_fwd_geo",
+                    "trace_blend_fwd_wet"),
+              render_ms=k3_ms,
               render_plain_ms=k3_plain_ms, render_bound_ms=k3_bound[0],
+              geo_ms=traced["geo_ms"], geo_plain_ms=traced["geo_plain_ms"],
+              geo_bound_ms=traced["geo_bound"][0],
+              geo_max_abs_err=traced["geo_err"],
+              geo_launches_by_path={p: n["trace_blend_fwd_geo"]
+                                    for p, n in paths.items()},
+              **{f"wet_a{A}_{k}": v for A in (0, 2) for k, v in (
+                  ("ms", traced[f"wet_a{A}"]["ms"]),
+                  ("plain_ms", traced[f"wet_a{A}"]["plain_ms"]),
+                  ("bound_ms", traced[f"wet_a{A}"]["bound"][0]),
+                  ("max_abs_err", traced[f"wet_a{A}"]["err"]))},
+              wet_launches_by_path={p: n["trace_blend_fwd_wet"]
+                                    for p, n in paths.items()},
+              train_a2_ms=traced["a2_fwd_ms"],
+              train_a2_plain_ms=traced["a2_fwd_plain_ms"],
+              train_a2_bound_ms=traced["a2_fwd_bound"][0],
+              train_a2_max_abs_err=traced["a2_fwd_err"],
               resources=k3_resources),
         entry("trace_blend_bwd", "trace_blend_bwd.cu",
               "envgs_tpu/ops/tracer.py:799", max(k4_err, k4r_err), k4_ms,
               k4_plain_ms, k4_bound, max_rel_err=max(k4_rel, k4r_rel),
+              a2_ms=traced["a2_ms"], a2_plain_ms=traced["a2_plain_ms"],
+              a2_bound_ms=traced["a2_bound"][0], a2_max_abs_err=traced[
+                  "a2_err"], a2_max_rel_err=traced["a2_rel"],
               resources=k4_resources),
         entry("fill_forward", "fill_forward.cu",
               "envgs_tpu/ops/fill_forward.py:55", k5_err, k5_ms,

@@ -54,6 +54,7 @@ from envgs_tpu_torch.ops.tracer import (
     cull_and_sort,
     default_per_tile_cap,
     splat_radius3,
+    tile_mask_of,
 )
 from envgs_tpu_torch.ops.tracer_ref import prepare_trace_scene
 from envgs_tpu_torch.train.optimizer import LRConfig
@@ -64,7 +65,7 @@ from envgs_tpu_torch.train.trainer import (
     init_train_state,
     make_train_step,
 )
-from envgs_tpu_torch.utils.camera import Camera, make_camera
+from envgs_tpu_torch.utils.camera import Camera, get_rays, make_camera
 
 H, W = 1040, 1584
 P_BASE, P_ENV = 300_000, 32_768
@@ -226,6 +227,50 @@ def train_blend_inputs(base, env, cam, cfg) -> dict:
     k3 = (_pack_scene_table(scene), gidx, tiles.rays, bounds,
           -(-cam.W // TILE), -(-cam.H // TILE))
     return dict(k1=k1, k3=k3, k5=(marks, valid))
+
+
+def trace_inputs(scene, ray_o, ray_d, pair_cap: int, ray_mask=None):
+    """(K3 arguments, slots the cull dropped) of tracing `scene` along the
+    rays (those of tiles with a ray of `ray_mask`, when given), as
+    trace_rays makes them."""
+    tiles = build_ray_tiles(ray_o, ray_d)
+    H, W = ray_o.shape[:2]
+    gidx, bounds, dropped = cull_and_sort(
+        tiles, scene, splat_radius3(scene),
+        per_tile_cap=default_per_tile_cap(scene.mean.shape[0]),
+        total_pair_cap=pair_cap,
+        tile_mask=None if ray_mask is None else tile_mask_of(ray_mask))
+    return (_pack_scene_table(scene), gidx, tiles.rays, bounds,
+            -(-W // TILE), -(-H // TILE)), dropped
+
+
+def traced_base_scene(base, cam, cfg):
+    """(scene, ray_o, ray_d) of the base pass traced along the camera rays
+    (use_base_tracing), as render_base_traced makes them: the base set with
+    its specular and roughness on the aux channels (A = 2)."""
+    o, d = get_rays(cam, z_depth=True)
+    scene = prepare_trace_scene(
+        base.params.xyz, base.params.rotation, base.get_scaling,
+        base.get_opacity[:, 0], _pool_colors(base, cam.center),
+        aux=torch.cat([base.get_specular, base.get_roughness], dim=-1),
+        active=base.stats.active, scale_modifier=cfg.scale_modifier)
+    return scene, o.expand(d.shape), d
+
+
+def bounce_scene(base, env, cam, cfg, aux: bool = True):
+    """(scene, ref_o, ref_d) of the env trace along the reflected rays of
+    the render-mode base pass: with `aux`, as multi-bounce tracing makes
+    its first bounce (the env set's specular and roughness on the aux
+    channels, A = 2), else as the single env trace (A = 0)."""
+    ref_o, ref_d = reflect_rays(
+        cam, render_base(base, cam, cfg._replace(render_mode=True)))
+    scene = prepare_trace_scene(
+        env.params.xyz, env.params.rotation, env.get_scaling,
+        env.get_opacity[:, 0], _pool_colors_at(env, ref_o),
+        aux=(torch.cat([env.get_specular, env.get_roughness], dim=-1)
+             if aux else None),
+        active=env.stats.active, scale_modifier=cfg.scale_modifier)
+    return scene, ref_o, ref_d
 
 
 def stage_times(base, env, cam, cfg, reps: int = 5) -> dict:

@@ -4,12 +4,10 @@ config-driven plain 3DGS family, on the synthetic scene or a capture on
 disk).
 
   python -m envgs_tpu_torch smoke            # synthetic end-to-end run
-  python -m envgs_tpu_torch train -c configs/exps/envgs_synthetic.yaml \
-      model_cfg.sampler_cfg.tracer_backend=tiled
+  python -m envgs_tpu_torch train -c configs/exps/envgs_synthetic.yaml
   python -m envgs_tpu_torch train -c <scene config> \
       dataset_cfg.data_root=<capture>
-  python -m envgs_tpu_torch train -c configs/exps/gaussiant_synthetic.yaml \
-      model_cfg.sampler_cfg.raster_backend=pallas
+  python -m envgs_tpu_torch train -c configs/exps/gaussiant_synthetic.yaml
   python -m envgs_tpu_torch test  -c configs/exps/envgs_synthetic.yaml \
       model_cfg.sampler_cfg.tracer_backend=tiled
   python -m envgs_tpu_torch render -c <config> --path-kind orbit \
@@ -26,15 +24,16 @@ made a NaN).
 
 Configs are the JAX package's (engine/config.py: parents via `configs:`,
 `_delete_`, CLI `a.b.c=value` overrides). Everything runs on the CUDA card
-and raises without one. There is no backend switch: on the card both blends
-run their kernels, and a config that names another backend than `pallas` /
-`tiled` (envgs_synthetic.yaml names the `ref` tracer) raises until it is
-overridden. `dataset_cfg.source: multiview` reads a capture in easyvolcap
-layout (data/dataset.py: `images/<cam>/`, `intri.yml` / `extri.yml`,
-`sparse/0`, `normals/`, `envs/points3D.ply`). `train` with
-`sampler_cfg.type: GaussianTSampler` runs the 3DGS family's loop (through
-`engine.TRAINERS`). A mode or option the port lacks (aux supervisors, the
-other model families, `mesh`, `ws`) raises NotImplementedError naming it.
+and raises without one. The backends: `pallas` / `tiled` (the defaults) run
+the blends' kernels on the card, `ref` the exact oracles
+(envgs_synthetic.yaml names the `ref` tracer, gaussiant_synthetic.yaml the
+`ref` rasterizer); any other name raises by name. `dataset_cfg.source:
+multiview` reads a capture in easyvolcap layout (data/dataset.py:
+`images/<cam>/`, `intri.yml` / `extri.yml`, `sparse/0`, `normals/`,
+`envs/points3D.ply`). `train` with `sampler_cfg.type: GaussianTSampler` runs
+the 3DGS family's loop (through `engine.TRAINERS`). A mode or option the
+port lacks (aux supervisors, the other model families, `mesh`, `ws`) raises
+NotImplementedError naming it.
 """
 from __future__ import annotations
 
@@ -49,6 +48,7 @@ import torch
 from envgs_tpu_torch.engine import TRAINERS, Config, call_filtered, load_config
 from envgs_tpu_torch.models import gaussians as G
 from envgs_tpu_torch.models.envgs import EnvGSConfig
+from envgs_tpu_torch.ops.common import BACKENDS, check_backend
 from envgs_tpu_torch.train.optimizer import LRConfig
 from envgs_tpu_torch.train.runner import Runner
 from envgs_tpu_torch.train.supervisor import LossConfig
@@ -58,10 +58,6 @@ MODES = ("train", "test", "render", "smoke", "dist", "sig")
 UNPORTED_MODES = ("mesh", "ws")
 
 
-# keys of the JAX package's config tuples that the port leaves out on
-# purpose: it has no backend switch (the device of the tensors picks kernel
-# or plain version; build_from_config raises on any other value)
-OMITTED_KEYS = frozenset({"raster_backend", "tracer_backend"})
 # sampler_cfg keys that no config tuple holds: build_from_config and
 # make_runner read them themselves
 _SAMPLER_KEYS = frozenset({
@@ -95,7 +91,7 @@ def _sampler_keys():
     dens = G.DensifyConfig._fields
     return (frozenset(EnvGSConfig._fields) | frozenset(ScheduleConfig._fields)
             | frozenset(dens) | frozenset("env_" + k for k in dens)
-            | _SAMPLER_KEYS | OMITTED_KEYS)
+            | _SAMPLER_KEYS)
 
 
 def _load_views(cfg: Config, device="cuda"):
@@ -152,13 +148,8 @@ def build_from_config(cfg: Config, device="cuda"):
     sched, dens_base, dens_env, lr_base, lr_env), the pools on `device`."""
     mcfg = cfg.get("model_cfg", {})
     scfg = dict(mcfg.get("sampler_cfg", {}) or {})
-    for key, default in (("raster_backend", "pallas"),
-                         ("tracer_backend", "tiled")):
-        if scfg.get(key, default) != default:
-            raise NotImplementedError(
-                f"sampler_cfg.{key}={scfg[key]!r}: the port has no backend "
-                f"switch and runs only {default!r} (its kernels on the "
-                f"card); override with model_cfg.sampler_cfg.{key}={default}")
+    for kind in ("raster", "tracer"):  # the backend names, before any work
+        check_backend(kind, scfg.get(f"{kind}_backend", BACKENDS[kind][0]))
     (views, eval_views, init_xyz, init_rgb, env_bounds,
      spatial_scale) = _load_views(cfg, device)
     if "render_reflection_start_iter" in scfg:
@@ -322,10 +313,10 @@ def make_runner(cfg: Config, device="cuda") -> Runner:
 
 
 # sampler_cfg keys of the 3DGS entry point that no 3DGS tuple holds: read
-# here (type, pool_cap, raster_backend) or by _load_views (the dataset
-# stack's), or EnvGS options of configs/base.yaml the family ignores
+# here (type, pool_cap) or by _load_views (the dataset stack's), or EnvGS
+# options of configs/base.yaml the family ignores
 _GAUSSIANT_KEYS = frozenset({
-    "type", "pool_cap", "raster_backend", "preload_gs", "spatial_scale",
+    "type", "pool_cap", "preload_gs", "spatial_scale",
     "bounds", "env_bounds", "env_preload_gs", "white_bg", "sh_deg",
     "init_occ", "tracer_backend"})
 
@@ -349,14 +340,9 @@ def train_gaussiant(cfg: Config, device="cuda"):
     from envgs_tpu_torch.utils.ply import save_gaussian_ply
 
     scfg = dict(cfg.get("model_cfg", {}).get("sampler_cfg", {}) or {})
-    if scfg.get("raster_backend", "pallas") != "pallas":
-        raise NotImplementedError(
-            f"sampler_cfg.raster_backend={scfg['raster_backend']!r}: the "
-            "port has no backend switch and runs only 'pallas' (its kernels "
-            "on the card); override with "
-            "model_cfg.sampler_cfg.raster_backend=pallas")
     gcfg = _named(GaussianTConfig, scfg,
                   frozenset(G.DensifyConfig._fields) | _GAUSSIANT_KEYS)
+    check_backend("raster", gcfg.raster_backend)
     views, eval_views, init_xyz, init_rgb, _, spatial_scale = _load_views(
         cfg, device)
     rcfg = cfg.get("runner_cfg", {}) or {}

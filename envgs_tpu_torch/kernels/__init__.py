@@ -6,10 +6,12 @@ under `envgs_tpu_torch/_build/` (keyed by a hash of the sources and flags,
 so an edit rebuilds) and loads it with ctypes. Importing this module
 touches neither nvcc nor the card.
 
-`LAUNCHES` counts launches per kernel, and per geometry mode for the
-raster blends (the surfel launches under the kernel's name, the gauss3d
-ones under `<name>_gauss3d`); each wrapper adds one where it launches its
-kernel and nowhere else.
+`LAUNCHES` counts launches per kernel, per geometry mode for the raster
+blends (the surfel launches under the kernel's name, the gauss3d ones under
+`<name>_gauss3d`) and per configuration for the traced blend's forward (the
+render and training launches under its name, the geometry and forward-wet
+ones under `<name>_geo` and `<name>_wet`); each wrapper adds one where it
+launches its kernel and nowhere else.
 """
 from __future__ import annotations
 
@@ -24,9 +26,13 @@ import torch
 
 LAUNCHES = {"raster_blend_fwd": 0, "raster_blend_fwd_gauss3d": 0,
             "raster_blend_bwd": 0, "raster_blend_bwd_gauss3d": 0,
-            "trace_blend_fwd": 0, "trace_blend_bwd": 0, "fill_forward": 0,
+            "trace_blend_fwd": 0, "trace_blend_fwd_geo": 0,
+            "trace_blend_fwd_wet": 0, "trace_blend_bwd": 0, "fill_forward": 0,
             "segscan": 0, "gather_rows": 0, "gather_rows_win8": 0}
 MODES = {"surfel": 0, "gauss3d": 1}  # geometry of the raster blends
+# the traced blend's forward configurations counted apart (LAUNCHES keys
+# `trace_blend_fwd_<config>`)
+TRACE_CONFIGS = ("geo", "wet")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[1] / "_build"
@@ -56,11 +62,11 @@ _ARGTYPES = {
     # mode, out (3 ints)
     "raster_blend_bwd_resources": [_I, _VP],
     # packed, n_rows, gauss_idx, n_idx, rays, bounds, tiles_x, tiles_y,
-    # train, A, out, stream
+    # mode, A, out, wet, stream
     "trace_blend_fwd": [_VP, _I, _VP, _I, _VP, _VP, _I, _I, _I, _I, _VP,
-                        _VP],
-    # train, A, out (4 ints)
-    "trace_blend_fwd_resources": [_I, _I, _VP],
+                        _VP, _VP],
+    # mode, A, wet, out (4 ints)
+    "trace_blend_fwd_resources": [_I, _I, _I, _VP],
     # packed, n_rows, gauss_idx, n_idx, rays, bounds, tiles_x, tiles_y, A,
     # fwd, gout, gpacked, grays, stream
     "trace_blend_bwd": [_VP, _I, _VP, _I, _VP, _VP, _I, _I, _I, _VP, _VP,
@@ -272,46 +278,64 @@ def raster_blend_bwd_resources(mode: str = "surfel") -> dict:
     return _resources("raster_blend_bwd_resources", code)
 
 
-def _trace_planes(train: bool, A: int) -> int:
+def _trace_config(train: bool, A: int, geo: bool = False,
+                  wet: bool = False):
+    """(mode code, planes, LAUNCHES key) of a K3 configuration: render,
+    geometry (`geo`), training (`train`), or training with the forward
+    wet (`train` and `wet`)."""
     if not 0 <= A <= 2:
         raise ValueError(f"A={A}: the traced blend carries 0..2 aux channels")
-    return 13 + A if train else 5
+    if wet and not train:
+        raise ValueError("wet: the forward wet is a training configuration's")
+    if train:
+        return 2, 13 + A, "trace_blend_fwd_wet" if wet else "trace_blend_fwd"
+    return (1, 10 + A, "trace_blend_fwd_geo") if geo else (
+        0, 5, "trace_blend_fwd")
 
 
 def trace_blend_fwd(packed, gauss_idx, rays, tile_bounds, tiles_x: int,
-                    tiles_y: int, train: bool = False,
-                    A: int = 0) -> torch.Tensor:
+                    tiles_y: int, train: bool = False, A: int = 0,
+                    geo: bool = False, wet: bool = False):
     """Kernel K3 (csrc/trace_blend_fwd.cu) -> (5, tiles_y*16, tiles_x*16)
-    f32: rgb, acc, T, or with `train` (13 + A, ...) in the JAX row order;
-    see ops/trace_blend.py for the contract."""
+    f32: rgb, acc, T; with `geo` (10 + A, ...), with `train` (13 + A, ...),
+    in the JAX row order; with `train` and `wet`, also the per-slot forward
+    wet (gauss_idx.numel(),) f32. See ops/trace_blend.py for the
+    contract."""
     T = tiles_x * tiles_y
+    code, planes, key = _trace_config(train, A, geo, wet)
     _check_table(packed)
     _check("gauss_idx", gauss_idx, torch.int32, packed)
     _check("rays", rays, torch.float32, packed, (T, 8, 256))
     _check("tile_bounds", tile_bounds, torch.int32, packed, (T + 1,))
-    out = torch.empty((_trace_planes(train, A), tiles_y * 16, tiles_x * 16),
+    out = torch.empty((planes, tiles_y * 16, tiles_x * 16),
                       dtype=torch.float32, device=packed.device)
+    # slots the kernel never walks (past a tile's exit) keep these zeros
+    wet_slots = (torch.zeros(gauss_idx.numel(), dtype=torch.float32,
+                             device=packed.device) if wet else None)
     if T:
         _launch("trace_blend_fwd", packed.device, packed.data_ptr(),
                 packed.shape[0], gauss_idx.data_ptr(), gauss_idx.numel(),
                 rays.data_ptr(), tile_bounds.data_ptr(), tiles_x, tiles_y,
-                int(train), A, out.data_ptr(), _stream(packed))
-    return out
+                code, A, out.data_ptr(),
+                wet_slots.data_ptr() if wet else None, _stream(packed),
+                count=key)
+    return (out, wet_slots) if wet else out
 
 
-def trace_blend_fwd_resources(train: bool = False, A: int = 0) -> dict:
-    """What K3 was compiled to, the render kernel or the training kernel
-    with A aux channels: registers per thread, static shared bytes per
-    block, resident blocks per SM on the current card, local (spill) bytes
-    per thread. Launches nothing and counts nothing."""
-    _trace_planes(train, A)
-    return _resources("trace_blend_fwd_resources", int(train), A)
+def trace_blend_fwd_resources(train: bool = False, A: int = 0,
+                              geo: bool = False, wet: bool = False) -> dict:
+    """What K3 was compiled to in a configuration (as trace_blend_fwd takes
+    it): registers per thread, static shared bytes per block, resident
+    blocks per SM on the current card, local (spill) bytes per thread.
+    Launches nothing and counts nothing."""
+    code, _, _ = _trace_config(train, A, geo, wet)
+    return _resources("trace_blend_fwd_resources", code, A, int(wet))
 
 
 def trace_blend_bwd_resources(A: int = 0) -> dict:
     """What K4 was compiled to for A aux channels, as
     trace_blend_fwd_resources."""
-    _trace_planes(True, A)
+    _trace_config(True, A)
     return _resources("trace_blend_bwd_resources", A)
 
 
@@ -325,7 +349,7 @@ def trace_blend_bwd(packed, gauss_idx, rays, tile_bounds, fwd, g_out,
     _check("gauss_idx", gauss_idx, torch.int32, packed)
     _check("rays", rays, torch.float32, packed, (T, 8, 256))
     _check("tile_bounds", tile_bounds, torch.int32, packed, (T + 1,))
-    planes = (_trace_planes(True, A), tiles_y * 16, tiles_x * 16)
+    planes = (_trace_config(True, A)[1], tiles_y * 16, tiles_x * 16)
     _check("fwd", fwd, torch.float32, packed, planes)
     _check("g_out", g_out, torch.float32, packed, planes)
     g_packed = torch.zeros_like(packed)

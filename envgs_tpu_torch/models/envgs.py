@@ -7,13 +7,16 @@ envgs_tpu/models/envgs.py, render path).
     -> environment pass (surfel tracer)
     -> rgb = (1 - specular) * rgb_base + specular * rgb_env
 
-Ported: the render configuration (`render_mode=True`) and the training
+The render configuration (`render_mode=True`) and the training
 configuration (`render_mode=False` with the four zeros hooks the train step
-passes: `means2d_zero`, `env_means3d_zero`, `wet_zero`, `env_wet_zero`),
-the rasterized base pass and a single env trace, in the radial order of
-the blend kernel or, with `tracer_exact_order`, in each ray's exact depth
-order (evaluation). Base tracing and multi-bounce tracing raise until
-their slices. The reflection gate is a Python `if` on the iteration.
+passes: `means2d_zero`, `env_means3d_zero`, `wet_zero`, `env_wet_zero`);
+the base pass rasterized or, with `use_base_tracing`, traced along the
+camera rays (`render_base_traced`); the env pass a single trace, in the
+radial order of the blend kernel or, with `tracer_exact_order`, in each
+ray's exact depth order (evaluation), or with `max_trace_depth > 0`
+recursive specular bounces. The backends "ref" run the reference
+rasterizer and tracer instead of the kernels. The reflection gate is a
+Python `if` on the iteration.
 """
 from __future__ import annotations
 
@@ -23,17 +26,27 @@ import torch
 
 from envgs_tpu_torch.models.gaussians import GaussianPool, sh_degree_mask
 from envgs_tpu_torch.ops import tracer
-from envgs_tpu_torch.ops.common import prepare_splats
-from envgs_tpu_torch.ops.raster import RenderOutput, rasterize, render_decode
-from envgs_tpu_torch.ops.tracer_ref import TraceOutput, prepare_trace_scene
+from envgs_tpu_torch.ops.common import check_backend, prepare_splats
+from envgs_tpu_torch.ops.raster import (
+    RenderOutput,
+    depth_to_normal,
+    rasterize,
+    render_decode,
+)
+from envgs_tpu_torch.ops.tracer_ref import (
+    TraceOutput,
+    prepare_trace_scene,
+    trace_rays_reference,
+)
 from envgs_tpu_torch.utils.camera import Camera, get_rays
 from envgs_tpu_torch.utils.sh import eval_sh_color
 from envgs_tpu_torch.utils.transforms import normalize, reflect
 
 
 class EnvGSConfig(NamedTuple):
-    """Forward hyperparameters (the JAX package's fields minus the backend
-    names: the device of the inputs picks kernel or plain version)."""
+    """Forward hyperparameters (the JAX package's fields). The backends:
+    "pallas" / "tiled" run the kernels on CUDA tensors and their plain
+    versions on CPU tensors; "ref" the reference rasterizer / tracer."""
 
     specular_channels: int = 1
     render_reflection: bool = True
@@ -45,12 +58,14 @@ class EnvGSConfig(NamedTuple):
     # the env pass into the base pass through ref_o / ref_d)
     detach_reflection: bool = False
     scale_modifier: float = 1.0
+    raster_backend: str = "pallas"
+    tracer_backend: str = "tiled"
     pair_cap: int = 2 ** 21
     env_pair_cap: int = 2 ** 20
     use_base_tracing: bool = False
     max_trace_depth: int = 0
     # a bounce continues only where the specular map exceeds it (read by
-    # multi-bounce tracing alone, which raises until it is ported)
+    # multi-bounce tracing alone)
     specular_threshold: float = 0.0
     # reflection ray filtering (envgs_sampler.py:434-447): <= 0 disables
     specular_filtering_start_iter: int = -1
@@ -112,14 +127,74 @@ def render_base(pool: GaussianPool, cam: Camera, cfg: EnvGSConfig,
     bg = torch.full((3,), cfg.bg_brightness, dtype=torch.float32,
                     device=colors.device)
     train = not cfg.render_mode
+    ref = cfg.raster_backend == "ref"
     out = rasterize(prep, cam, bg, pair_cap=cfg.pair_cap,
                     means2d_zero=means2d_zero,
                     needs=(train, train or cfg.depth_ratio > 0, train),
-                    wet_zero=wet_zero)
+                    wet_zero=None if ref else wet_zero,
+                    backend=cfg.raster_backend)
     return render_decode(
         out, cam,
         specular_channels=cfg.specular_channels if cfg.render_reflection else 0,
         depth_ratio=cfg.depth_ratio,
+    )
+
+
+def render_base_traced(pool: GaussianPool, cam: Camera, cfg: EnvGSConfig,
+                       means3d_zero: torch.Tensor | None = None,
+                       wet_zero: torch.Tensor | None = None) -> RenderOutput:
+    """The base pass traced along the camera rays (`use_base_tracing`, the
+    reference's start_from_first contract): specular and roughness ride
+    the tracer's aux channels; visibility is traced weight > 0 or an
+    in-frustum projection; the surface normal comes from the traced depth.
+    means3d_zero (P, 3) zeros is added to the means, so its gradient is the
+    world-space densification gradient. No pair count (num_pairs None): the
+    trace's dropped slots go unreported, as in the JAX package."""
+    xyz = pool.params.xyz
+    if means3d_zero is not None:
+        xyz = xyz + means3d_zero
+    colors = _pool_colors(pool, cam.center)
+    aux = None
+    if cfg.render_reflection:
+        aux = torch.cat([pool.get_specular, pool.get_roughness], dim=-1)
+    scene = prepare_trace_scene(
+        xyz, pool.params.rotation, pool.get_scaling, pool.get_opacity[:, 0],
+        colors, aux=aux, active=pool.stats.active,
+        scale_modifier=cfg.scale_modifier)
+    o, d = get_rays(cam, z_depth=True)
+    ray_o = o.expand(d.shape)
+    bg = torch.full((3,), cfg.bg_brightness, dtype=torch.float32,
+                    device=colors.device)
+    if cfg.tracer_backend == "ref":
+        t = trace_rays_reference(scene, ray_o, d, bg)
+    else:
+        train = not cfg.render_mode
+        t = tracer.trace_rays(scene, ray_o, d, bg,
+                              total_pair_cap=cfg.pair_cap,
+                              needs=(train, train), wet_zero=wet_zero,
+                              exact_order=cfg.tracer_exact_order)
+    with torch.no_grad():  # the projection gives visibility alone
+        prep = prepare_splats(
+            xyz, pool.params.rotation, pool.get_scaling,
+            pool.get_opacity[:, 0], colors, cam,
+            scale_modifier=cfg.scale_modifier, active=pool.stats.active)
+    S = cfg.specular_channels if cfg.render_reflection else 0
+    alpha = t.acc[..., None]
+    depth = t.dpt[..., None]
+    return RenderOutput(
+        rgb=t.rgb,
+        specular=t.aux[..., :S] if S else None,
+        roughness=t.aux[..., S:S + 1] if S else None,
+        alpha=alpha,
+        normal_world=t.norm,
+        depth_expected=depth,
+        depth_median=depth.detach(),
+        surf_depth=depth,
+        surf_normal=depth_to_normal(cam, depth[..., 0]) * alpha.detach(),
+        distortion=t.dist[..., None],
+        wet=t.wet,
+        radii=prep.radius,
+        visibility=(t.wet > 0) | (prep.radius > 0),
     )
 
 
@@ -137,20 +212,35 @@ def render_env(env: GaussianPool, ref_o: torch.Tensor, ref_d: torch.Tensor,
                env_means3d_zero: torch.Tensor | None = None,
                ray_mask: torch.Tensor | None = None,
                wet_zero: torch.Tensor | None = None) -> TraceOutput:
-    """Trace the environment surfel set along the reflected rays;
-    env_means3d_zero (Pe, 3) zeros is added to the env means, so its
-    gradient is the world-space densification gradient."""
+    """Trace the environment surfel set along the reflected rays (with
+    `max_trace_depth > 0`, bouncing them on, the env set's specular and
+    roughness on the aux channels); env_means3d_zero (Pe, 3) zeros is added
+    to the env means, so its gradient is the world-space densification
+    gradient."""
+    check_backend("tracer", cfg.tracer_backend)
     xyz = env.params.xyz
     if env_means3d_zero is not None:
         xyz = xyz + env_means3d_zero
     colors = _pool_colors_at(env, ref_o)
+    aux = None
+    if cfg.max_trace_depth > 0:  # the bounces read the env set's own
+        aux = torch.cat([env.get_specular, env.get_roughness], dim=-1)
     scene = prepare_trace_scene(
         xyz, env.params.rotation, env.get_scaling,
-        env.get_opacity[:, 0], colors, active=env.stats.active,
+        env.get_opacity[:, 0], colors, aux=aux, active=env.stats.active,
         scale_modifier=cfg.scale_modifier,
     )
     bg = torch.full((3,), cfg.env_bg_brightness, dtype=torch.float32,
                     device=colors.device)
+    if cfg.max_trace_depth > 0:
+        out, _ = tracer.trace_rays_multibounce(
+            scene, ref_o, ref_d, bg, max_trace_depth=cfg.max_trace_depth,
+            specular_threshold=cfg.specular_threshold,
+            backend=cfg.tracer_backend, total_pair_cap=cfg.env_pair_cap,
+            ray_mask=ray_mask)
+        return out
+    if cfg.tracer_backend == "ref":
+        return trace_rays_reference(scene, ref_o, ref_d, bg)
     train = not cfg.render_mode
     return tracer.trace_rays(scene, ref_o, ref_d, bg,
                              total_pair_cap=cfg.env_pair_cap,
@@ -181,7 +271,8 @@ class EnvGSOutput(NamedTuple):
     env_wet: torch.Tensor  # (Pe,)
     env_visibility: torch.Tensor  # (Pe,) bool
     env_opacity: torch.Tensor  # (Pe, 1)
-    base_num_pairs: torch.Tensor  # () raster pairs before the cap
+    base_num_pairs: torch.Tensor | None  # () raster pairs before the cap
+    #   (None for a traced base pass)
     env_dropped_pairs: torch.Tensor  # () tracer slots dropped by the cap
     env_num_pairs: torch.Tensor  # () tracer chunk-aligned slots used
 
@@ -198,11 +289,14 @@ def forward_envgs(base: GaussianPool, env: GaussianPool, cam: Camera,
     The zeros hooks, (P, 2), (Pe, 3), (P,), (Pe,): their gradients are the
     screen-space and world-space densification gradients and the base and
     env per-splat wet (base_wet / env_wet are then exact zeros). The
-    training configuration (`render_mode=False`) needs the two wet hooks."""
-    if cfg.use_base_tracing or cfg.max_trace_depth > 0:
-        raise NotImplementedError(
-            "base tracing and multi-bounce tracing are not ported yet")
-    b = render_base(base, cam, cfg, means2d_zero, wet_zero)
+    training configuration (`render_mode=False`) needs the two wet hooks;
+    with `use_base_tracing` means2d_zero is the (P, 3) world-space hook."""
+    check_backend("raster", cfg.raster_backend)
+    check_backend("tracer", cfg.tracer_backend)
+    if cfg.use_base_tracing:
+        b = render_base_traced(base, cam, cfg, means2d_zero, wet_zero)
+    else:
+        b = render_base(base, cam, cfg, means2d_zero, wet_zero)
     H, W = cam.H, cam.W
     dev = b.rgb.device
     spec = b.specular if b.specular is not None else b.rgb.new_zeros((H, W, 1))
@@ -229,8 +323,10 @@ def forward_envgs(base: GaussianPool, env: GaussianPool, cam: Camera,
         e = render_env(env, ref_o, ref_d, cfg, env_means3d_zero,
                        ray_mask=ref_msk, wet_zero=env_wet_zero)
         env_rgb, env_dpt, env_acc = e.rgb, e.dpt[..., None], e.acc[..., None]
-        env_wet, env_dropped, env_num_pairs = (e.wet, e.dropped_pairs,
-                                               e.num_pairs)
+        # the reference tracer has no slot budget: nothing dropped
+        env_wet = e.wet
+        env_dropped = zero if e.dropped_pairs is None else e.dropped_pairs
+        env_num_pairs = zero if e.num_pairs is None else e.num_pairs
         spec_eff = spec
     else:
         env_rgb = b.rgb.new_zeros((H, W, 3))

@@ -52,11 +52,13 @@ from envgs_tpu_torch.utils.transforms import normalize
 
 
 class GaussianTConfig(NamedTuple):
-    """Static hyperparameters (GaussianTSampler defaults; the JAX package's
-    fields but its raster backend: the tensors' device picks the kernels)."""
+    """Static hyperparameters (GaussianTSampler defaults). raster_backend:
+    "pallas" (the kernels on a CUDA tensor, the plain versions on a CPU
+    tensor) or "ref" (the reference rasterizer)."""
 
     sh_degree: int = 3
     bg_brightness: float = 0.0
+    raster_backend: str = "pallas"
     pair_cap: int = 2 ** 21
     scale_modifier: float = 1.0
     # training schedule (3DGS conventions)
@@ -106,7 +108,7 @@ def render_gaussiant(pool: GaussianPool, cam: Camera, cfg: GaussianTConfig,
     bg = torch.full((colors.shape[-1],), cfg.bg_brightness,
                     dtype=torch.float32, device=colors.device)
     return rasterize3d(prepare_gaussiant(pool, cam, cfg, colors), cam, bg,
-                       cfg.pair_cap, means2d_zero)
+                       cfg.pair_cap, means2d_zero, cfg.raster_backend)
 
 
 class GaussianTState(NamedTuple):
@@ -122,9 +124,10 @@ def make_gaussiant_train_step(cfg: GaussianTConfig, cam_template: Camera,
                               lr: LRConfig | None = None):
     """The 3DGS train step at the template camera's resolution:
     step(state, K, R, T, target (H, W, 3)) -> (new state, {"loss", "psnr",
-    "n_pts", "pair_overflow"}). Loss (1-w) L1 + w (1 - SSIM); sparse Adam
-    at the LRs of iteration `state.opt.step`; densification statistics from
-    the means2d_zero gradient, the forward wet and the radii."""
+    "n_pts", "pair_overflow" (not with the ref backend)}). Loss (1-w) L1 +
+    w (1 - SSIM); sparse Adam at the LRs of iteration `state.opt.step`;
+    densification statistics from the means2d_zero gradient, the forward
+    wet and the radii."""
     lr = lr or LRConfig()
     H, W = cam_template.H, cam_template.W
     znear, zfar = cam_template.znear, cam_template.zfar
@@ -155,9 +158,11 @@ def make_gaussiant_train_step(cfg: GaussianTConfig, cam_template: Camera,
         new_pool = pool._replace(params=new_params, stats=stats)
         rgb = out.rgb.detach()
         psnr = -10.0 * torch.log10(torch.mean((rgb - target) ** 2) + 1e-10)
-        return GaussianTState(new_pool, new_opt), dict(
-            loss=loss.detach(), psnr=psnr, n_pts=stats.active.sum(),
-            pair_overflow=torch.clamp(out.num_pairs - cfg.pair_cap, min=0))
+        info = dict(loss=loss.detach(), psnr=psnr, n_pts=stats.active.sum())
+        if out.num_pairs is not None:  # the reference has no pair budget
+            info["pair_overflow"] = torch.clamp(out.num_pairs - cfg.pair_cap,
+                                                min=0)
+        return GaussianTState(new_pool, new_opt), info
 
     return step
 

@@ -23,6 +23,24 @@ ROWCULL_PAD = 1.0
 ROWCULL_LOWPASS_R = float(np.sqrt(ROWCULL_LEVEL / FILTER_INV_SQUARE))
 
 
+# the backend names the port takes (the JAX package's `raster_backend` /
+# `tracer_backend`): the first is the default, the kernels on a CUDA tensor
+# and their plain versions on a CPU tensor; "ref" is the reference oracle
+# wherever the tensors are. Nothing falls back from one to the other.
+BACKENDS = {"raster": ("pallas", "ref"), "tracer": ("tiled", "ref")}
+
+
+def check_backend(kind: str, name: str):
+    """Raise, naming it, on a backend the port does not take (the JAX
+    package's `*_interp` names among them)."""
+    if name not in BACKENDS[kind]:
+        raise NotImplementedError(
+            f"{kind}_backend={name!r}: the port takes "
+            f"{' or '.join(map(repr, BACKENDS[kind]))} (the first runs its "
+            "kernels on a CUDA tensor, their plain versions on a CPU "
+            "tensor; 'ref' the reference oracle)")
+
+
 def _where_small(x, tiny, repl):
     """x with |x| < tiny replaced by the constant `repl`."""
     return torch.where(torch.abs(x) < tiny, torch.full_like(x, repl), x)
@@ -221,6 +239,30 @@ def prepare_splats(
         ext=ext,
         rowcull=rowcull,
     )
+
+
+def splat_response(tmat, center_pix, px, py):
+    """Gaussian response of one splat at pixel(s) (px, py) -> (G, z): the
+    low-pass-filtered Gaussian value and the intersection's view depth
+    (the centre's where the low-pass dominates, 2DGS semantics). Shapes
+    broadcast: tmat (..., 3, 3), center_pix (..., 2), px / py (...,)."""
+    T0 = tmat[..., 0, :]
+    T1 = tmat[..., 1, :]
+    T2 = tmat[..., 2, :]
+    k = T0 - px[..., None] * T2  # the plane x - x0 = 0 in (u, v, 1)
+    l = T1 - py[..., None] * T2  # noqa: E741
+    q = torch.linalg.cross(k, l)
+    qz = torch.where(torch.abs(q[..., 2]) < 1e-12, 1e-12, q[..., 2])
+    u = q[..., 0] / qz
+    v = q[..., 1] / qz
+    rho3d = u * u + v * v
+    dx = center_pix[..., 0] - px
+    dy = center_pix[..., 1] - py
+    rho2d = FILTER_INV_SQUARE * (dx * dx + dy * dy)
+    rho = torch.minimum(rho3d, rho2d)
+    z = u * T2[..., 0] + v * T2[..., 1] + T2[..., 2]
+    z = torch.where(rho2d < rho3d, T2[..., 2], z)
+    return torch.exp(-0.5 * rho), z
 
 
 def map_depth(z):

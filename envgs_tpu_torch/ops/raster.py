@@ -18,6 +18,8 @@ and decodes to the JAX package's RasterOutput contract. Three paths:
   (`index_add_`) gives RasterOutput.wet, as the JAX package's segment sum.
 
 The JAX package's other partial `needs` are not ported: they raise.
+`backend="ref"` runs the reference rasterizer instead
+(`ops/raster_ref.py::rasterize_reference`), whatever the device.
 """
 from __future__ import annotations
 
@@ -26,7 +28,11 @@ from typing import NamedTuple
 import torch
 
 from envgs_tpu_torch.ops.binning import bin_splats
-from envgs_tpu_torch.ops.common import ROWCULL_LOWPASS_R, PreparedSplats
+from envgs_tpu_torch.ops.common import (
+    ROWCULL_LOWPASS_R,
+    PreparedSplats,
+    check_backend,
+)
 from envgs_tpu_torch.ops.raster_blend import (
     CHUNK,
     LO,
@@ -36,7 +42,7 @@ from envgs_tpu_torch.ops.raster_blend import (
     out_rows,
     rows,
 )
-from envgs_tpu_torch.ops.raster_ref import RasterOutput
+from envgs_tpu_torch.ops.raster_ref import RasterOutput, rasterize_reference
 from envgs_tpu_torch.utils.camera import Camera
 
 
@@ -95,6 +101,7 @@ def rasterize(
     means2d_zero: torch.Tensor | None = None,
     needs: tuple = (False, False, False),
     wet_zero: torch.Tensor | None = None,
+    backend: str = "pallas",
 ) -> RasterOutput:
     """Rasterize prepared splats into the raw output maps.
 
@@ -102,7 +109,14 @@ def rasterize(
     need_med alone the render path with the median depth, all True the
     training path. With the (P,) zeros hook `wet_zero` the
     per-splat wet is the hook's gradient and RasterOutput.wet is exact
-    zeros; without it RasterOutput.wet is the forward wet (detached)."""
+    zeros; without it RasterOutput.wet is the forward wet (detached).
+    backend: "pallas" (the kernels on a CUDA tensor, the plain versions on
+    a CPU tensor) or "ref" (the reference rasterizer: every output, the
+    forward wet, gradients by autograd; `needs` and `wet_zero` not read)."""
+    check_backend("raster", backend)
+    if backend == "ref":
+        return rasterize_reference(_shift_tmat(prep, means2d_zero), cam,
+                                   bg_color)
     train = all(needs)
     med_only = tuple(map(bool, needs)) == (False, True, False)
     if any(needs) and not (train or med_only):

@@ -8,18 +8,21 @@ As in the JAX package, every call runs the training forward: distortion
 and median depth are computed and dropped, and the per-splat wet is the
 forward's (detached). Screen-space position gradients for densification
 come back through the `means2d_zero` hook, which shifts the projected
-center.
+center. `backend="ref"` runs the reference rasterizer
+(`ops/raster3d_ref.py::rasterize3d_reference`) instead, whatever the device.
 """
 from __future__ import annotations
 
 import torch
 
 from envgs_tpu_torch.ops.binning import bin_splats
+from envgs_tpu_torch.ops.common import check_backend
 from envgs_tpu_torch.ops.raster import splat_wet
 from envgs_tpu_torch.ops.raster3d_ref import (
     Prepared3DSplats,
     Raster3DOutput,
     prepare_splats3d,
+    rasterize3d_reference,
 )
 from envgs_tpu_torch.ops.raster_blend import (
     CHUNK,
@@ -62,11 +65,18 @@ def rasterize3d(
     bg_color: torch.Tensor,
     pair_cap: int = 2 ** 21,
     means2d_zero: torch.Tensor | None = None,
+    backend: str = "pallas",
 ) -> Raster3DOutput:
     """Rasterize prepared 3D Gaussians: rgb (with the background), expected
-    depth (premultiplied by alpha), alpha, per-splat wet, radii, final T."""
+    depth (premultiplied by alpha), alpha, per-splat wet, radii, final T.
+    backend: "pallas" (the kernels on a CUDA tensor, the plain versions on
+    a CPU tensor) or "ref" (the reference rasterizer, gradients by
+    autograd)."""
+    check_backend("raster", backend)
     if means2d_zero is not None:
         prep = prep._replace(center_pix=prep.center_pix + means2d_zero)
+    if backend == "ref":
+        return rasterize3d_reference(prep, cam, bg_color)
     C = prep.color.shape[-1]
     H, W = cam.H, cam.W
     packed, bins = bin_and_pack(prep, cam, pair_cap)
@@ -124,6 +134,7 @@ def render_gaussians3d(
     means2d_zero: torch.Tensor | None = None,
     filter3d: torch.Tensor | None = None,
     mip: bool = False,
+    backend: str = "pallas",
 ) -> Raster3DOutput:
     """One-call 3DGS render (prepare_gaussians3d + rasterize3d)."""
     prep = prepare_gaussians3d(means3d, quats, scales3, opacities, colors,
@@ -131,4 +142,4 @@ def render_gaussians3d(
     bg = torch.broadcast_to(
         torch.as_tensor(bg_color, dtype=torch.float32, device=colors.device),
         (colors.shape[-1],))
-    return rasterize3d(prep, cam, bg, pair_cap, means2d_zero)
+    return rasterize3d(prep, cam, bg, pair_cap, means2d_zero, backend)

@@ -8,13 +8,21 @@ splat indices of `ops/tracer.py::cull_and_sort` (tile ranges 64-aligned,
 padding slots hold the sentinel P), the ray tiles `rays` (T, 8, 256) and
 the per-tile slot ranges.
 
-Forward, image-layout planes (F, tiles_y*16, tiles_x*16):
+Forward, image-layout planes (F, tiles_y*16, tiles_x*16), in four
+configurations (the JAX kernel's `needs`):
 - render mode (`train=False`): F = 5, rgb (3), acc, final T;
+- geometry mode (`geo=True`, need_geo alone, what a traced base pass
+  renders with): F = 10 + A, the first 10 + A planes of the training
+  order below, distortion zeros;
 - training mode (`train=True`): F = 13 + A in the JAX kernel's row order
   (`rows(A)`): rgb, depth*w (ray parameter t), acc, the ray-facing normal
   (the splat normal flipped against the ray), distortion with
   m = t / (1 + |t|), aux (A <= 2), final T, the moments D1, D2, and
-  `last`, the rank of the last contributing slot, -1 if none.
+  `last`, the rank of the last contributing slot, -1 if none;
+- training mode with the forward wet (`train=True, wet=True`): also each
+  slot's wet, its contributing weight summed over the tile's 256 rays in
+  the kernel's order (`_ray_sum`), zeros for the slots of chunks no ray
+  of the tile could take.
 
 Blend rule (the JAX kernel's, kept exactly): each tile walks its slots in
 64-slot chunks from its range start. A candidate contributes iff its alpha
@@ -44,6 +52,7 @@ from envgs_tpu_torch.ops.raster_blend import (
     LO,
     NPIX,
     WET_COL,
+    _pixel_sum,
     _to_image,
     _to_tiles,
 )
@@ -100,12 +109,32 @@ def _ray_terms(col, ray):
                 dn=dn, flip=flip, e=(ex, ey, ez))
 
 
+def _lane_rays(device) -> torch.Tensor:
+    """The ray (iy * 16 + ix) of each (warp, lane) of K3's block, warp-major:
+    warp w is the 8x4 patch at (w % 2, w / 2), lane l its ray (l % 8,
+    l / 8)."""
+    w = torch.arange(NPIX, device=device) // 32
+    lane = torch.arange(NPIX, device=device) % 32
+    return ((w // 2) * 4 + lane // 8) * 16 + (w % 2) * 8 + lane % 8
+
+
+def _ray_sum(x: torch.Tensor) -> torch.Tensor:
+    """(T, NRAY) -> (T,) sums over each tile's rays in K3's order: a halving
+    tree within each warp's 32 rays (its shuffles), then the 8 warps' sums
+    one after another, so kernel and plain version agree to the bit."""
+    return _pixel_sum(x[:, _lane_rays(x.device)])
+
+
 def trace_blend_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
                       rays: torch.Tensor, tile_bounds: torch.Tensor,
                       tiles_x: int, tiles_y: int, train: bool = False,
-                      A: int = 0) -> torch.Tensor:
+                      A: int = 0, geo: bool = False, wet: bool = False):
     """Plain PyTorch version of kernel K3, vectorized over tiles and rays
-    with a loop over chunks and the candidates of a chunk."""
+    with a loop over chunks and the candidates of a chunk. -> planes, or
+    (planes, per-slot wet (gauss_idx.numel(),)) with `wet` (training
+    only)."""
+    if wet and not train:
+        raise ValueError("wet: the forward wet is a training configuration's")
     dev = packed.device
     T = tiles_x * tiles_y
     start = tile_bounds[:-1].to(torch.int64)
@@ -119,10 +148,14 @@ def trace_blend_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
     acc, dpt, dist, d1, d2 = (zeros() for _ in range(5))
     last = torch.full((T, NPIX), -1.0, device=dev)
     trans = torch.ones((T, NPIX), dtype=torch.float32, device=dev)
+    geo = geo or train
+    wet_slots = (torch.zeros(gauss_idx.numel(), dtype=torch.float32,
+                             device=dev) if wet else None)
     for c in range(nmax):
         rows_c = packed[_chunk_index(gauss_idx, start, nchunk, c,
                                      packed.shape[0] - 1)]
         fail = torch.zeros((T, NPIX), dtype=torch.bool, device=dev)
+        live = c < nchunk
         for j in range(CHUNK):
             col = rows_c[:, j, :, None].unbind(1)  # LO x (T, 1)
             s = _ray_terms(col, ray)
@@ -132,39 +165,46 @@ def trace_blend_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
             contrib = s["amask"] & ~fail & passed
             fail = fail | (s["amask"] & ~passed)
             w = torch.where(contrib, a * trans, 0.0)
+            if wet:
+                wet_slots[(start + c * CHUNK + j)[live]] = _ray_sum(w)[live]
             if train:
                 m = t / (1.0 + torch.abs(t))
                 wm = w * m
                 dist = dist + w * (m * m * acc + d2 - 2.0 * m * d1)
                 d1 = d1 + wm
                 d2 = d2 + wm * m
+                last = torch.where(contrib, float(c * CHUNK + j), last)
+            if geo:
                 for i in range(3):
                     nrm[i] = nrm[i] + w * (col[_C_N + i] * s["flip"])
                 for i in range(A):
                     aux[i] = aux[i] + w * col[_C_AUX + i]
                 dpt = dpt + w * t
-                last = torch.where(contrib, float(c * CHUNK + j), last)
             for i in range(3):
                 rgb[i] = rgb[i] + w * col[_C_COLOR + i]
             acc = acc + w
             trans = torch.where(contrib, test, trans)
     if train:
         planes = rgb + [dpt, acc] + nrm + [dist] + aux + [trans, d1, d2, last]
+    elif geo:
+        planes = rgb + [dpt, acc] + nrm + [dist] + aux + [trans]
     else:
         planes = rgb + [acc, trans]
-    return _to_image(torch.stack(planes), tiles_x, tiles_y)
+    img = _to_image(torch.stack(planes), tiles_x, tiles_y)
+    return (img, wet_slots) if wet else img
 
 
 def trace_blend(packed: torch.Tensor, gauss_idx: torch.Tensor,
                 rays: torch.Tensor, tile_bounds: torch.Tensor, tiles_x: int,
-                tiles_y: int, train: bool = False, A: int = 0) -> torch.Tensor:
+                tiles_y: int, train: bool = False, A: int = 0,
+                geo: bool = False, wet: bool = False):
     """The traced blend: kernel K3 on a CUDA tensor, the plain version on a
     CPU tensor."""
     if packed.device.type == "cpu":
         return trace_blend_torch(packed, gauss_idx, rays, tile_bounds,
-                                 tiles_x, tiles_y, train, A)
+                                 tiles_x, tiles_y, train, A, geo, wet)
     return kernels.trace_blend_fwd(packed, gauss_idx, rays, tile_bounds,
-                                   tiles_x, tiles_y, train, A)
+                                   tiles_x, tiles_y, train, A, geo, wet)
 
 
 def trace_blend_bwd_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
@@ -305,33 +345,38 @@ def trace_blend_bwd(packed: torch.Tensor, gauss_idx: torch.Tensor,
 
 class _TraceTrain(torch.autograd.Function):
     """Training-mode traced blend with its reverse-walk backward: gradients
-    for the scene table, the ray tiles, and (through the wet lane) the
-    zeros hook wet_zero (P+1,)."""
+    for the scene table, the ray tiles and, through the wet lane, the zeros
+    hook wet_zero (P+1,) when one is given. With `fwd_wet` the forward also
+    returns the per-slot wet, which carries no gradient."""
 
     @staticmethod
     def forward(ctx, packed, rays, wet_zero, gauss_idx, tile_bounds, tiles_x,
-                tiles_y, A):
-        out = trace_blend(packed, gauss_idx, rays, tile_bounds, tiles_x,
-                          tiles_y, train=True, A=A)
+                tiles_y, A, fwd_wet):
+        res = trace_blend(packed, gauss_idx, rays, tile_bounds, tiles_x,
+                          tiles_y, train=True, A=A, wet=fwd_wet)
+        out = res[0] if fwd_wet else res
         ctx.save_for_backward(packed, rays, gauss_idx, tile_bounds, out)
         ctx.dims = (tiles_x, tiles_y, A)
-        return out
+        if fwd_wet:
+            ctx.mark_non_differentiable(res[1])
+        return res
 
     @staticmethod
-    def backward(ctx, g_out):
+    def backward(ctx, g_out, *_g_wet):
         packed, rays, gauss_idx, tile_bounds, out = ctx.saved_tensors
         g_packed, g_rays = trace_blend_bwd(packed, gauss_idx, rays,
                                            tile_bounds, out,
                                            g_out.contiguous(), *ctx.dims)
-        return (g_packed, g_rays, g_packed[:, WET_COL], None, None, None,
-                None, None)
+        g_wet = g_packed[:, WET_COL] if ctx.needs_input_grad[2] else None
+        return (g_packed, g_rays, g_wet, None, None, None, None, None, None)
 
 
 def trace_blend_train(packed: torch.Tensor, rays: torch.Tensor,
-                      wet_zero: torch.Tensor, gauss_idx: torch.Tensor,
+                      wet_zero: torch.Tensor | None, gauss_idx: torch.Tensor,
                       tile_bounds: torch.Tensor, tiles_x: int, tiles_y: int,
-                      A: int = 0) -> torch.Tensor:
+                      A: int = 0, fwd_wet: bool = False):
     """Training-mode traced blend -> (13 + A, H', W') planes in `rows(A)`
-    order, differentiable in `packed`, `rays` and the `wet_zero` hook."""
+    order, differentiable in `packed`, `rays` and the `wet_zero` hook (None:
+    no hook); with `fwd_wet`, (planes, per-slot forward wet)."""
     return _TraceTrain.apply(packed, rays, wet_zero, gauss_idx, tile_bounds,
-                             tiles_x, tiles_y, A)
+                             tiles_x, tiles_y, A, fwd_wet)

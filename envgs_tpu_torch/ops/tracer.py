@@ -12,11 +12,13 @@ order, the JAX package's documented deviation from per-ray order;
 `trace_rays(exact_order=True)` re-blends the same candidate windows in each
 ray's own depth order for evaluation.
 
-The training path (`needs` all True with a `wet_zero` hook) blends in
-training mode (kernels K3 and K4): the cull stays integer and carries no
-gradient; the gradient reaches the scene table and, through the ray tiles
-(`ray_planes`, plain differentiable torch ops), the ray origins and
-directions.
+`trace_rays` honours each of the JAX package's `needs` (kernel K3 in its
+render, geometry, training and training-with-wet configurations). Where
+autograd records it blends in training mode (kernels K3 and K4): the cull
+stays integer and carries no gradient; the gradient reaches the scene
+table and, through the ray tiles (`ray_planes`, plain differentiable
+torch ops), the ray origins and directions. `trace_rays_multibounce`
+bounces the rays off the blended surface to `max_trace_depth`.
 """
 from __future__ import annotations
 
@@ -24,7 +26,12 @@ from typing import NamedTuple
 
 import torch
 
-from envgs_tpu_torch.ops.common import ALPHA_MAX, ALPHA_MIN, T_CUTOFF
+from envgs_tpu_torch.ops.common import (
+    ALPHA_MAX,
+    ALPHA_MIN,
+    T_CUTOFF,
+    check_backend,
+)
 from envgs_tpu_torch.ops.raster_blend import CHUNK, LO
 from envgs_tpu_torch.ops.trace_blend import (
     T_MIN,
@@ -32,7 +39,12 @@ from envgs_tpu_torch.ops.trace_blend import (
     trace_blend,
     trace_blend_train,
 )
-from envgs_tpu_torch.ops.tracer_ref import TraceOutput, TraceScene
+from envgs_tpu_torch.ops.tracer_ref import (
+    TraceOutput,
+    TraceScene,
+    _excl,
+    trace_rays_reference,
+)
 
 RTH = 16  # tile height in rays
 RTW = 16  # tile width in rays
@@ -196,7 +208,8 @@ def build_chunk_index(scene: TraceScene, radius3: torch.Tensor,
 def _block_cull(idx: ChunkIndex, packed_cand, cand_idx, Kc: int, P: int,
                 apex, axis, tan_half, spread, tmask, pframe, pbox, pok):
     """Cull and radially sort the candidates of a block of B tiles:
-    (cid_sorted (B, Kc*CHUNK) int64, keep (B, Kc*CHUNK) bool)."""
+    (cid_sorted (B, Kc*CHUNK) int64, keep (B, Kc*CHUNK) bool). pok None:
+    no direction-space footprint rejection."""
     B = apex.shape[0]
     C = Kc * CHUNK
     # ---- coarse: cone vs chunk spheres ----
@@ -240,39 +253,42 @@ def _block_cull(idx: ChunkIndex, packed_cand, cand_idx, Kc: int, P: int,
     hit_s = axd_s <= proj_s * tan_half[:, None] + slack_s
     near_s = d2_s <= slack_s * slack_s
     keep_s = (hit_s | near_s) & (proj_s + cr > 0) & (cid < P) & (cr > 0)
-    # ---- direction-space footprint rejection: a contributing ray passes
-    # within rc + origin spread of the splat center, so its direction lies
-    # in the candidate's angular disk; reject a candidate whose disk misses
-    # all four quadrant boxes of the tile's actual ray directions ----
-    exx, exy, exz = pframe[:, 0, 0:1], pframe[:, 0, 1:2], pframe[:, 0, 2:3]
-    eyx, eyy, eyz = pframe[:, 1, 0:1], pframe[:, 1, 1:2], pframe[:, 1, 2:3]
-    ax0, ax1, ax2 = axis[:, 0:1], axis[:, 1:2], axis[:, 2:3]
-    w = relx * ax0 + rely * ax1 + relz * ax2  # depth along the axis
-    invw = 1.0 / torch.clamp(w, min=1e-6)
-    u0 = (relx * exx + rely * exy + relz * exz) * invw
-    v0 = (relx * eyx + rely * eyy + relz * eyz) * invw
-    npx = cnx * exx + cny * exy + cnz * exz
-    npy = cnx * eyx + cny * eyy + cnz * eyz
-    npz = cnx * ax0 + cny * ax1 + cnz * ax2
-    bnu = npx - u0 * npz
-    bnv = npy - v0 * npz
-    scl = invw * 1.10
-    slu = crc * torch.sqrt(torch.clamp(1.0 + u0 * u0 - bnu * bnu, min=0.0)) * scl
-    slv = crc * torch.sqrt(torch.clamp(1.0 + v0 * v0 - bnv * bnv, min=0.0)) * scl
-    au0 = torch.abs(u0)
-    av0 = torch.abs(v0)
-    inside = torch.zeros_like(keep_s)
-    for qd in range(NQUAD):
-        cu, au, cv, av, ocu, oau, ocv, oav, ocz, oaz = (
-            pbox[:, qd, i:i + 1] for i in range(10))
-        du = (torch.abs(u0 - cu - (ocu - u0 * ocz) * invw)
-              - (au + (oau + au0 * oaz) * invw * 1.10))
-        dv = (torch.abs(v0 - cv - (ocv - v0 * ocz) * invw)
-              - (av + (oav + av0 * oaz) * invw * 1.10))
-        inside = inside | ((du <= slu) & (dv <= slv))
-    far = w > 4.0 * (crc + spread[:, None])
-    applies = far & pok[:, None]
-    keep_s = keep_s & (inside | ~applies)
+    if pok is not None:
+        # ---- direction-space footprint rejection: a contributing ray passes
+        # within rc + origin spread of the splat center, so its direction lies
+        # in the candidate's angular disk; reject a candidate whose disk misses
+        # all four quadrant boxes of the tile's actual ray directions ----
+        exx, exy, exz = pframe[:, 0, 0:1], pframe[:, 0, 1:2], pframe[:, 0, 2:3]
+        eyx, eyy, eyz = pframe[:, 1, 0:1], pframe[:, 1, 1:2], pframe[:, 1, 2:3]
+        ax0, ax1, ax2 = axis[:, 0:1], axis[:, 1:2], axis[:, 2:3]
+        w = relx * ax0 + rely * ax1 + relz * ax2  # depth along the axis
+        invw = 1.0 / torch.clamp(w, min=1e-6)
+        u0 = (relx * exx + rely * exy + relz * exz) * invw
+        v0 = (relx * eyx + rely * eyy + relz * eyz) * invw
+        npx = cnx * exx + cny * exy + cnz * exz
+        npy = cnx * eyx + cny * eyy + cnz * eyz
+        npz = cnx * ax0 + cny * ax1 + cnz * ax2
+        bnu = npx - u0 * npz
+        bnv = npy - v0 * npz
+        scl = invw * 1.10
+        slu = crc * torch.sqrt(
+            torch.clamp(1.0 + u0 * u0 - bnu * bnu, min=0.0)) * scl
+        slv = crc * torch.sqrt(
+            torch.clamp(1.0 + v0 * v0 - bnv * bnv, min=0.0)) * scl
+        au0 = torch.abs(u0)
+        av0 = torch.abs(v0)
+        inside = torch.zeros_like(keep_s)
+        for qd in range(NQUAD):
+            cu, au, cv, av, ocu, oau, ocv, oav, ocz, oaz = (
+                pbox[:, qd, i:i + 1] for i in range(10))
+            du = (torch.abs(u0 - cu - (ocu - u0 * ocz) * invw)
+                  - (au + (oau + au0 * oaz) * invw * 1.10))
+            dv = (torch.abs(v0 - cv - (ocv - v0 * ocz) * invw)
+                  - (av + (oav + av0 * oaz) * invw * 1.10))
+            inside = inside | ((du <= slu) & (dv <= slv))
+        far = w > 4.0 * (crc + spread[:, None])
+        applies = far & pok[:, None]
+        keep_s = keep_s & (inside | ~applies)
     rad_key = torch.where(keep_s, torch.sqrt(d2_s), float("inf"))
     cid = torch.where(keep_s, cid, P)
     cid_bits = int(P).bit_length()
@@ -298,6 +314,7 @@ def cull_and_sort(
     per_tile_cap: int = 4096, tile_block: int | None = None,
     total_pair_cap: int | None = None,
     tile_mask: torch.Tensor | None = None,
+    probe: bool = True,
 ):
     """Hierarchical cone culling -> chunk-aligned radially sorted slots.
 
@@ -307,7 +324,8 @@ def cull_and_sort(
     tile's result is independent of the blocking. The default takes as
     many tiles as keep each (tiles, candidates) plane within
     _CULL_BLOCK_ELEMS: each block is a long chain of small torch ops, so
-    fewer blocks mean fewer launches, and launches bound the render."""
+    fewer blocks mean fewer launches, and launches bound the render.
+    probe=False switches the direction-space footprint rejection off."""
     dev = scene.mean.device
     P = scene.mean.shape[0]
     T = tiles.n_tiles
@@ -339,7 +357,7 @@ def cull_and_sort(
             idx, packed_cand, cand_idx, Kc, P, tiles.apex[sl],
             tiles.axis[sl], tiles.tan_half[sl], tiles.spread[sl],
             tile_mask[sl], tiles.probe_frame[sl], tiles.probe_box[sl],
-            tiles.probe_ok[sl])
+            tiles.probe_ok[sl] if probe else None)
         ids.append(cs)
         keeps.append(ks.sum(-1, dtype=torch.int32))
     idmat = torch.cat(ids)  # (T, K)
@@ -367,6 +385,16 @@ def cull_and_sort(
     valid = (i < coffs[-1])[:, None]
     gauss_aligned = torch.where(valid, gathered, P).reshape(-1)
     return gauss_aligned.to(torch.int32), poffs, dropped
+
+
+def tile_mask_of(ray_mask: torch.Tensor) -> torch.Tensor:
+    """(H, W) bool rays to trace -> (T,) bool ray tiles holding one."""
+    H, W = ray_mask.shape
+    ty, tx = -(-H // RTH), -(-W // RTW)
+    m = torch.nn.functional.pad(ray_mask.to(torch.bool),
+                                (0, tx * RTW - W, 0, ty * RTH - H))
+    return (m.reshape(ty, RTH, tx, RTW).permute(0, 2, 1, 3)
+            .reshape(ty * tx, NRAY).any(dim=1))
 
 
 def _pack_scene_table(scene: TraceScene) -> torch.Tensor:
@@ -419,11 +447,6 @@ def _trace_tiles_exact(scene: TraceScene, rays: torch.Tensor,
     kmax = torch.stack([cnts[b0:b0 + B].max()
                         for b0 in range(0, T, B)]).tolist() if T else []
     out = torch.zeros((T, 10 + A, NRAY), dtype=torch.float32, device=dev)
-
-    def excl(x):  # exclusive running sum over a ray's sorted hits
-        return torch.nn.functional.pad(torch.cumsum(x, dim=2),
-                                       (1, 0))[..., :-1]
-
     for blk, b0 in enumerate(range(0, T, B)):
         Kb = kmax[blk]
         if Kb == 0:
@@ -467,7 +490,7 @@ def _trace_tiles_exact(scene: TraceScene, rays: torch.Tensor,
         t_s = per_ray(t)
         m_s = t_s / (1.0 + torch.abs(t_s))
         log_om = torch.log1p(-a_s)
-        Ttil = torch.exp(excl(log_om))
+        Ttil = torch.exp(_excl(log_om))
         contrib = (a_s > 0) & (Ttil * (1.0 - a_s) >= T_CUTOFF)
         w = torch.where(contrib, a_s * Ttil, 0.0)
         res = out[b0:b0 + B]
@@ -478,8 +501,8 @@ def _trace_tiles_exact(scene: TraceScene, rays: torch.Tensor,
         for c, n in enumerate((nx, ny, nz)):
             res[:, 5 + c] = torch.sum(w * per_ray(n * flip), 2)
         res[:, 8] = torch.sum(
-            w * (m_s * m_s * excl(w) + excl(w * m_s * m_s)
-                 - 2 * m_s * excl(w * m_s)), 2)
+            w * (m_s * m_s * _excl(w) + _excl(w * m_s * m_s)
+                 - 2 * m_s * _excl(w * m_s)), 2)
         res[:, 9] = torch.exp(torch.sum(torch.where(contrib, log_om, 0.0), 2))
         for c in range(A):
             res[:, 10 + c] = torch.sum(
@@ -497,28 +520,35 @@ def trace_rays(
     ray_mask: torch.Tensor | None = None,
     needs: tuple = (False, False, False),
     wet_zero: torch.Tensor | None = None,
+    compose_raw: bool = False,
     exact_order: bool = False,
+    probe: bool = True,
 ) -> TraceOutput:
     """Tiled tracer over an (H, W) ray grid.
 
-    needs = (need_dist, need_wet, need_geo): all False is the render path
-    (depth, normal, aux, distortion and wet come back zero, as in the JAX
-    package's render mode); all True with the (P,) zeros hook `wet_zero` is
-    the training path (TraceOutput.wet exact zeros: wet is the hook's
-    gradient). ray_mask (H, W) bool culls whole ray tiles with no
-    masked-in ray. exact_order: the eval-time blend in each ray's own depth
-    order (`_trace_tiles_exact`, plain PyTorch, no kernel), every output
-    filled, no gradient and no wet."""
-    train = all(needs) and wet_zero is not None
-    if exact_order:
-        if wet_zero is not None:
-            raise ValueError("exact_order: an eval path, no wet hook")
-    elif any(needs) and not train:
-        raise NotImplementedError(
-            f"trace_rays needs={needs} wet_zero given: {wet_zero is not None}"
-            ": the render path, the train path (all needs with the wet_zero"
-            " hook) and the exact per-ray order are ported; the forward wet"
-            " of the radial-order blend is not")
+    needs = (need_dist, need_wet[, need_geo]), need_geo True when left
+    out, as the JAX package reads them: the blend's configuration follows
+    (need_dist, need_wet and no hook, need_geo); outputs not asked for come
+    back zero (depth, normal and aux without need_geo; distortion without
+    need_dist). All False is the render path; need_geo alone the geometry
+    path of a traced base pass. With the (P,) zeros hook `wet_zero` the
+    per-splat wet is the hook's gradient and TraceOutput.wet exact zeros;
+    without it, need_wet gives the forward wet (detached), each slot's
+    weight summed per splat. Where autograd records (the scene or the rays
+    require gradients), the blend runs in training mode with need_dist on,
+    as the JAX package's custom VJP does, and its backward (kernel K4)
+    reaches the scene table, the rays and the hook. ray_mask (H, W) bool
+    culls whole ray tiles with no masked-in ray. compose_raw: rgb without
+    the bg * T term, dpt not normalized, d1 / d2 filled (the premultiplied
+    form two tracer outputs compose in). probe=False switches the cull's
+    direction-space footprint rejection off. exact_order: the eval-time
+    blend in each ray's own depth order (`_trace_tiles_exact`, plain
+    PyTorch, no kernel), every output filled, no gradient and no wet."""
+    need_dist, need_wet = bool(needs[0]), bool(needs[1])
+    need_geo = bool(needs[2]) if len(needs) > 2 else True
+    if exact_order and (wet_zero is not None or compose_raw):
+        raise ValueError("exact_order: an eval path, no wet hook and no "
+                         "slab composition")
     H, W = ray_o.shape[:2]
     dev = ray_o.device
     P = scene.mean.shape[0]
@@ -527,15 +557,11 @@ def trace_rays(
     ty, tx = -(-H // RTH), -(-W // RTW)
     with torch.no_grad():  # the cull is integer and carries no gradient
         tiles = build_ray_tiles(ray_o, ray_d)
-        tile_mask = None
-        if ray_mask is not None:
-            m = torch.nn.functional.pad(ray_mask.to(torch.bool),
-                                        (0, tx * RTW - W, 0, ty * RTH - H))
-            tile_mask = (m.reshape(ty, RTH, tx, RTW).permute(0, 2, 1, 3)
-                         .reshape(tiles.n_tiles, NRAY).any(dim=1))
         gauss_idx, bounds, dropped = cull_and_sort(
             tiles, scene, splat_radius3(scene), per_tile_cap=K,
-            total_pair_cap=total_pair_cap, tile_mask=tile_mask)
+            total_pair_cap=total_pair_cap,
+            tile_mask=None if ray_mask is None else tile_mask_of(ray_mask),
+            probe=probe)
     wet = torch.zeros(P, dtype=torch.float32, device=dev)
     if exact_order:
         # eval-time exact per-ray blend order over the same candidate
@@ -560,37 +586,132 @@ def trace_rays(
             num_pairs=bounds[-1],
         )
     packed = _pack_scene_table(scene)
-    if train:
-        img = trace_blend_train(packed, ray_planes(ray_o, ray_d),
-                                torch.nn.functional.pad(wet_zero, (0, 1)),
-                                gauss_idx, bounds, tx, ty, A)[:, :H, :W]
-        r = rows(A)
-        acc, trans = img[r["acc"]], img[r["trans"]]
-        return TraceOutput(
-            rgb=img[:3].permute(1, 2, 0) + trans[..., None] * bg_color,
-            dpt=torch.where(acc > 1e-8,
-                            img[r["dpt"]] / torch.clamp(acc, min=1e-8), 0.0),
-            acc=acc,
-            norm=img[r["normal"]:r["normal"] + 3].permute(1, 2, 0),
-            dist=img[r["dist"]],
-            aux=img[r["aux"]:r["aux"] + A].permute(1, 2, 0),
-            wet=wet,
-            trans=trans,
-            dropped_pairs=dropped,
-            num_pairs=bounds[-1],
-        )
-    img = trace_blend(packed, gauss_idx, tiles.rays, bounds, tx, ty)[:, :H, :W]
-    acc, trans = img[3], img[4]
-    zeros = torch.zeros_like(acc)
+    fwd_wet = need_wet and wet_zero is None
+    grad = torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad
+        for x in (packed, ray_o, ray_d, wet_zero))
+    wet_slots = None
+    if grad:
+        # the backward reads d1, d2 and last: the training configuration
+        res = trace_blend_train(
+            packed, ray_planes(ray_o, ray_d),
+            None if wet_zero is None
+            else torch.nn.functional.pad(wet_zero, (0, 1)),
+            gauss_idx, bounds, tx, ty, A, fwd_wet=fwd_wet)
+        img, wet_slots = res if fwd_wet else (res, None)
+        need_dist = True
+    elif need_dist or fwd_wet:
+        res = trace_blend(packed, gauss_idx, tiles.rays, bounds, tx, ty,
+                          train=True, A=A, wet=fwd_wet)
+        img, wet_slots = res if fwd_wet else (res, None)
+    else:
+        img = trace_blend(packed, gauss_idx, tiles.rays, bounds, tx, ty, A=A,
+                          geo=need_geo)
+    img = img[:, :H, :W]
+    F = img.shape[0]
+    r = rows(A)
+    zeros = torch.zeros_like(img[0])
+    if F == 5:  # the render configuration: rgb, acc, T
+        plane = {"acc": img[3], "trans": img[4]}
+    else:
+        plane = {k: img[r[k]] for k in ("acc", "trans", "dpt", "dist")}
+        plane["normal"] = img[r["normal"]:r["normal"] + 3]
+        plane["aux"] = img[r["aux"]:r["aux"] + A]
+        if F == 13 + A:
+            plane["d1"], plane["d2"] = img[r["d1"]], img[r["d2"]]
+    # the strips asked for off come back zero, as the JAX kernel leaves
+    # them; where autograd records, their gradient still reaches the blend
+    # (the JAX backward reads the cotangent of every plane)
+    strip = (lambda x: x - x.detach()) if grad else torch.zeros_like
+    if not need_geo:
+        for k in ("dpt", "normal", "aux"):
+            if k in plane:
+                plane[k] = strip(plane[k])
+    if not need_dist:
+        for k in ("dist", "d1", "d2"):
+            if k in plane:
+                plane[k] = strip(plane[k])
+    acc, trans = plane["acc"], plane["trans"]
+    dptw = plane.get("dpt", zeros)
+    if compose_raw:
+        rgb, dpt = img[:3].permute(1, 2, 0), dptw
+    else:
+        rgb = img[:3].permute(1, 2, 0) + trans[..., None] * bg_color
+        dpt = torch.where(acc > 1e-8, dptw / torch.clamp(acc, min=1e-8), 0.0)
+    if wet_slots is not None:
+        sums = torch.zeros(P + 1, dtype=torch.float32, device=dev)
+        sums.index_add_(0, gauss_idx.to(torch.int64), wet_slots.detach())
+        wet = sums[:P]
+    normal = plane.get("normal", zeros[None].expand(3, H, W))
+    aux = plane.get("aux", zeros[None].expand(A, H, W))
     return TraceOutput(
-        rgb=img[:3].permute(1, 2, 0) + trans[..., None] * bg_color,
-        dpt=zeros,
+        rgb=rgb,
+        dpt=dpt,
         acc=acc,
-        norm=zeros[..., None].expand(H, W, 3),
-        dist=zeros,
-        aux=zeros[..., None].expand(H, W, A),
+        norm=normal.permute(1, 2, 0),
+        dist=plane.get("dist", zeros),
+        aux=aux.permute(1, 2, 0),
         wet=wet,
         trans=trans,
         dropped_pairs=dropped,
+        d1=plane.get("d1", zeros) if compose_raw else None,
+        d2=plane.get("d2", zeros) if compose_raw else None,
         num_pairs=bounds[-1],
     )
+
+
+def trace_rays_multibounce(
+    scene: TraceScene,
+    ray_o: torch.Tensor,
+    ray_d: torch.Tensor,
+    bg_color: torch.Tensor,
+    max_trace_depth: int = 0,
+    specular_threshold: float = 0.0,
+    backend: str = "tiled",
+    total_pair_cap: int | None = 2 ** 21,
+    ray_mask: torch.Tensor | None = None,
+):
+    """Recursive specular tracing (the JAX package's max_trace_depth > 0
+    path). Each bounce b traces the current rays; rays whose blended
+    specular (aux channel 0) exceeds `specular_threshold` and whose hit is
+    solid (acc > 0.5) spawn reflected rays at the blended hit (origin o +
+    dpt d, direction reflected about the blended normal). Bounce colours
+    composite back to front, rgb_b' = (1 - s_b) rgb_b + s_b rgb_{b+1}, on
+    the reflected set. backend "tiled": trace_rays with JAX's default
+    needs and no hook (the training configuration with the forward wet),
+    "ref": the reference tracer. -> (bounce 0's TraceOutput with the
+    composited rgb, the per-bounce TraceOutput list)."""
+    check_backend("tracer", backend)
+    scene_has_spec = scene.aux.shape[-1] > 0
+
+    def trace(o, d, m):
+        if backend == "ref":
+            return trace_rays_reference(scene, o, d, bg_color)
+        return trace_rays(scene, o, d, bg_color,
+                          total_pair_cap=total_pair_cap, ray_mask=m,
+                          needs=(True, True, True))
+
+    bounces, masks = [], []
+    o, d, m = ray_o, ray_d, ray_mask
+    for b in range(max_trace_depth + 1):
+        out = trace(o, d, m)
+        bounces.append(out)
+        if b == max_trace_depth:
+            break
+        n = out.norm * torch.rsqrt(
+            torch.sum(out.norm * out.norm, -1, keepdim=True) + 1e-12)
+        d_new = d - 2.0 * torch.sum(d * n, -1, keepdim=True) * n
+        o_new = o + d * out.dpt[..., None]
+        spec_b = (out.aux[..., 0] if scene_has_spec
+                  else torch.zeros_like(out.acc))
+        bounce_m = (spec_b > specular_threshold) & (out.acc > 0.5)
+        m = bounce_m if m is None else (m & bounce_m)
+        masks.append(m)
+        o, d = o_new, d_new
+    rgb = bounces[-1].rgb
+    for b in range(max_trace_depth - 1, -1, -1):
+        s = (torch.clamp(bounces[b].aux[..., :1], 0.0, 1.0) if scene_has_spec
+             else torch.zeros_like(bounces[b].rgb[..., :1]))
+        mixed = (1.0 - s) * bounces[b].rgb + s * rgb
+        rgb = torch.where(masks[b][..., None], mixed, bounces[b].rgb)
+    return bounces[0]._replace(rgb=rgb), bounces

@@ -569,9 +569,10 @@ def forward_runner(fn, k3, train: bool):
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
+        # mode 2 training, 0 render; A = 0, no forward wet
         _run(fn, packed.data_ptr(), packed.shape[0], gidx.data_ptr(),
              gidx.numel(), rays.data_ptr(), bounds.data_ptr(), tiles_x,
-             tiles_y, int(train), 0, out.data_ptr(), stream)
+             tiles_y, 2 if train else 0, 0, out.data_ptr(), None, stream)
         return out
     return run
 

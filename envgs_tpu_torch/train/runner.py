@@ -435,6 +435,9 @@ class Runner:
         order, see test())."""
         eo = (self.model_cfg.tracer_exact_order if exact_order is None
               else bool(exact_order))
+        # the exact order is the tiled tracer's (the reference tracer is
+        # exact anyway)
+        eo = eo and self.model_cfg.tracer_backend == "tiled"
         cfg = self.model_cfg._replace(tracer_exact_order=eo, render_mode=True)
         with torch.no_grad():
             return forward_envgs(
@@ -495,7 +498,8 @@ class Runner:
         blend order instead of the training path's per-tile radial order.
         The summary also carries `tracer_order` and `stage_ms`, the
         per-stage times of one radial-order render of the first view
-        (`render_stage_ms`)."""
+        (`render_stage_ms`; None where the config leaves the kernels'
+        default path: a ref backend, base tracing, multi-bounce)."""
         result_dir = (os.path.join(self.result_dir, tag) if tag
                       else self.result_dir)
         ev = Evaluator(result_dir)
@@ -518,10 +522,19 @@ class Runner:
         finally:
             if vis:
                 vis.summarize()
-        stage_ms = render_stage_ms(self.state.base, self.state.env,
-                                   views[0]["camera"], self.model_cfg)
+        mc = self.model_cfg
+        # the stages of the kernels' default path (rasterized base, one env
+        # trace); other configurations are timed as whole renders only
+        default_path = (mc.raster_backend, mc.tracer_backend) == (
+            "pallas", "tiled") and not (mc.use_base_tracing
+                                        or mc.max_trace_depth > 0)
+        stage_ms = (render_stage_ms(self.state.base, self.state.env,
+                                    views[0]["camera"], mc)
+                    if default_path else None)
+        exact = (exact_order and mc.tracer_backend == "tiled"
+                 or mc.tracer_backend == "ref")
         summary = ev.summarize(extra={
-            "tracer_order": "exact" if exact_order else "radial",
+            "tracer_order": "exact" if exact else "radial",
             "stage_ms": stage_ms})
         # VAL scalars and the last evaluated render
         self.recorder.record(

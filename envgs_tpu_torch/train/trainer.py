@@ -159,7 +159,10 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
         bparams = G.GaussianParams(*map(leaf, base.params))
         eparams = G.GaussianParams(*map(leaf, env.params))
         zeros = lambda *s: torch.zeros(s, device=dev, requires_grad=True)  # noqa: E731
-        m2z, e3z = zeros(base.cap, 2), zeros(env.cap, 3)
+        # screen-space (raster) or world-space (traced base) densification
+        # gradients
+        m2z = zeros(base.cap, 3 if model_cfg.use_base_tracing else 2)
+        e3z = zeros(env.cap, 3)
         wz_b, wz_e = zeros(base.cap), zeros(env.cap)
 
         camera = Camera(H, W, K, R, T, znear, zfar)
@@ -191,8 +194,9 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
         if mark:
             mark("backward")
 
-        # one of {forward wet, gradient-lane wet} is exact zeros: the port's
-        # training path always uses the lane
+        # one of {forward wet, gradient-lane wet} is exact zeros (the
+        # kernels' paths use the lane; the ref backends and multi-bounce
+        # tracing keep the forward wet)
         wet_b = g_wet_b + out.base_wet.detach()
         wet_e = g_wet_e + out.env_wet.detach()
         new_bp, opt_base = sparse_adam_update(
@@ -223,10 +227,13 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
                                opt_base, opt_env, state.gen)
         stats["num_pts"] = base.stats.active.sum()
         stats["env_num_pts"] = env.stats.active.sum()
-        # capacity truncation counters: pairs past the raster budget, and
-        # tracer slots lost to the env budget (0 = nothing dropped)
-        stats["pair_overflow"] = torch.clamp(
-            out.base_num_pairs - model_cfg.pair_cap, min=0)
+        # capacity truncation counters: pairs past the raster budget (none
+        # for a traced base pass, whose dropped slots go unreported as in
+        # the JAX package), and tracer slots lost to the env budget (0 =
+        # nothing dropped)
+        if out.base_num_pairs is not None:
+            stats["pair_overflow"] = torch.clamp(
+                out.base_num_pairs - model_cfg.pair_cap, min=0)
         stats["trace_dropped"] = out.env_dropped_pairs
         if mark:
             mark("optimizer")

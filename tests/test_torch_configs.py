@@ -18,11 +18,7 @@ from envgs_tpu_torch.engine import load_config
 
 # (module below both packages, tuple) -> {field the port leaves out: why}
 TUPLES = {
-    ("models.envgs", "EnvGSConfig"): {
-        "raster_backend": "no backend switch: the tensors' device picks "
-                          "kernel or plain version",
-        "tracer_backend": "as raster_backend",
-    },
+    ("models.envgs", "EnvGSConfig"): {},
     ("train.supervisor", "LossConfig"): {},
     ("train.trainer", "ScheduleConfig"): {},
     ("models.gaussians", "DensifyConfig"): {},
@@ -34,9 +30,7 @@ TUPLES = {
         "motion": "as t",
     },
     ("train.trainer", "CamOptConfig"): {},
-    ("models.gaussiant", "GaussianTConfig"): {
-        "raster_backend": "no backend switch",
-    },
+    ("models.gaussiant", "GaussianTConfig"): {},
 }
 
 
@@ -54,21 +48,24 @@ def test_config_tuple_has_the_jax_fields_and_defaults(mod, name):
 
 
 def test_cli_omissions_are_the_listed_backend_names():
+    """The backend names are fields of the tuples now: no tuple leaves one
+    out, and the command line sets none aside; it reads them into the
+    tuples as every other key."""
     listed = {f for om in TUPLES.values() for f in om if "backend" in f}
-    assert cli.OMITTED_KEYS == listed
+    assert listed == set() and not hasattr(cli, "OMITTED_KEYS")
+    assert {"raster_backend", "tracer_backend"} <= cli._sampler_keys()
 
 
 def test_named_raises_on_an_unknown_key_by_name():
     from envgs_tpu_torch.models.envgs import EnvGSConfig
 
     cfg = cli._named(EnvGSConfig, {"specular_threshold": 0.25,
-                                   "raster_backend": "pallas"},
-                     cli.OMITTED_KEYS)
-    assert cfg.specular_threshold == 0.25
+                                   "raster_backend": "ref"})
+    assert cfg.specular_threshold == 0.25 and cfg.raster_backend == "ref"
     with pytest.raises(KeyError, match="specular_treshold"):
-        cli._named(EnvGSConfig, {"specular_treshold": 0.25}, cli.OMITTED_KEYS)
-    with pytest.raises(KeyError, match="raster_backend"):
-        cli._named(EnvGSConfig, {"raster_backend": "pallas"})
+        cli._named(EnvGSConfig, {"specular_treshold": 0.25})
+    with pytest.raises(KeyError, match="raster_backnd"):
+        cli._named(EnvGSConfig, {"raster_backnd": "pallas"})
 
 
 def _synthetic_config(*overrides):
@@ -93,3 +90,39 @@ def test_shipped_config_builds_and_carries_specular_threshold():
 def test_build_from_config_raises_on_a_key_nothing_reads(key):
     with pytest.raises(KeyError, match=key.rsplit(".", 1)[1]):
         cli.build_from_config(_synthetic_config(f"{key}=1"), "cpu")
+
+
+def _shipped(name, *overrides):
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return load_config(f"configs/exps/{name}.yaml", root=root,
+                       overrides=list(overrides))
+
+
+def test_shipped_envgs_synthetic_config_builds_as_shipped():
+    """configs/exps/envgs_synthetic.yaml names the `ref` tracer: it builds
+    through the command line's reader as shipped (views cut to 16 x 16 for
+    time), and its EnvGSConfig carries the oracle."""
+    out = cli.build_from_config(_shipped(
+        "envgs_synthetic", "dataset_cfg.H=16", "dataset_cfg.W=16",
+        "dataset_cfg.n_views=2"), "cpu")
+    assert out[4].tracer_backend == "ref" and out[4].raster_backend == "pallas"
+
+
+def test_shipped_gaussiant_synthetic_config_reads_its_ref_backend():
+    """configs/exps/gaussiant_synthetic.yaml names the `ref` rasterizer: the
+    3DGS entry point's reader takes it into GaussianTConfig as shipped."""
+    from envgs_tpu_torch.models.gaussiant import GaussianTConfig
+    from envgs_tpu_torch.models.gaussians import DensifyConfig
+
+    scfg = _shipped("gaussiant_synthetic")["model_cfg"]["sampler_cfg"]
+    gcfg = cli._named(GaussianTConfig, scfg,
+                      frozenset(DensifyConfig._fields) | cli._GAUSSIANT_KEYS)
+    assert gcfg.raster_backend == "ref"
+
+
+@pytest.mark.parametrize("key,name", [
+    ("model_cfg.sampler_cfg.tracer_backend", "tiled_interp"),
+    ("model_cfg.sampler_cfg.raster_backend", "pallas_interp")])
+def test_build_from_config_refuses_other_backends_by_name(key, name):
+    with pytest.raises(NotImplementedError, match=name):
+        cli.build_from_config(_synthetic_config(f"{key}={name}"), "cpu")

@@ -212,11 +212,29 @@ def test_port_imports_no_jax():
 
 
 def test_unported_configurations_raise():
-    cam = tcam.make_camera(16, 16, np.eye(3, dtype=np.float32),
-                           np.eye(3, dtype=np.float32),
-                           np.zeros(3, np.float32))
-    pool = tg.create_pool(np.zeros((1, 3), np.float32), None, cap=2)
-    for cfg in (tenv.EnvGSConfig(use_base_tracing=True),
-                tenv.EnvGSConfig(max_trace_depth=1)):
-        with pytest.raises(NotImplementedError):
-            tenv.forward_envgs(pool, pool, cam, 0, cfg)
+    """The two configurations once refused (a traced base pass, a second
+    bounce) render: rgb, acc, depth and env rgb within ATOL of JAX's at
+    16 x 16 (the tests of tests/test_torch_base_tracing.py go further)."""
+    H = W = 16
+    K = np.array([[20.0, 0, 8], [0, 20.0, 8], [0, 0, 1]], np.float32)
+    eye, zero = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+    xyz, col, exyz, ecol = _inputs(seed=5, P=60, Pe=100)
+    jb = create_pool(xyz, col, cap=64, sh_degree=3, init_opacity=0.6)
+    je = create_pool(exyz, ecol, cap=128, sh_degree=3, init_opacity=0.6)
+    tb = tg.create_pool(xyz, col, cap=64, sh_degree=3, init_opacity=0.6)
+    te = tg.create_pool(exyz, ecol, cap=128, sh_degree=3, init_opacity=0.6)
+    for extra in (dict(use_base_tracing=True), dict(max_trace_depth=1)):
+        kw = dict(pair_cap=2 ** 12, env_pair_cap=2 ** 12,
+                  reflection_start_iter=0, render_mode=True, **extra)
+        jcfg = EnvGSConfig(raster_backend="pallas_interp",
+                           tracer_backend="tiled_interp", **kw)
+        want = jax.jit(lambda b, e: forward_envgs(
+            b, e, make_camera(H, W, K, eye, zero), jnp.asarray(10),
+            jcfg))(jb, je)
+        got = tenv.forward_envgs(tb, te, tcam.make_camera(H, W, K, eye, zero),
+                                 10, tenv.EnvGSConfig(**kw))
+        for k in ("rgb_map", "acc_map", "dpt_map", "env_rgb_map"):
+            np.testing.assert_allclose(getattr(got, k).numpy(),
+                                       np.asarray(getattr(want, k)),
+                                       atol=ATOL, err_msg=f"{extra} {k}")
+        assert float(got.acc_map.max()) > 0.5

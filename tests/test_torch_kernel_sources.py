@@ -106,6 +106,9 @@ def test_every_launch_count_is_reachable_from_a_wrapper(monkeypatch):
                                  1, mode=mode)
     out = kernels.trace_blend_fwd(packed, idx, rays, bounds, 1, 1, train=True)
     kernels.trace_blend_bwd(packed, idx, rays, bounds, out, out, 1, 1)
+    kernels.trace_blend_fwd(packed, idx, rays, bounds, 1, 1, geo=True)
+    kernels.trace_blend_fwd(packed, idx, rays, bounds, 1, 1, train=True,
+                            wet=True)
     kernels.fill_forward(torch.zeros((2, 8), dtype=torch.int32),
                          torch.zeros(8, dtype=torch.int32))
     kernels.segscan(torch.zeros(1024, 128),
@@ -169,12 +172,18 @@ def test_trace_resource_queries_reject_a_bad_aux_count():
     with pytest.raises(ValueError, match="aux"):
         kernels.trace_blend_fwd_resources(True, 3)
     with pytest.raises(ValueError, match="aux"):
+        kernels.trace_blend_fwd_resources(False, 3, geo=True)
+    with pytest.raises(ValueError, match="training"):
+        kernels.trace_blend_fwd_resources(False, 0, wet=True)
+    with pytest.raises(ValueError, match="aux"):
         kernels.trace_blend_bwd_resources(-1)
 
 
 @pytest.mark.parametrize("name", sorted(kernels.LAUNCHES))
 def test_launch_key_names_an_exported_kernel(name):
+    """A key is a kernel's name, or its name and a geometry mode (the raster
+    blends) or a configuration (the traced blend's forward)."""
     base = name
-    for mode in kernels.MODES:
-        base = base.removesuffix(f"_{mode}")
+    for suffix in (*kernels.MODES, *kernels.TRACE_CONFIGS):
+        base = base.removesuffix(f"_{suffix}")
     assert base in EXPORTED

@@ -282,12 +282,83 @@ def test_trace_kernels_on_ragged_tiles(cuda, A):
     assert not got_rays[:, 6:].any() and not got_rays[0].any()
 
 
+@pytest.mark.parametrize("A", [0, 1, 2])
+def test_trace_geo_and_wet_kernels_on_ragged_tiles(cuda, A):
+    """K3's geometry configuration and its training configuration with the
+    forward wet on the ragged tiles (an empty tile, a padded chunk, rays
+    that take nothing), nearly opaque surfels so that rays saturate and
+    blocks stop early: every plane within ATOL of the plain version, the
+    per-slot wet too (summed in the same tree: equal here), zeros for the
+    padding slots, and each launch counted under its own key."""
+    args = _ragged_trace_inputs(cuda, A)
+    keys = ("trace_blend_fwd", "trace_blend_fwd_geo", "trace_blend_fwd_wet")
+    n = {k: kernels.LAUNCHES[k] for k in keys}
+    geo = trace_blend(*args, A=A, geo=True)
+    out, wet = trace_blend(*args, train=True, A=A, wet=True)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - n[k] for k in keys} == {
+        "trace_blend_fwd": 0, "trace_blend_fwd_geo": 1,
+        "trace_blend_fwd_wet": 1}
+    want_geo = trace_blend_torch(*args, A=A, geo=True)
+    want, want_wet = trace_blend_torch(*args, train=True, A=A, wet=True)
+    assert geo.shape == want_geo.shape == (10 + A, 16, 64)
+    assert float((geo - want_geo).abs().max()) <= ATOL
+    assert not want_geo[8].any()  # no distortion in the geometry planes
+    train = trace_blend(*args, train=True, A=A)
+    same = [k for k in range(10 + A) if k != 8]  # all but the distortion
+    assert float((geo[same] - train[same]).abs().max()) <= ATOL
+    assert float((out - want).abs().max()) <= ATOL
+    assert float((wet - want_wet).abs().max()) <= ATOL
+    padding = args[1].cpu() == args[0].shape[0] - 1
+    assert not wet.cpu()[padding].any()
+    assert float(want_wet.max()) > 1.0  # slots many rays take
+
+
+@pytest.mark.parametrize("extra", [dict(use_base_tracing=True),
+                                   dict(max_trace_depth=1)])
+def test_traced_base_and_bounces_match_cpu(cuda, extra):
+    """forward_envgs in render mode with the base pass traced along the
+    camera rays (K3 geometry, then K3 render on the reflected rays) or with
+    a second bounce (K1, then K3 with the forward wet twice): the kernels
+    against the plain versions on the CPU from the same pools, the maps
+    and the per-splat wet within ATOL, and only those launches."""
+    from envgs_tpu_torch.models.envgs import forward_envgs
+
+    launched = {"use_base_tracing": {"trace_blend_fwd_geo": 1,
+                                     "trace_blend_fwd": 1},
+                "max_trace_depth": {"raster_blend_fwd": 1,
+                                    "trace_blend_fwd_wet": 2}}[next(iter(extra))]
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        base, env, cam, cfg = _scene(dev)
+        before = dict(kernels.LAUNCHES)
+        outs[dev.type] = forward_envgs(base, env, cam, 10,
+                                       cfg._replace(**extra))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            rose = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                    if v != before[k]}
+            assert rose == launched, rose
+    got, want = outs["cuda"], outs["cpu"]
+    for k in ("rgb_map", "acc_map", "dpt_map", "norm_map", "env_rgb_map",
+              "env_acc_map", "base_wet", "env_wet"):
+        err = float((getattr(got, k).cpu() - getattr(want, k)).abs().max())
+        assert err <= ATOL * max(1.0, float(getattr(want, k).abs().max())), k
+    assert float(want.acc_map.max()) > 0.9
+    assert float(want.env_acc_map.max()) > 0.5
+
+
 def test_trace_kernel_resources(cuda):
     """What K3 and K4 were compiled to: they fit an SM several times over
     and the reductions' rows stay in registers (a row in local memory
     shows as hundreds of bytes of stack)."""
-    for train, A in ((False, 0), (True, 0), (True, 2)):
-        res = kernels.trace_blend_fwd_resources(train, A)
+    for train, A, geo, wet in ((False, 0, False, False),
+                               (True, 0, False, False),
+                               (True, 2, False, False),
+                               (False, 2, True, False),
+                               (True, 0, False, True),
+                               (True, 2, False, True)):
+        res = kernels.trace_blend_fwd_resources(train, A, geo, wet)
         assert res["blocks_per_sm"] >= 3 and res["local_bytes"] <= 64, res
     for A in (0, 1, 2):
         res = kernels.trace_blend_bwd_resources(A)

@@ -200,9 +200,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     bounds = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.raster_blend_fwd(packed, idx, bounds, 3, 1, 1)
-    with pytest.raises(ValueError, match="CUDA"):
-        kernels.trace_blend_fwd(packed, idx, torch.zeros(1, 8, 256), bounds,
-                                1, 1)
+    for kw in ({}, dict(geo=True), dict(train=True, wet=True)):
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.trace_blend_fwd(packed, idx, torch.zeros(1, 8, 256),
+                                    bounds, 1, 1, **kw)
     planes = torch.zeros(14, 16, 16)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.raster_blend_bwd(packed, idx, bounds, planes, planes, 3, 1, 1)
@@ -223,6 +224,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.gather_rows_win8(rows.to(torch.bfloat16), idx)
     assert set(kernels.LAUNCHES) == {
         "raster_blend_fwd", "raster_blend_fwd_gauss3d", "raster_blend_bwd",
-        "raster_blend_bwd_gauss3d", "trace_blend_fwd", "trace_blend_bwd",
-        "fill_forward", "segscan", "gather_rows", "gather_rows_win8"}
+        "raster_blend_bwd_gauss3d", "trace_blend_fwd", "trace_blend_fwd_geo",
+        "trace_blend_fwd_wet", "trace_blend_bwd", "fill_forward", "segscan",
+        "gather_rows", "gather_rows_win8"}
     assert not any(kernels.LAUNCHES.values())

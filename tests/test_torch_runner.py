@@ -325,8 +325,12 @@ def test_unported_modes_and_options_raise():
     root = os.path.dirname(os.path.dirname(os.path.abspath(
         envgs_tpu_torch.__file__)))
     path = os.path.join(root, "configs", "exps", "envgs_synthetic.yaml")
-    with pytest.raises(NotImplementedError, match="tracer_backend"):
-        cli.main(["train", "-c", path], device="cpu")  # names the ref tracer
+    # the config names the ref tracer, which the port has; a backend it
+    # lacks (the JAX package's interpret mode) raises by name
+    with pytest.raises(NotImplementedError, match="tiled_interp"):
+        cli.main(["train", "-c", path,
+                  "model_cfg.sampler_cfg.tracer_backend=tiled_interp"],
+                 device="cpu")
     with pytest.raises(NotImplementedError, match="aux_cfg"):
         cli.main(["train", "-c", path,
                   "model_cfg.supervisor_cfg.aux_cfg.dpt_loss_weight=1",
@@ -338,10 +342,11 @@ def test_unported_modes_and_options_raise():
             cli.main([mode, "-c", path,
                       "model_cfg.network_cfg.type=VolumetricVideoNetwork"],
                      device="cpu")
-    for key in ("raster_backend", "tracer_backend"):
+    for key, name in (("raster_backend", "pallas_interp"),
+                      ("tracer_backend", "tiled_interp")):
         cfg = cli.smoke_config()
-        cfg["model_cfg"]["sampler_cfg"][key] = "ref"
-        with pytest.raises(NotImplementedError, match=key):
+        cfg["model_cfg"]["sampler_cfg"][key] = name
+        with pytest.raises(NotImplementedError, match=name):
             cli.make_runner(cfg, device="cpu")
 
 

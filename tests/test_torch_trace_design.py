@@ -458,5 +458,41 @@ def test_both_sources_walk_square_warps_and_k3_keeps_its_rule():
     assert "ALPHA_MIN = (float)(1.0 / 255.0)" in text
     assert "T_CUTOFF = (float)1e-4" in text and "T_MIN = (float)1e-4" in text
     assert abs(ALPHA_MIN - 1 / 255) < 1e-12 and T_CUTOFF == 1e-4
-    for variant in ("<false, 0>", "<true, 0>", "<true, 1>", "<true, 2>"):
-        assert f"launch{variant}(" in text
+    # the configurations dispatched: render (A not read), then geometry,
+    # training and training with the forward wet, each with A = 0, 1, 2
+    assert "if (mode == 0) return F<CFG_RENDER, 0>::run(args...);" in text
+    for cfg in ("CFG_GEO", "CFG_WET", "CFG_TRAIN"):
+        assert f"with_aux<F, {cfg}>(A, args...)" in text
+    for a in range(3):
+        assert f"F<CFG, {a}>::run(args...)" in text
+
+
+def test_k3_wet_tree_is_the_plain_versions_order():
+    """K3 sums a slot's wet over a warp by a halving shuffle tree, the 8
+    warps' sums one after another: a model of those steps, with the lane of
+    each ray and the offsets parsed from trace_blend_fwd.cu, gives
+    `_ray_sum`'s float32 result to the bit on values of many magnitudes."""
+    text = _text(K3_SOURCE)
+    assert re.search(r"for \(int o = 16; o > 0; o >>= 1\) v \+= "
+                     r"__shfl_down_sync\(FULL, v, o\);", text)
+    assert "sum += wpart[ch & 1][k][tid];" in text and "float sum = 0.f;" in text
+    assert "(warp % (TILE / WARP_W)) * WARP_W + lane % WARP_W" in text
+    assert "(warp / (TILE / WARP_W)) * WARP_H + lane / WARP_W" in text
+    from envgs_tpu_torch.ops.trace_blend import _lane_rays, _ray_sum
+
+    lane = torch.arange(NPIX) % 32
+    warp = torch.arange(NPIX) // 32
+    ix = (warp % (16 // 8)) * 8 + lane % 8
+    iy = (warp // (16 // 8)) * 4 + lane // 8
+    assert torch.equal(_lane_rays("cpu"), iy * 16 + ix)
+    rng = np.random.default_rng(4)
+    x = torch.tensor((rng.random((50, NPIX)) * 10.0 ** rng.integers(
+        -6, 3, (50, NPIX))).astype(np.float32))
+    v = x[:, iy * 16 + ix].reshape(50, 8, 32).numpy()
+    for o in (16, 8, 4, 2, 1):  # lane l adds lane l + o (shfl_down)
+        v = v.copy()
+        v[..., :32 - o] = v[..., :32 - o] + v[..., o:]
+    total = np.zeros(50, np.float32)
+    for k in range(8):
+        total = total + v[:, k, 0]
+    np.testing.assert_array_equal(_ray_sum(x).numpy(), total)

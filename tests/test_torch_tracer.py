@@ -1,7 +1,8 @@
 """Parity of the port's surfel tracer (render path) with the JAX package:
 ray tiles, the chunk index, the cone cull (integer-equal), the plain
 version of kernel K3 against the Pallas kernel in interpret mode, and
-trace_rays end to end."""
+trace_rays end to end, also with the geometry outputs (the other `needs`:
+tests/test_torch_trace_needs.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -186,8 +187,24 @@ def test_trace_rays_matches_jax():
 
 
 def test_trace_rays_geometry_outputs_raise():
-    _, ts = _both()
+    """needs = (False, False, True), once refused, is the geometry path of
+    a traced base pass now (K3's geometry configuration): depth, normal,
+    acc and rgb within ATOL of JAX's (depth within ATOL of its largest
+    value: ray parameters of 4 to 9), distortion and wet zeros on both
+    sides."""
+    js, ts = _both()
     o, d = _rays()
-    with pytest.raises(NotImplementedError):
-        ttr.trace_rays(ts, torch.tensor(o), torch.tensor(d), torch.zeros(3),
-                       needs=(False, False, True))
+    want = jax.jit(lambda s: jtr.trace_rays(
+        s, jnp.asarray(o), jnp.asarray(d), jnp.zeros(3),
+        backend="tiled_interp", total_pair_cap=2 ** 14,
+        needs=(False, False, True)))(js)
+    got = ttr.trace_rays(ts, torch.tensor(o), torch.tensor(d), torch.zeros(3),
+                         total_pair_cap=2 ** 14, needs=(False, False, True))
+    for k in ("rgb", "acc", "trans", "norm", "dist", "wet"):
+        np.testing.assert_allclose(getattr(got, k).numpy(),
+                                   np.asarray(getattr(want, k)), atol=ATOL,
+                                   err_msg=k)
+    np.testing.assert_allclose(got.dpt.numpy(), np.asarray(want.dpt),
+                               atol=ATOL * float(np.abs(want.dpt).max()))
+    assert float(got.dpt.max()) > 4.0 and float(got.norm.abs().max()) > 0.5
+    assert not got.dist.any() and not got.wet.any()
