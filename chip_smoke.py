@@ -76,6 +76,9 @@ Phases, one or more lines each:
      printed; save, resume into a fresh runner (state equal); evaluation
      of two held-out views in exact order (K1 alone) and radial order (K1
      and K3); steps/s with maintenance, ms per event, render ms, memory;
+     the state entering the base opacity reset after the normal
+     propagation (every opacity 0.9) copied to the host, out of the timed
+     run, and saved as a second checkpoint for phase 18's mesh;
  15. a camera path: Runner.render_path(8, "orbit") through phase 14's
      trained scene from a fresh runner resumed from its checkpoint (views
      on a ring about the scene's centre, caps no frame can overflow): 8
@@ -120,6 +123,27 @@ Phases, one or more lines each:
      blends on the card's own inputs, and against the CPU render within
      SMALL_ATOL but for at most BRANCH_ROWS pixels within BRANCH_RTOL (a
      blend's discrete choice at the alpha floor on last-bit differences).
+ 18. the aux supervisors, LPIPS and the mesh: (a) the train bench scene's
+     step with the shipped perceptual loss (0.01 past iteration 21000) on a
+     random VGG16 written as the npz ops/lpips.py reads, and the aux depth
+     loss (weight 1) on the scene's own rendered depth with 5% seeded
+     noise, once with smoothl1 and once with ssimse: 1 + 5 steps each, K1-K5
+     once a step, finite loss and params, aux_dpt_loss and perc_loss in the
+     stats, nothing dropped; steps/s, stage ms, LPIPS forward and forward +
+     backward ms, peak memory; (b) phase 7's small step with the perceptual
+     loss and the aux supervisors, CUDA against CPU at phase 7's bounds;
+     (c) LPIPS of a 1558x1038 pair on the card against the CPU within
+     LPIPS_RTOL; (d) Runner.extract_mesh(res=256) at the mesh mode's own
+     acc_thresh of 0.5 from a runner resumed from phase 14's checkpoint
+     taken before its last opacity reset (the run ends three iterations
+     after one, where no pixel reaches 0.5): K1 and K3 once per fused view
+     and nothing else, a non-empty mesh, ms of the renders, the fusion,
+     the extraction and the ply, the TSDF and weights against the CPU's
+     from the same depths within TSDF_RTOL of their range; then
+     `cli.main(["mesh", "-c", <phase 15's smoke config>, "--mesh-res",
+     "128"])` from phase 15's smoke checkpoint; (e) make_scene's default
+     capture (12 views of 128x128 through the reference renderers): ms per
+     view, no kernel.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -229,6 +253,16 @@ OPS_RAY_TERMS = 41  # trace: plane hit t, local (u, v), alpha
 SEG_RTOL, SEG_ATOL = 1e-5, 1e-4
 # row counts that fill no whole stage, run or block of P2's ring
 RAGGED_N = (1, 15, 17, 2 ** 21 - 3)
+# phase 18: timed aux steps after one warm-up, per depth-loss kind; LPIPS
+# on the card against the CPU (relative: the same graph, convolutions in
+# another order); the mesh's TSDF grid (the mesh mode's default) and its
+# TSDF and weights card against CPU from the same depths, of their range
+# (fusion.py projects with separate products and sums: no device rounds a
+# matmul its own way into another nearest pixel)
+AUX_STEPS = 5
+LPIPS_RTOL = 1e-4
+MESH_RES = 256
+TSDF_RTOL = 1e-5
 
 
 def cuda_ms(fn, n):
@@ -411,11 +445,18 @@ def small_scene(device):
     return base, env, cam, cfg
 
 
-def small_train(device):
+def small_train(device, vgg_path=None):
     """One train step of the small scene from one numpy-made mid-run state
     (random Adam moments at step 10, so updates are smooth in the
-    gradients): (start state, new state, stats, gradients)."""
+    gradients): (start state, new state, stats, gradients). With
+    `vgg_path` (a VGG16 npz) the perceptual loss is on from iteration 0
+    and the aux supervisors (depth on a seeded prior with holes, mask,
+    entropy) are chained in (phase 18b)."""
+    import functools
+
     from envgs_tpu_torch.models.gaussians import GaussianParams
+    from envgs_tpu_torch.ops.lpips import load_weights, lpips_pair
+    from envgs_tpu_torch.train.aux_supervisors import AuxLossConfig
     from envgs_tpu_torch.train.optimizer import AdamState, LRConfig
     from envgs_tpu_torch.train.supervisor import LossConfig
     from envgs_tpu_torch.train.trainer import (
@@ -447,8 +488,20 @@ def small_train(device):
                           gs_dist_loss_start_iter=0,
                           env_opacity_loss_weight=0.01, msk_loss_weight=0.1,
                           msk_loss_start_iter=0)  # every term on
+    extra = {}
+    if vgg_path is not None:
+        loss_cfg = loss_cfg._replace(perc_loss_weight=0.01,
+                                     perc_loss_start_iter=0)
+        extra = dict(
+            lpips_fn=functools.partial(lpips_pair,
+                                       load_weights(vgg_path, device)),
+            aux_cfg=AuxLossConfig(dpt_loss_weight=1.0, msk_loss_weight=0.1,
+                                  ent_loss_weight=0.01))
+        dpt = rng.random((cam.H, cam.W, 1)) * 3 + 2
+        batch = batch._replace(dpt=t(np.where(
+            rng.random(dpt.shape) < 0.2, 0.0, dpt)))
     step = make_train_step(cam, cfg._replace(render_mode=False), loss_cfg,
-                           LRConfig(), LRConfig(), has_norm=True)
+                           LRConfig(), LRConfig(), has_norm=True, **extra)
     grads = {}
     new, stats = step(state, batch, cam.K, cam.R, cam.T, 25_000,
                       grads_out=grads)
@@ -849,14 +902,26 @@ def compare_small_run(got, want):
     return worst
 
 
+def _to_cpu(tree):
+    """A copy on the host of a tree of NamedTuples holding tensors."""
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_cpu(x) for x in tree))
+    return tree
+
+
 def full_run(device, out_root, kernels, size=None):
     """Phase 14: the compressed schedule through the Runner on the run
     scene (full width unless `size` shrinks it), then save, resume and
     evaluation. Returns (launch counts of the run, of the evaluation,
-    figures, make_runner(resume, run_views=None): a Runner of the run
-    scene, resumed from the run's checkpoint with `resume`, the views)."""
+    figures, make_runner(resume, run_views=None, exp="run"): a Runner of
+    the run scene, resumed with `resume` from the run's checkpoint, or with
+    exp="run_dense" from the one taken before the last opacity reset, the
+    views)."""
     from envgs_tpu_torch import bench
     from envgs_tpu_torch.models.gaussians import DensifyConfig
+    from envgs_tpu_torch.train import checkpoints as ckpt
     from envgs_tpu_torch.train import trainer
     from envgs_tpu_torch.train.optimizer import LRConfig
     from envgs_tpu_torch.train.runner import Runner
@@ -882,14 +947,14 @@ def full_run(device, out_root, kernels, size=None):
     sched = bench.compressed_schedule(normal_prop_interval=16)
     cfg = cfg._replace(reflection_start_iter=sched.reflection_start_iter)
 
-    def make_runner(resume, run_views=None):
+    def make_runner(resume, run_views=None, exp="run"):
         return Runner(
             run_views or views, base, env, cfg,
             LossConfig(perc_loss_weight=0.0), sched,
             DensifyConfig(max_gs=base.cap, **bench.RUN_DENSIFY),
             DensifyConfig(max_gs=env.cap, **bench.RUN_DENSIFY_ENV),
             LRConfig(),
-            LRConfig(), exp_name="run", out_root=out_root,
+            LRConfig(), exp_name=exp, out_root=out_root,
             eval_views=eval_views, resume=resume, log_every=5,
             save_latest_every=0)
 
@@ -912,9 +977,21 @@ def full_run(device, out_root, kernels, size=None):
             super().append(item)
 
     runner.events = TimedLog()
+    # the state entering the first base opacity reset after the normal
+    # propagation (which sets every opacity to 0.9): the last opaque one,
+    # kept on the host for phase 18's mesh, its copy's time taken out of
+    # the run's
+    dense_it = next(i for i in range(sched.opacity_reset_interval,
+                                     sched.total_iters,
+                                     sched.opacity_reset_interval)
+                    if i > sched.normal_prop_interval)
+    dense = {}
 
     def wrapped(st, it, log=None):
         sync()
+        if it == dense_it:
+            t0 = time.perf_counter()
+            dense.update(state=_to_cpu(st), s=time.perf_counter() - t0)
         snaps.append((time.perf_counter(), dict(kernels.LAUNCHES)))
         n0 = (int(st.base.stats.active.sum()), int(st.env.stats.active.sum()))
         log.t = time.perf_counter()
@@ -981,8 +1058,9 @@ def full_run(device, out_root, kernels, size=None):
             if not bool(torch.isfinite(p).all()):
                 raise AssertionError(f"run: non-finite {name}")
     grown = (runner.model_cfg.pair_cap, runner.model_cfg.env_pair_cap)
-    sps = total / (t_end - t_train)
+    sps = total / (t_end - t_train - dense["s"])
     step_ms = [(snaps[i + 1][0] - snaps[i][0]) * 1e3 for i in range(total)]
+    step_ms[dense_it - 1] -= dense["s"] * 1e3
     figures = dict(
         steps_per_s=sps, caps=(cap0, grown),
         event_ms={k: statistics.median(v) for k, v in event_ms.items()},
@@ -1020,13 +1098,22 @@ def full_run(device, out_root, kernels, size=None):
             for x, y in zip(*trees):
                 if not torch.equal(x[:n], y[act]):
                     raise AssertionError(f"resume: {which} arrays differ")
+    ckpt.save_checkpoint(os.path.join(out_root, "trained_model", "run_dense",
+                                      "latest.npz"), dense["state"], dense_it)
+    op = float(dense["state"].base.get_opacity.max())
+    if not op >= 0.5:
+        raise AssertionError(f"run: max base opacity {op} at it {dense_it}")
+    del dense["state"]
     files = sorted(os.listdir(again.model_dir))
     size_mb = os.path.getsize(os.path.join(again.model_dir,
                                            "latest.npz")) / 2 ** 20
     print(f"[run] saved {files} in {figures['save_s']:.1f} s (latest.npz "
           f"{size_mb:.0f} MiB), resumed into a fresh runner in "
           f"{figures['load_s']:.1f} s: iteration {again.start_iter}, active "
-          "rows, moments and steps equal", flush=True)
+          f"rows, moments and steps equal; the state entering it {dense_it} "
+          f"(max base opacity {op:.4f}) copied to the host in "
+          f"{dense['s'] * 1e3:.1f} ms (taken out of the run's times) and "
+          "saved for the mesh", flush=True)
 
     # ---- evaluation: exact order (K1 alone), radial order (K1 and K3) ----
     cam = eval_views[0]["camera"]
@@ -2075,6 +2162,276 @@ def traced_runs(kernels):
     return res, paths
 
 
+def write_vgg_npz(path, seed=0):
+    """A random VGG16 (seeded numpy, He-scaled so the taps keep their size)
+    with the lin{i}_w calibration, in the npz layout ops/lpips.py and the
+    JAX package read -> path. The repository holds no trained weights."""
+    from envgs_tpu_torch.ops.lpips import _PLAN
+
+    rng = np.random.default_rng(seed)
+    out, cin, i = {}, 3, 0
+    for item in _PLAN:
+        if item == "M":
+            continue
+        out[f"conv{i}_w"] = (rng.normal(size=(3, 3, cin, item))
+                             * np.sqrt(2.0 / (9 * cin))).astype(np.float32)
+        out[f"conv{i}_b"] = (rng.normal(size=item) * 0.05).astype(np.float32)
+        cin, i = item, i + 1
+    for j, c in enumerate((64, 128, 256, 512, 512)):
+        out[f"lin{j}_w"] = rng.random(c).astype(np.float32)
+    np.savez(path, **out)
+    return path
+
+
+def aux_step_run(kernels, vgg, card):
+    """Phase 18a and c: the train bench scene's step with the shipped
+    perceptual loss (0.01 past iteration 21000) on a random VGG16 and the
+    aux depth loss (weight 1) on the scene's own rendered depth with 5%
+    seeded noise (holes where acc < 0.5), once with each of smoothl1 and
+    ssimse: 1 + AUX_STEPS steps each, K1-K5 once a step, finite loss and
+    params, nothing dropped; then LPIPS alone, its ms and the card against
+    the CPU. -> launch counts of the steps."""
+    import functools
+
+    from envgs_tpu_torch import bench
+    from envgs_tpu_torch.models.envgs import forward_envgs
+    from envgs_tpu_torch.ops.lpips import load_weights, lpips_pair
+    from envgs_tpu_torch.train.aux_supervisors import AuxLossConfig
+    from envgs_tpu_torch.train.optimizer import LRConfig
+    from envgs_tpu_torch.train.supervisor import LossConfig
+    from envgs_tpu_torch.train.trainer import (
+        init_train_state,
+        make_train_step,
+    )
+
+    base, env, cam, cfg, batch = bench.make_train_scene("cuda")
+    with torch.no_grad():
+        out = forward_envgs(base, env, cam, bench.TRAIN_IT,
+                            cfg._replace(render_mode=True))
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    noisy = out.dpt_map * (1 + 0.05 * torch.randn(
+        out.dpt_map.shape, generator=gen, device="cuda"))
+    batch = batch._replace(dpt=torch.where(out.acc_map > 0.5, noisy,
+                                           torch.zeros_like(noisy)))
+    hole = float((batch.dpt == 0).float().mean())
+    del out, noisy
+    lp = functools.partial(lpips_pair, load_weights(vgg, "cuda"))
+    loss_cfg = LossConfig()
+    if not bench.TRAIN_IT > loss_cfg.perc_loss_start_iter:
+        raise AssertionError("the bench iteration is before the perceptual "
+                             "loss's start")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    sps = {}
+    for kind in ("smoothl1", "ssimse"):
+        step = make_train_step(
+            cam, cfg, loss_cfg, LRConfig(), LRConfig(), has_norm=True,
+            lpips_fn=lp, aux_cfg=AuxLossConfig(dpt_loss_weight=1.0,
+                                               dpt_loss_kind=kind))
+        state = init_train_state(base, env)
+        for i in range(AUX_STEPS + 1):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            before = dict(kernels.LAUNCHES)
+            state, stats = step(state, batch, cam.K, cam.R, cam.T,
+                                bench.TRAIN_IT)
+            rose = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+            loss = float(stats["loss"])
+            of, dr = int(stats["pair_overflow"]), int(stats["trace_dropped"])
+            if any(v != (k in TRAIN_KERNELS) for k, v in rose.items()):
+                raise AssertionError(f"aux step {kind} {i}: launches {rose}")
+            if not ({"aux_dpt_loss", "perc_loss"} <= set(stats)
+                    and np.isfinite(loss) and not of and not dr):
+                raise AssertionError(f"aux step {kind} {i}: loss {loss}, "
+                                     f"stats {sorted(stats)}, overflow {of},"
+                                     f" dropped {dr}")
+            if i in (0, AUX_STEPS):
+                print(f"[aux] {kind} step {i}: loss {loss:.6f}, aux_dpt_loss "
+                      f"{float(stats['aux_dpt_loss']):.6f}, perc_loss "
+                      f"{float(stats['perc_loss']):.6f}, psnr "
+                      f"{float(stats['psnr']):.4f}, launches "
+                      f"{ {k: v for k, v in rose.items() if v} }", flush=True)
+        torch.cuda.synchronize()
+        sps[kind] = AUX_STEPS / (time.perf_counter() - t0)
+        for pool in (state.base, state.env):
+            for name, p in zip(pool.params._fields, pool.params):
+                if not bool(torch.isfinite(p).all()):
+                    raise AssertionError(f"aux {kind}: non-finite {name}")
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stages = bench.train_stage_times(step, state, batch, cam, reps=3)
+    x = batch.rgb.clone().requires_grad_(True)
+    y = torch.clamp(batch.rgb + 0.1 * torch.randn(
+        batch.rgb.shape, generator=gen, device="cuda"), 0, 1)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: lp(x, y), 5)
+    both_ms = cuda_ms(lambda: torch.autograd.grad(lp(x, y), x), 5)
+    print(f"[aux] train bench scene ({cam.W}x{cam.H}, it={bench.TRAIN_IT}) "
+          f"with the perceptual loss (weight {loss_cfg.perc_loss_weight}, "
+          f"random VGG16) and the aux depth loss on its rendered depth "
+          f"({hole:.3f} of the pixels holes): {AUX_STEPS} steps after a "
+          f"warm-up, each launching K1-K5 once, nothing dropped, params "
+          f"finite; steps/s smoothl1 {sps['smoothl1']:.4f}, ssimse "
+          f"{sps['ssimse']:.4f}; stage ms (ssimse, median of 3, CUDA events) "
+          + json.dumps({k: round(v, 3) for k, v in stages.items()})
+          + f"; LPIPS of the {cam.W}x{cam.H} pair forward {fwd_ms:.3f} ms, "
+          f"forward + backward {both_ms:.3f} ms; peak device memory "
+          f"{peak:.2f} GiB [{card}]", flush=True)
+    with torch.no_grad():
+        got = float(lp(x, y))
+        t0 = time.perf_counter()
+        want = float(lpips_pair(load_weights(vgg, "cpu"), x.detach().cpu(),
+                                y.cpu()))
+        cpu_s = time.perf_counter() - t0
+    rel = abs(got - want) / abs(want)
+    print(f"[aux] LPIPS of the {cam.W}x{cam.H} pair: card {got:.7g}, CPU "
+          f"{want:.7g} ({cpu_s:.1f} s), relative {rel:.3g} (bound "
+          f"{LPIPS_RTOL:g})", flush=True)
+    if not rel <= LPIPS_RTOL:
+        raise AssertionError(f"LPIPS card {got} vs CPU {want}")
+    return launches
+
+
+def mesh_run(kernels, make_runner, smoke_dir, card):
+    """Phase 18d: Runner.extract_mesh(res=MESH_RES) at its default
+    acc_thresh from a runner resumed from phase 14's checkpoint taken
+    before its last opacity reset, K1 and K3 once per fused view and nothing
+    else, each stage timed, the TSDF and weights against the CPU's from
+    the same depths; then `mesh -c smoke.yaml --mesh-res 128` from phase
+    15's smoke checkpoint in `smoke_dir`. -> (launch counts of each)."""
+    from envgs_tpu_torch import cli
+    from envgs_tpu_torch.utils import fusion
+
+    runner = make_runner(True, exp="run_dense")
+    ms, seen, per_view = {}, {}, []
+    orig = {k: getattr(fusion, k) for k in ("tsdf_fuse",
+                                            "marching_tetrahedra",
+                                            "save_mesh_ply")}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            torch.cuda.synchronize()
+            ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+            if name == "tsdf_fuse":
+                seen.update(args=args, kw=kw, out=res)
+            return res
+        return run
+
+    render_view = runner.render_view
+
+    def counted_render(*args, **kw):
+        before = dict(kernels.LAUNCHES)
+        out = timed("render", render_view)(*args, **kw)
+        per_view.append({k: kernels.LAUNCHES[k] - before[k] for k in before})
+        return out
+
+    runner.render_view = counted_render
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    try:
+        for name, fn in orig.items():
+            setattr(fusion, name, timed(name, fn))
+        t0 = time.perf_counter()
+        path = runner.extract_mesh(res=MESH_RES)
+        total_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, fn in orig.items():
+            setattr(fusion, name, fn)
+    launches = dict(kernels.LAUNCHES)
+    want = {k: int(k in RENDER_KERNELS) for k in launches}
+    if len(per_view) != len(runner.views) or any(v != want for v in per_view):
+        raise AssertionError(f"mesh renders: launches {per_view}")
+    if launches != {k: len(per_view) * v for k, v in want.items()}:
+        raise AssertionError(f"mesh: launches {launches}")
+    verts, faces = fusion.load_mesh_ply(path)
+    if not (len(faces) and np.isfinite(verts).all()):
+        raise AssertionError(f"mesh: {len(verts)} verts, {len(faces)} faces")
+    depths, cams, bounds = seen["args"]
+    tsdf, w = seen["out"]
+    cpu_cams = [c._replace(K=c.K.cpu(), R=c.R.cpu(), T=c.T.cpu())
+                for c in cams]
+    t0 = time.perf_counter()
+    tsdf_c, w_c = orig["tsdf_fuse"](depths.cpu(), cpu_cams, bounds,
+                                    **seen["kw"])
+    cpu_s = time.perf_counter() - t0
+    errs = {}
+    for name, g, c in (("tsdf", tsdf, tsdf_c), ("weights", w, w_c)):
+        span = float(c.max() - c.min())
+        errs[name] = float((g.cpu() - c).abs().max()) / max(span, 1e-30)
+    obs = int((w > 0).sum())
+    print(f"[mesh] extract_mesh(res={MESH_RES}, acc_thresh=0.5) of the run "
+          f"scene resumed at iteration "
+          f"{runner.start_iter}: {len(per_view)} views "
+          f"({cams[0].W}x{cams[0].H}) each launching K1 and K3 once, "
+          f"{obs} observed voxels of {MESH_RES ** 3}; {len(verts)} verts / "
+          f"{len(faces)} faces; ms: renders {sum(ms['render']):.1f} ("
+          f"{statistics.median(ms['render']):.1f} a view), fuse "
+          f"{ms['tsdf_fuse'][0]:.1f}, extraction "
+          f"{ms['marching_tetrahedra'][0]:.1f}, ply "
+          f"{ms['save_mesh_ply'][0]:.1f}, in all {total_ms:.1f}; the TSDF "
+          f"against the CPU's from the same depths ({cpu_s:.1f} s there): "
+          f"max|d| / range {errs['tsdf']:.3g}, weights {errs['weights']:.3g}"
+          f" (bound {TSDF_RTOL:g}) [{card}]", flush=True)
+    if not max(errs.values()) <= TSDF_RTOL:
+        raise AssertionError(f"mesh TSDF card vs CPU: {errs}")
+    del runner, seen, tsdf, w, tsdf_c, w_c, depths
+
+    cwd = os.getcwd()
+    os.chdir(smoke_dir)
+    try:
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        out = cli.main(["mesh", "-c", "smoke.yaml", "--mesh-res", "128"])
+        cli_s = time.perf_counter() - t0
+        cli_launches = dict(kernels.LAUNCHES)
+        verts, faces = fusion.load_mesh_ply(out)
+    finally:
+        os.chdir(cwd)
+    n = cli_launches[RENDER_KERNELS[0]]
+    if not (n and all(cli_launches[k] == (n if k in RENDER_KERNELS else 0)
+                      for k in cli_launches)):
+        raise AssertionError(f"cli mesh: launches {cli_launches}")
+    if not (len(faces) and np.isfinite(verts).all()):
+        raise AssertionError(f"cli mesh: {len(faces)} faces")
+    print(f"[mesh] cli: mesh -c smoke.yaml --mesh-res 128 from the smoke "
+          f"checkpoint in {cli_s:.1f} s (the synthetic scene built first): "
+          f"{len(verts)} verts / {len(faces)} faces in {out}; launches "
+          f"{ {k: v for k, v in cli_launches.items() if v} } [{card}]",
+          flush=True)
+    return launches, cli_launches
+
+
+def scene_run(kernels, card):
+    """Phase 18e: make_scene's default capture (12 views of 128x128)
+    through the reference renderers on the card: ms per view, no kernel
+    launched (the oracles are plain PyTorch), the capture in view."""
+    from envgs_tpu_torch.data.synthetic import make_scene
+
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = make_scene()
+    ms = (time.perf_counter() - t0) * 1e3 / len(scene.cams)
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"make_scene launched {kernels.LAUNCHES}")
+    cover = [float(m.mean()) for m in scene.masks]
+    if not (all(np.isfinite(i).all() for i in scene.images)
+            and 0.05 < min(cover) and max(cover) < 1.0):
+        raise AssertionError(f"make_scene: masks cover {cover}")
+    print(f"[scene] make_scene(): {len(scene.cams)} views of "
+          f"{scene.cams[0].W}x{scene.cams[0].H} through the reference "
+          f"renderers in {ms:.1f} ms a view, no kernel launched, masks cover "
+          f"{min(cover):.3f}-{max(cover):.3f} [{card}]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2781,30 +3138,50 @@ def main():
           flush=True)
     del want, got
 
-    # ---- 14. the run at full width ----
-    with tempfile.TemporaryDirectory() as tmp:
+    card = smi.strip().splitlines()[0]
+    # phase 14's checkpoint and phase 15's smoke checkpoint stay on disk
+    # for phase 18's meshes
+    with contextlib.ExitStack() as keep:
+        run_tmp = keep.enter_context(tempfile.TemporaryDirectory())
+        smoke_tmp = keep.enter_context(tempfile.TemporaryDirectory())
+        # ---- 14. the run at full width ----
         run_launches, eval_launches, _, make_run_runner, run_views = full_run(
-            "cuda", tmp, kernels)
+            "cuda", run_tmp, kernels)
         # ---- 15. a camera path through the trained scene ----
         path_launches, _ = path_run(make_run_runner,
                                     run_views[0]["camera"], kernels)
-        del make_run_runner, run_views
-    with tempfile.TemporaryDirectory() as tmp:
-        cli_launches = cli_run(kernels, tmp)
+        del run_views
+        cli_launches = cli_run(kernels, smoke_tmp)
 
-    # ---- 16. a capture on disk at full width, through the configs ----
-    with tempfile.TemporaryDirectory() as tmp:
-        capture_launches = capture_runs(kernels, tmp,
-                                        smi.strip().splitlines()[0])
+        # ---- 16. a capture on disk at full width, through the configs ----
+        with tempfile.TemporaryDirectory() as tmp:
+            capture_launches = capture_runs(kernels, tmp, card)
 
-    # ---- 17. base tracing, two bounces, the goldens ----
-    traced, traced_paths = traced_runs(kernels)
+        # ---- 17. base tracing, two bounces, the goldens ----
+        traced, traced_paths = traced_runs(kernels)
+
+        # ---- 18. aux supervisors + LPIPS, the mesh, the capture ----
+        vgg = write_vgg_npz(os.path.join(smoke_tmp, "vgg16.npz"))
+        aux_launches = aux_step_run(kernels, vgg, card)
+        worst = compare_small_train(small_train("cuda", vgg),
+                                    small_train("cpu", vgg))
+        print("[aux] small step with the aux supervisors and LPIPS, cuda vs "
+              "cpu " + json.dumps({k: (v if isinstance(v, int)
+                                       else float(f"{v:.3g}"))
+                                   for k, v in worst.items()
+                                   if k.startswith(("stat", "grad", "flips"))})
+              + f" (phase 7's bounds)", flush=True)
+        mesh_launches, mesh_cli_launches = mesh_run(kernels, make_run_runner,
+                                                    smoke_tmp, card)
+        del make_run_runner
+        scene_run(kernels, card)
 
     paths = {"render": render_launches, "train": train_launches,
              "gaussiant": gaussiant_launches, "run": run_launches,
              "run_eval": eval_launches, "probe": probe_launches,
              "render_path": path_launches, "cli": cli_launches,
-             **capture_launches, **traced_paths}
+             **capture_launches, **traced_paths, "aux_train": aux_launches,
+             "mesh": mesh_launches, "mesh_cli": mesh_cli_launches}
 
     def entry(name, src, replaces, err, ms, plain_ms, bound, library_ms=None,
               keys=None, **extra):

@@ -1,5 +1,5 @@
-"""Command-line entry points of the port: train / test / render / smoke /
-dist / sig (port of envgs_tpu/cli.py for the EnvGS family and the
+"""Command-line entry points of the port: train / test / render / mesh /
+smoke / dist / sig (port of envgs_tpu/cli.py for the EnvGS family and the
 config-driven plain 3DGS family, on the synthetic scene or a capture on
 disk).
 
@@ -12,10 +12,14 @@ disk).
       model_cfg.sampler_cfg.tracer_backend=tiled
   python -m envgs_tpu_torch render -c <config> --path-kind orbit \
       --path-frames 60 [--path-dir <dir with intri.yml, extri.yml>]
+  python -m envgs_tpu_torch mesh -c <config> [--mesh-res 256] \
+      [--mesh-stride 1]
   python -m envgs_tpu_torch sig --name <experiment> [--signal usr2]
 
 `render` resumes the latest checkpoint (through make_runner) and writes the
-frames of a camera path under `<out_root>/result/<exp>/<kind>/`; `dist` is
+frames of a camera path under `<out_root>/result/<exp>/<kind>/`; `mesh`
+resumes it too and writes the TSDF-fused mesh of the training views' depths
+as `<out_root>/result/<exp>/mesh.ply` (Runner.extract_mesh); `dist` is
 `train` (one process, one card); `sig` sends SIGUSR1 (status line and a
 checkpoint) or SIGUSR2 (checkpoint only) to the running python processes
 whose command line names envgs_tpu and `--name`; `--debug-nans` turns on
@@ -31,9 +35,10 @@ the blends' kernels on the card, `ref` the exact oracles
 multiview` reads a capture in easyvolcap layout (data/dataset.py:
 `images/<cam>/`, `intri.yml` / `extri.yml`, `sparse/0`, `normals/`,
 `envs/points3D.ply`). `train` with `sampler_cfg.type: GaussianTSampler` runs
-the 3DGS family's loop (through `engine.TRAINERS`). A mode or option the
-port lacks (aux supervisors, the other model families, `mesh`, `ws`) raises
-NotImplementedError naming it.
+the 3DGS family's loop (through `engine.TRAINERS`).
+`model_cfg.supervisor_cfg.aux_cfg` enables the aux supervisors by weight
+(train/aux_supervisors.py::AuxLossConfig). A mode or option the port lacks
+(the other model families, `ws`) raises NotImplementedError naming it.
 """
 from __future__ import annotations
 
@@ -49,13 +54,14 @@ from envgs_tpu_torch.engine import TRAINERS, Config, call_filtered, load_config
 from envgs_tpu_torch.models import gaussians as G
 from envgs_tpu_torch.models.envgs import EnvGSConfig
 from envgs_tpu_torch.ops.common import BACKENDS, check_backend
+from envgs_tpu_torch.train.aux_supervisors import AuxLossConfig
 from envgs_tpu_torch.train.optimizer import LRConfig
 from envgs_tpu_torch.train.runner import Runner
 from envgs_tpu_torch.train.supervisor import LossConfig
 from envgs_tpu_torch.train.trainer import CamOptConfig, ScheduleConfig
 
-MODES = ("train", "test", "render", "smoke", "dist", "sig")
-UNPORTED_MODES = ("mesh", "ws")
+MODES = ("train", "test", "render", "mesh", "smoke", "dist", "sig")
+UNPORTED_MODES = ("ws",)
 
 
 # sampler_cfg keys that no config tuple holds: build_from_config and
@@ -145,7 +151,8 @@ def _load_views(cfg: Config, device="cuda"):
 
 def build_from_config(cfg: Config, device="cuda"):
     """Config dict -> (views, eval_views, base, env, model_cfg, loss_cfg,
-    sched, dens_base, dens_env, lr_base, lr_env), the pools on `device`."""
+    sched, dens_base, dens_env, lr_base, lr_env, aux_cfg), the pools on
+    `device`; aux_cfg is None unless supervisor_cfg.aux_cfg sets a key."""
     mcfg = cfg.get("model_cfg", {})
     scfg = dict(mcfg.get("sampler_cfg", {}) or {})
     for kind in ("raster", "tracer"):  # the backend names, before any work
@@ -165,10 +172,10 @@ def build_from_config(cfg: Config, device="cuda"):
     sched = _named(ScheduleConfig, {**scfg, **rcfg}, known | set(rcfg))
 
     sup = mcfg.get("supervisor_cfg", {}) or {}
-    if sup.get("aux_cfg"):
-        raise NotImplementedError(
-            "supervisor_cfg.aux_cfg: the aux supervisors are not ported")
     loss_cfg = _named(LossConfig, sup, {"type", "aux_cfg"})
+    # the chained aux supervisors, enabled by weight
+    aux_raw = sup.get("aux_cfg", {}) or {}
+    aux_cfg = _named(AuxLossConfig, aux_raw) if aux_raw else None
 
     ocfg = cfg.get("runner_cfg", {}).get("optimizer_cfg", {})
     lr_table = ocfg.get("lr_table", {})
@@ -235,7 +242,7 @@ def build_from_config(cfg: Config, device="cuda"):
         sh_degree=int(scfg.get("env_sh_deg", 3)),
         init_opacity=float(scfg.get("env_init_occ", 0.1)), device=device)
     return (views, eval_views, base, env, model_cfg, loss_cfg, sched,
-            dens_base, dens_env, lr_base, lr_env)
+            dens_base, dens_env, lr_base, lr_env, aux_cfg)
 
 
 def _moderators(cfg: Config) -> dict:
@@ -278,7 +285,7 @@ def make_runner(cfg: Config, device="cuda") -> Runner:
     rcfg = cfg.get("runner_cfg", {})
     moderators = _moderators(cfg)
     (views, eval_views, base, env, model_cfg, loss_cfg, sched, dens_base,
-     dens_env, lr_base, lr_env) = build_from_config(cfg, device)
+     dens_env, lr_base, lr_env, aux_cfg) = build_from_config(cfg, device)
 
     ccfg = cfg.get("model_cfg", {}).get("camera_cfg", {}) or {}
     cam_opt = CamOptConfig(
@@ -300,6 +307,7 @@ def make_runner(cfg: Config, device="cuda") -> Runner:
         eval_every_iters=rcfg.get("eval_every_iters", 0),
         resume=rcfg.get("resume", True),
         cam_opt=cam_opt,
+        aux_cfg=aux_cfg,
         **moderators,
         collect_timing=bool(rcfg.get("collect_timing", False)),
         timer_sync=bool(rcfg.get("timer_sync_cuda", False)),
@@ -438,6 +446,10 @@ def main(argv=None, device="cuda"):
     p.add_argument("--path-dir", default=None,
                    help="render mode: a saved camera path (intri.yml, "
                    "extri.yml) as the keyframes, interpolated as cubic")
+    p.add_argument("--mesh-res", type=int, default=256,
+                   help="mesh mode: TSDF grid resolution")
+    p.add_argument("--mesh-stride", type=int, default=1,
+                   help="mesh mode: fuse every Nth training view")
     p.add_argument("--debug-nans", action="store_true",
                    help="turn on autograd's anomaly detection: a backward "
                    "that makes a NaN raises at the operation (slow)")
@@ -465,7 +477,7 @@ def main(argv=None, device="cuda"):
         return runner.test()
 
     if not a.config:
-        p.error("train/test/render require -c <config[,config2,...]>")
+        p.error("train/test/render/mesh require -c <config[,config2,...]>")
     cfg = load_config(a.config, overrides=a.opts, root=os.getcwd())
     mcfg = cfg.get("model_cfg", {}) or {}
     styp = (mcfg.get("sampler_cfg", {}) or {}).get("type")
@@ -485,6 +497,8 @@ def main(argv=None, device="cuda"):
             tag="file" if a.path_dir else a.path_kind, path_dir=a.path_dir)
         print(f"[render] wrote {out}")
         return out
+    if a.mode == "mesh":
+        return runner.extract_mesh(res=a.mesh_res, stride=a.mesh_stride)
     if a.mode == "train":
         runner.train()
     return runner.test()

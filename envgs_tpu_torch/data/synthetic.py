@@ -3,11 +3,12 @@ synthetic.py): a specular floor reflecting a colorful environment dome plus
 diffuse blobs, with known ground-truth pools, cameras on a ring, and the
 multi-view capture rendered from those pools.
 
-The pools and cameras are the JAX package's, draw for draw. The capture is
-rendered by the port's own `forward_envgs` in render mode with the exact
-per-ray tracer order (the JAX package renders its capture with its exact
-reference renderers, which are not ported), so the images agree with the
-JAX package's up to what separates the tile renderers from the references.
+The pools and cameras are the JAX package's, draw for draw, and the capture
+is rendered as the JAX package renders it: `forward_envgs` in training mode
+at iteration 10**6 through the exact reference renderers (the `ref`
+backends, ops/raster_ref.py and ops/tracer_ref.py), with the reflection
+pass on from iteration 0 and a pair cap of 2**14, on the pools' device. The
+images agree with the JAX package's to float32 rounding.
 """
 from __future__ import annotations
 
@@ -158,8 +159,8 @@ def make_scene(n_views: int = 12, H: int = 128, W: int = 128,
     """Render the ground-truth multi-view capture from the known pools."""
     base, env = make_gt_pools(seed=seed, device=device)
     cams = make_cameras(n_views, H, W, device=device)
-    cfg = EnvGSConfig(reflection_start_iter=0, pair_cap=2 ** 16,
-                      render_mode=True, tracer_exact_order=True)
+    cfg = EnvGSConfig(raster_backend="ref", tracer_backend="ref",
+                      reflection_start_iter=0, pair_cap=2 ** 14)
     views = [capture_view(base, env, cam, cfg) for cam in cams]
     images, masks, normals = (list(x) for x in zip(*views))
     return Scene(cams, images, masks, normals, base, env)

@@ -1,12 +1,16 @@
-"""Image losses and quality metrics (port of the parts of
-envgs_tpu/ops/losses.py the train step uses): l1, l2, psnr, cos_sim and
-SSIM with the 11-tap Gaussian window.
+"""Image losses and quality metrics (port of envgs_tpu/ops/losses.py
+without its band-parallel SSIM): l1 / l2 / mse / charbonnier / huber /
+l1_reg, psnr, cos_sim, SSIM with the 11-tap Gaussian window, MS-SSIM, and
+the host LPIPS through torchvision's VGG16 when that is installed.
 
 SSIM filters separably with shifted adds, as the JAX package does, and
 differentiates with plain autograd. (The JAX package's closed-form SSIM
 backward is a measure against its TPU compiler, not a different gradient.)
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -17,6 +21,24 @@ def l1(x, y):
 
 def l2(x, y):
     return torch.mean((x - y) ** 2)
+
+
+def mse(x, y):
+    return l2(x, y)
+
+
+def charbonnier(x, y, eps: float = 1e-3):
+    return torch.mean(torch.sqrt((x - y) ** 2 + eps * eps))
+
+
+def huber(x, y, delta: float = 1.0):
+    d = torch.abs(x - y)
+    return torch.mean(torch.where(d < delta, 0.5 * d * d,
+                                  delta * (d - 0.5 * delta)))
+
+
+def l1_reg(x):
+    return torch.mean(torch.abs(x))
 
 
 def cos_sim(x, y, dim=-1, eps=1e-8):
@@ -68,3 +90,87 @@ def ssim(x, y, win_size: int = 11, sigma: float = 1.5, max_val: float = 1.0):
     num = (2 * mu_xy + C1) * (2 * sxy + C2)
     den = (mu_x2 + mu_y2 + C1) * (sx + sy + C2)
     return torch.mean(num / den)
+
+
+def msssim(x, y, win_size: int = 11, levels: int = 5):
+    """Multi-scale SSIM of (H, W, C) images with the standard level
+    weights; the levels are clamped so that the coarsest scale still holds
+    one window."""
+    max_levels = max(1, int(math.floor(
+        math.log2(min(x.shape[0], x.shape[1]) / win_size))) + 1)
+    levels = min(levels, max_levels)
+    weights = torch.tensor([0.0448, 0.2856, 0.3001, 0.2363, 0.1333],
+                           device=x.device)[:levels]
+    weights = weights / torch.sum(weights)
+    win = _gaussian_window(win_size, 1.5, x.device)
+    C1, C2 = 0.01 ** 2, 0.03 ** 2
+    vals = []
+    for lvl in range(levels):
+        mu_x = _filter2d_sep(x, win)
+        mu_y = _filter2d_sep(y, win)
+        sx = _filter2d_sep(x * x, win) - mu_x * mu_x
+        sy = _filter2d_sep(y * y, win) - mu_y * mu_y
+        sxy = _filter2d_sep(x * y, win) - mu_x * mu_y
+        cs = torch.mean((2 * sxy + C2) / (sx + sy + C2))
+        if lvl == levels - 1:
+            lum = torch.mean((2 * mu_x * mu_y + C1)
+                             / (mu_x * mu_x + mu_y * mu_y + C1))
+            vals.append(torch.clamp(lum * cs, min=1e-6))
+        else:
+            vals.append(torch.clamp(cs, min=1e-6))
+            H, W = x.shape[0] // 2 * 2, x.shape[1] // 2 * 2  # 2x average pool
+            x = x[:H, :W].reshape(H // 2, 2, W // 2, 2, -1).mean((1, 3))
+            y = y[:H, :W].reshape(H // 2, 2, W // 2, 2, -1).mean((1, 3))
+    return torch.prod(torch.stack(vals) ** weights)
+
+
+@functools.lru_cache(maxsize=1)
+def _lpips_net():
+    """torchvision's pretrained VGG16 features, or None where torchvision
+    is not installed or its weights cannot be had (neither machine of this
+    repository has torchvision)."""
+    try:
+        import torchvision
+
+        return torchvision.models.vgg16(weights="IMAGENET1K_V1").features.eval()
+    except Exception:  # no package, no cached weights, no network
+        return None
+
+
+def lpips(x, y):
+    """LPIPS(VGG) of (H, W, 3) images in [0, 1] (arrays or tensors) on the
+    host through torchvision's VGG16 (the lin{i}_w calibration of
+    ops/lpips.py's npz applied per tap when the npz carries it) -> float,
+    or None without the network. The evaluator's fallback where no npz of
+    VGG16 weights exists."""
+    net = _lpips_net()
+    if net is None:
+        return None
+    from envgs_tpu_torch.ops.lpips import _SCALE, _SHIFT, load_weights
+
+    lw = load_weights(device="cpu")
+    lins = lw[1] if lw is not None else None
+    shift = torch.from_numpy(_SHIFT).view(1, 3, 1, 1)
+    scale = torch.from_numpy(_SCALE).view(1, 3, 1, 1)
+
+    def prep(a):
+        a = torch.as_tensor(a, dtype=torch.float32).cpu()
+        return (a.permute(2, 0, 1)[None] * 2 - 1 - shift) / scale
+
+    taps = {3, 8, 15, 22, 29}  # the relu after each tap's last convolution
+    with torch.no_grad():
+        fx, fy = prep(x), prep(y)
+        dist, ti = 0.0, 0
+        for i, layer in enumerate(net):
+            fx, fy = layer(fx), layer(fy)
+            if i in taps:
+                nx = fx / (fx.norm(dim=1, keepdim=True) + 1e-10)
+                ny = fy / (fy.norm(dim=1, keepdim=True) + 1e-10)
+                d2 = (nx - ny) ** 2
+                if lins is not None:
+                    dist = dist + (d2 * lins[ti].view(1, -1, 1, 1)).sum(
+                        dim=1).mean()
+                else:
+                    dist = dist + d2.mean()
+                ti += 1
+    return float(dist)

@@ -1,9 +1,10 @@
 """Evaluator and visualizer (port of envgs_tpu/train/evaluator.py).
 
 - per-frame PSNR / SSIM (11-tap window) / LPIPS and render time, with a
-  mean/std summary written to `<result_dir>/metrics.json`. LPIPS needs
-  VGG16 weights that the repository does not carry; it is reported as NaN,
-  as the JAX package reports it without them;
+  mean/std summary written to `<result_dir>/metrics.json`. LPIPS is the
+  graph of ops/lpips.py over the VGG16 npz when one exists, else the host
+  LPIPS of ops/losses.py (torchvision's VGG16, where installed), else NaN,
+  as in the JAX package;
 - typed image dumps {RENDER, DEPTH, ALPHA, NORMAL, SURFACE_NORMAL, SPECULAR,
   DIFFUSE, REFLECTION} plus _gt/_error panels as
   `<result_dir>/<TYPE>/frame####_camera####.png`, written by a bounded
@@ -19,7 +20,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from envgs_tpu_torch.ops.losses import lpips as lpips_host
 from envgs_tpu_torch.ops.losses import psnr, ssim
+from envgs_tpu_torch.ops.lpips import default_weight_path, lpips_fn
 
 
 def _to_u8(im: np.ndarray) -> np.ndarray:
@@ -61,7 +64,13 @@ class Evaluator:
         row = {"name": name, "psnr": float(psnr(rgb, gt)),
                "ssim": float(ssim(rgb, gt)), "time": render_time}
         if self.compute_lpips:
-            row["lpips"] = float("nan")  # no VGG16 weights in the repository
+            fn = lpips_fn(default_weight_path(), rgb.device)
+            if fn is not None:
+                with torch.no_grad():
+                    row["lpips"] = float(fn(rgb, gt))
+            else:
+                lp = lpips_host(rgb, gt)
+                row["lpips"] = lp if lp is not None else float("nan")
         self.rows.append(row)
         return row
 

@@ -11,10 +11,12 @@ that writes metrics.json and typed image dumps, and camera-path rendering
 default. The dataset moderators pick each iteration's training view: the
 ratio and centre-crop schedules (train/moderators.py) and patch training,
 on every iteration or, with `alternating`, on its "patch" iterations.
+The step chains the aux supervisors of `aux_cfg` (on a view's `dpt` depth
+prior) and the perceptual loss when VGG16 weights exist (ops/lpips.py);
+`extract_mesh` fuses rendered depths into a TSDF and writes its
+isosurface (utils/fusion.py).
 
-Not ported, so not accepted as arguments: the aux supervisors, the
-multi-host hooks and `extract_mesh`. LPIPS stays inert (no VGG16 weights
-in the repository).
+Not ported, so not accepted as arguments: the multi-host hooks.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from envgs_tpu_torch.models.envgs import (
     render_base,
 )
 from envgs_tpu_torch.ops.binning import bin_splats
+from envgs_tpu_torch.ops.lpips import default_weight_path, lpips_fn
 from envgs_tpu_torch.ops.common import ROWCULL_LOWPASS_R, prepare_splats
 from envgs_tpu_torch.ops.raster import _pack_table
 from envgs_tpu_torch.ops.raster_blend import CHUNK, TILE, blend_tiles
@@ -73,6 +76,7 @@ from envgs_tpu_torch.train.trainer import (
     make_maintenance,
     make_train_step,
 )
+from envgs_tpu_torch.utils import fusion
 from envgs_tpu_torch.utils.camera import (
     Camera,
     camera_path_interpolate,
@@ -163,6 +167,7 @@ class Runner:
         crop_sched: CenterCropSchedule | None = None,
         patch_size: tuple[int, int] | None = None,
         alternating: AlternatingSchedule | None = None,
+        aux_cfg=None,  # AuxLossConfig | None: the chained aux supervisors
         collect_timing: bool = False,
         timer_sync: bool = False,
         timer_record_to_file: str | None = None,
@@ -195,6 +200,7 @@ class Runner:
         self.log_every = log_every
         self.eval_every_iters = eval_every_iters
         self.cam_opt_cfg = cam_opt
+        self.aux_cfg = aux_cfg
         self.device = base.params.xyz.device
 
         self.ratio_sched = ratio_sched
@@ -236,17 +242,28 @@ class Runner:
         if key not in self._step_cache:
             self._step_cache[key] = make_train_step(
                 cam, self.model_cfg, self.loss_cfg, self.lr_base, self.lr_env,
-                has_norm=self.has_norm, cam_opt=self.cam_opt_cfg)
+                has_norm=self.has_norm, cam_opt=self.cam_opt_cfg,
+                lpips_fn=self._lpips_fn(), aux_cfg=self.aux_cfg)
         return self._step_cache[key]
+
+    def _lpips_fn(self):
+        """The perceptual loss over the VGG16 weights on disk
+        (ops/lpips.py::default_weight_path, loaded once); None when its
+        weight is 0 or no weight file exists."""
+        if self.loss_cfg.perc_loss_weight <= 0:
+            return None
+        return lpips_fn(default_weight_path(), self.device)
 
     def _batch(self, view) -> Batch:
         H, W = view["camera"].H, view["camera"].W
         t = lambda a: torch.as_tensor(  # noqa: E731
             np.asarray(a, np.float32)).to(self.device, non_blocking=True)
+        dpt = view.get("dpt")
         return Batch(
             rgb=t(view["rgb"]),
             msk=t(view.get("msk", np.ones((H, W, 1), np.float32))),
-            norm=t(view.get("norm", np.zeros((H, W, 3), np.float32))))
+            norm=t(view.get("norm", np.zeros((H, W, 3), np.float32))),
+            dpt=t(dpt) if dpt is not None else None)
 
     def _train_view(self, view_i: int, it: int,
                     rng: np.random.Generator) -> tuple[dict, Camera, int]:
@@ -487,6 +504,46 @@ class Runner:
                      "yuv420p", os.path.join(result_dir, f"{t}.mp4")],
                     check=False)
         return result_dir
+
+    def extract_mesh(self, res: int = 256, acc_thresh: float = 0.5,
+                     stride: int = 1, bounds=None, tag: str = "mesh.ply",
+                     depth_max: float | None = None) -> str:
+        """TSDF depth-fusion mesh export -> the ply's path
+        (`<result_dir>/<tag>`).
+
+        Renders every `stride`-th training view (render_view), keeps the
+        depth of pixels whose accumulated alpha reaches `acc_thresh` (and
+        whose depth is at most `depth_max`), fuses the depths into a res^3
+        TSDF over `bounds` (default: the 1-99 percentile box of the active
+        base surfels, padded by 5% of its longest side), extracts the zero
+        level by marching tetrahedra over the observed cells and writes an
+        ascii ply. Fusion and extraction run on the runner's device."""
+        views = self.views[::max(1, stride)]
+        depths = []
+        for v in views:
+            out = self.render_view(v["camera"])
+            dpt, acc = out.dpt_map[..., 0], out.acc_map[..., 0]
+            keep = acc >= acc_thresh
+            if depth_max is not None:
+                keep &= dpt <= depth_max
+            depths.append(torch.where(keep, dpt, torch.zeros_like(dpt)))
+        if bounds is None:
+            base = self.state.base
+            xyz = base.params.xyz[base.stats.active].detach().cpu().numpy()
+            lo = np.percentile(xyz, 1.0, axis=0)
+            hi = np.percentile(xyz, 99.0, axis=0)
+            pad = 0.05 * float((hi - lo).max())
+            bounds = (lo - pad, hi + pad)
+        tsdf, w = fusion.tsdf_fuse(torch.stack(depths),
+                                   [v["camera"] for v in views], bounds,
+                                   res=res)
+        verts, faces = fusion.marching_tetrahedra(tsdf, 0.0, bounds=bounds,
+                                                  observed=w > 0)
+        os.makedirs(self.result_dir, exist_ok=True)
+        path = os.path.join(self.result_dir, tag)
+        fusion.save_mesh_ply(path, verts, faces)
+        print(f"[mesh] {len(verts)} verts / {len(faces)} faces -> {path}")
+        return path
 
     def test(self, save_images: bool = True, tag: str | None = None,
              types=("RENDER", "DEPTH", "NORMAL", "SPECULAR", "DIFFUSE",

@@ -3,9 +3,11 @@ envgs_tpu/train/supervisor.py).
 
 The EnvGS loss stack: image loss against the bg-composed ground truth,
 SSIM, normal consistency (rendered against depth-derived), the monocular
-normal prior, distortion, env-opacity sparsity and the mask loss, each
-behind its weight and its start iteration. The JAX package's band-parallel
-SSIM, LPIPS and chained aux supervisors are not ported.
+normal prior, distortion, env-opacity sparsity, the mask loss and the
+perceptual loss (LPIPS, ops/lpips.py, when VGG16 weights exist), each
+behind its weight and its start iteration, then the chained aux
+supervisors (train/aux_supervisors.py) of an AuxLossConfig. The JAX
+package's band-parallel SSIM is not ported.
 """
 from __future__ import annotations
 
@@ -15,12 +17,12 @@ import torch
 
 from envgs_tpu_torch.models.envgs import EnvGSOutput
 from envgs_tpu_torch.ops.losses import cos_sim, l1, psnr, ssim
+from envgs_tpu_torch.train.aux_supervisors import compute_aux_losses
 from envgs_tpu_torch.utils.transforms import normalize
 
 
 class LossConfig(NamedTuple):
-    """envgs.yaml supervisor_cfg defaults (the JAX package's fields;
-    perc_loss_* stay inert: LPIPS is not ported)."""
+    """envgs.yaml supervisor_cfg defaults (the JAX package's fields)."""
 
     img_loss_weight: float = 0.8
     img_loss_type: str = "L1"
@@ -45,7 +47,7 @@ class LossConfig(NamedTuple):
     # mask loss
     msk_loss_weight: float = 0.0
     msk_loss_start_iter: int = 7000
-    # perceptual (needs LPIPS weights the repository does not hold)
+    # perceptual (inert without VGG16 weights, ops/lpips.py)
     perc_loss_weight: float = 0.01
     perc_loss_start_iter: int = 21000
 
@@ -84,8 +86,17 @@ def compute_losses(
     it: int,
     cfg: LossConfig,
     bg_brightness: float = 0.0,
+    lpips_fn=None,
+    aux_cfg=None,  # AuxLossConfig | None: the chained aux supervisors
+    gt_dpt: torch.Tensor | None = None,  # (H, W, 1) metric depth prior
 ):
-    """-> (total loss, stats dict of 0-d tensors)."""
+    """-> (total loss, stats dict of 0-d tensors).
+
+    `lpips_fn(rgb, gt)` is the perceptual loss (None: off), which enters
+    the loss only past perc_loss_start_iter (strictly, as in the JAX
+    package; before that it is evaluated for its stat alone, without a
+    graph). `aux_cfg` adds every enabled aux supervisor on the rendered
+    depth, accumulation and `gt_dpt`; its stats take the `aux_` prefix."""
     stats = {}
     itf = float(it)
     loss = gt_rgb.new_zeros(())
@@ -158,6 +169,27 @@ def compute_losses(
         stats["msk_loss"] = ml
         if itf >= cfg.msk_loss_start_iter:
             loss = loss + cfg.msk_loss_weight * ml
+
+    if cfg.perc_loss_weight > 0 and lpips_fn is not None:
+        if itf > cfg.perc_loss_start_iter:
+            pl_ = lpips_fn(rgb, gt)
+            loss = loss + cfg.perc_loss_weight * pl_
+        else:
+            with torch.no_grad():
+                pl_ = lpips_fn(rgb, gt)
+        stats["perc_loss"] = pl_
+
+    if aux_cfg is not None and any(
+            isinstance(v, (int, float)) and v > 0 for v in aux_cfg):
+        out_d = {"dpt_map": out.dpt_map[..., 0], "acc_map": out.acc_map,
+                 "occ": out.acc_map}
+        batch_d = {"msk": gt_msk}
+        if gt_dpt is not None:
+            batch_d["dpt"] = gt_dpt[..., 0]
+        aux_loss, aux_stats = compute_aux_losses(aux_cfg, out_d, batch_d, it)
+        for k, v in aux_stats.items():
+            stats["aux_" + k] = v
+        loss = loss + aux_loss
 
     stats["loss"] = loss
     return loss, {k: v.detach() for k, v in stats.items()}

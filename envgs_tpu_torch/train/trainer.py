@@ -1,5 +1,5 @@
 """EnvGS trainer: the train step and the maintenance events of the
-schedule (port of envgs_tpu/train/trainer.py, without aux supervisors).
+schedule (port of envgs_tpu/train/trainer.py).
 
 One step: the forward through both passes in training mode, the losses,
 `torch.autograd.grad` of the loss with respect to both pools' parameters
@@ -96,6 +96,7 @@ class Batch(NamedTuple):
     rgb: torch.Tensor  # (H, W, 3)
     msk: torch.Tensor  # (H, W, 1)
     norm: torch.Tensor  # (H, W, 3) monocular prior (zeros if absent)
+    dpt: torch.Tensor | None = None  # (H, W, 1) metric depth prior
 
 
 def init_train_state(base: G.GaussianPool, env: G.GaussianPool,
@@ -134,7 +135,8 @@ class CamOptConfig(NamedTuple):
 def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
                     lr_base: LRConfig, lr_env: LRConfig,
                     has_norm: bool = False,
-                    cam_opt: CamOptConfig = CamOptConfig()):
+                    cam_opt: CamOptConfig = CamOptConfig(),
+                    lpips_fn=None, aux_cfg=None):
     """The train step for the template camera's resolution and planes.
 
     step(state, batch, K, R, T, it, mark=None, grads_out=None) -> (new
@@ -146,7 +148,9 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
     "backward", "optimizer"), e.g. to record CUDA events; `grads_out`, a
     dict, receives the step's gradients ("base", "env": GaussianParams;
     "means2d", "env_means3d", "wet_base", "wet_env"; "cam" with camera
-    optimisation)."""
+    optimisation). `lpips_fn` (the perceptual loss) and `aux_cfg` (an
+    AuxLossConfig: the chained aux supervisors, on `batch.dpt` for the
+    depth prior) go to compute_losses."""
     H, W, znear, zfar = cam.H, cam.W, cam.znear, cam.zfar
 
     def step_impl(state: TrainState, cam_state: CamOptState | None,
@@ -175,7 +179,8 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
                             model_cfg, m2z, e3z, wz_b, wz_e)
         loss, stats = compute_losses(
             out, batch.rgb, batch.msk, batch.norm if has_norm else None,
-            camera.R, it, loss_cfg, bg_brightness=model_cfg.bg_brightness)
+            camera.R, it, loss_cfg, bg_brightness=model_cfg.bg_brightness,
+            lpips_fn=lpips_fn, aux_cfg=aux_cfg, gt_dpt=batch.dpt)
         if mark:
             mark("forward")
 

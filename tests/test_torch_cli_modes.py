@@ -1,4 +1,4 @@
-"""The port's `render`, `dist` and `sig` modes, `--debug-nans` and the
+"""The port's `render`, `mesh`, `dist` and `sig` modes, `--debug-nans` and the
 runner's recorder, on the CPU: `Runner.render_path` writes one frame per
 camera of the JAX package's path, each the port's own render of that
 camera; `render` resumes the checkpoint `smoke` left and writes its frames;
@@ -20,11 +20,15 @@ from envgs_tpu.utils import camera as jcam
 from envgs_tpu_torch import cli
 from envgs_tpu_torch.train.evaluator import _to_u8
 from envgs_tpu_torch.utils.easycam import write_cameras
+from torch_threads import one_thread  # noqa: F401
 
 # the smoke run cut down to the CPU (4 views of 32x32, 4 iterations)
 SMALL = ["dataset_cfg.H=32", "dataset_cfg.W=32", "dataset_cfg.n_views=4",
          "runner_cfg.ep_iter=4", "runner_cfg.log_interval=2",
          "model_cfg.sampler_cfg.reflection_start_iter=2"]
+
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _frames(d, kind="RENDER"):
@@ -92,8 +96,11 @@ def test_render_path_reads_a_saved_camera_path(tmp_path):
 
 def test_smoke_then_render_and_dist(tmp_path, monkeypatch, capsys):
     """`smoke`, then `render -c <config>` resumes its checkpoint and writes
-    one frame per path camera; the recorder left its config and events;
-    `dist` trains and evaluates as `train` does."""
+    one frame per path camera, and `mesh -c <config> --mesh-res 32` from
+    the same checkpoint writes a non-empty mesh ply; the recorder left its
+    config and events; `dist` trains and evaluates as `train` does."""
+    from envgs_tpu_torch.utils.fusion import load_mesh_ply
+
     monkeypatch.chdir(tmp_path)
     cli.main(["smoke", *SMALL], device="cpu")
     record = tmp_path / "data" / "record" / "smoke"
@@ -111,6 +118,12 @@ def test_smoke_then_render_and_dist(tmp_path, monkeypatch, capsys):
     assert "[resume]" in printed and "@ iter 4" in printed
     assert out == os.path.join("data", "result", "smoke", "spiral")
     assert _frames(out) == [f"frame0000_camera{i:04d}.png" for i in range(4)]
+    mesh = cli.main(["mesh", "-c", "smoke.yaml", "--mesh-res", "32", *SMALL],
+                    device="cpu")
+    assert mesh == os.path.join("data", "result", "smoke", "mesh.ply")
+    verts, faces = load_mesh_ply(mesh)
+    assert len(faces) > 0 and len(verts) == 3 * len(faces)
+    assert np.isfinite(verts).all()
     cfg.update(exp_name="dist")
     cfg["runner_cfg"].update(resume=False, record=False)
     with open(tmp_path / "dist.yaml", "w") as f:

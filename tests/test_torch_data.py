@@ -30,6 +30,7 @@ from envgs_tpu_torch.engine import Config
 from envgs_tpu_torch.utils import colmap as tcolmap
 from envgs_tpu_torch.utils.easycam import write_cameras
 from envgs_tpu_torch.utils.ply import save_sfm_ply
+from torch_threads import on_one_thread
 
 CAM_ATOL = 1e-6
 DISTORTION = np.array([0.05, -0.02, 0.001, -0.002, 0.003])
@@ -83,9 +84,11 @@ def write_colmap(sparse_dir, xyz, rgb, binary=True, cams=None):
 
 @functools.lru_cache(maxsize=None)
 def _scene(n_views, H, W, seed):
-    """The synthetic scene's capture, rendered once per process and size."""
-    return synthetic.make_scene(n_views=n_views, H=H, W=W, seed=seed,
-                                device="cpu")
+    """The synthetic scene's capture, rendered once per process and size,
+    on one thread (tests/torch_threads.py)."""
+    with on_one_thread():
+        return synthetic.make_scene(n_views=n_views, H=H, W=W, seed=seed,
+                                    device="cpu")
 
 
 def write_capture(root, n_views=6, H=40, W=56, seed=0, ext=".png",

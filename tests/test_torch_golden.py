@@ -12,10 +12,10 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from envgs_tpu_torch.utils import golden
 from tests.golden_harness import _read_png
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 SCENES = golden.golden_dirs(ROOT)
@@ -26,28 +26,11 @@ def test_golden_scenes_are_found():
                                                      "envgs_synthetic"}
 
 
-@pytest.fixture
-def one_thread_for_the_plain_blends(request):
-    """The plain blends are thousands of small tensor ops: on one thread,
-    because on a loaded CPU each op's parallel region waits for its
-    descheduled threads (a render of 2 s took minutes among the suite's
-    other workers)."""
-    if request.node.callspec.params["backend"] != "pallas":
-        yield
-        return
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(saved)
-
-
 @pytest.mark.parametrize("backend", ["pallas", "ref"])
 @pytest.mark.parametrize("scene_dir", SCENES,
                          ids=[os.path.basename(d) for d in SCENES])
 def test_golden_render_through_the_port(scene_dir, backend,
-                                        one_thread_for_the_plain_blends):
+                                        one_thread):
     thr = golden.scene_spec(scene_dir).get("psnr_threshold", 35.0)
     psnr, rgb = golden.psnr_vs_golden(scene_dir, "cpu", backend)
     assert psnr >= thr, f"{os.path.basename(scene_dir)}: {psnr:.2f} < {thr}"

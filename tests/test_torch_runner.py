@@ -28,6 +28,7 @@ from envgs_tpu_torch.train import optimizer as topt
 from envgs_tpu_torch.train import supervisor as tsup
 from envgs_tpu_torch.train import trainer as ttrain
 from envgs_tpu_torch.train.runner import Runner
+from torch_threads import one_thread  # noqa: F401
 
 H = W = 32
 # the gradient bound of test_torch_train_step.py, per array as max|d| /
@@ -41,6 +42,9 @@ SCHED = dict(epochs=1, ep_iter=3, densify_from_iter=0, densify_until_iter=100,
 DENS = dict(spatial_scale=2.5, densify_grad_threshold=5e-5)
 MODEL = dict(pair_cap=2 ** 13, env_pair_cap=2 ** 13, reflection_start_iter=0)
 LOSS = dict(perc_loss_weight=0.0)
+
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _start_state(rng, scene):
@@ -310,18 +314,30 @@ def test_smoke_entry_point_on_cpu(tmp_path, monkeypatch, capsys):
     assert "iter 7/8" in capsys.readouterr().out
 
 
-def test_unported_modes_and_options_raise():
-    """The modes and options the port lacks raise by name. (The real-data
-    source, the moderators and patch training run since they were ported:
-    tests/test_torch_data.py, test_torch_moderators.py and
-    test_torch_real_configs.py.)"""
-    for mode in ("mesh", "ws"):
-        with pytest.raises(NotImplementedError, match=mode):
-            cli.main([mode, "-c", "x.yaml"], device="cpu")
+def test_unported_modes_and_options_raise(tmp_path):
+    """The mode the port lacks (`ws`) raises by name, as do another model
+    family and backends it lacks; supervisor_cfg.aux_cfg, from a config
+    dict or as an override of a config file, builds the AuxLossConfig the
+    runner trains with (the scenes cut to two 16x16 views: nothing
+    trains). (The real-data source, the moderators, patch training and
+    `mesh` run since they were ported: tests/test_torch_data.py,
+    test_torch_moderators.py, test_torch_real_configs.py and
+    test_torch_cli_modes.py.)"""
+    from envgs_tpu.train.aux_supervisors import AuxLossConfig as JAux
+    from envgs_tpu_torch.engine import load_config
+    from envgs_tpu_torch.train.aux_supervisors import AuxLossConfig
+
+    assert cli.UNPORTED_MODES == ("ws",)
+    with pytest.raises(NotImplementedError, match="ws"):
+        cli.main(["ws", "-c", "x.yaml"], device="cpu")
+    tiny = ["dataset_cfg.H=16", "dataset_cfg.W=16", "dataset_cfg.n_views=2"]
     cfg = cli.smoke_config()
+    cfg["out_root"] = str(tmp_path)  # the runner's records go there
+    cfg["dataset_cfg"].update(H=16, W=16, n_views=2)
     cfg["model_cfg"]["supervisor_cfg"] = {"aux_cfg": {"dpt_loss_weight": 1}}
-    with pytest.raises(NotImplementedError, match="aux_cfg"):
-        cli.make_runner(cfg, device="cpu")
+    want = AuxLossConfig(dpt_loss_weight=1)
+    assert cli.make_runner(cfg, device="cpu").aux_cfg == want
+    assert tuple(want) == tuple(JAux(dpt_loss_weight=1))
     root = os.path.dirname(os.path.dirname(os.path.abspath(
         envgs_tpu_torch.__file__)))
     path = os.path.join(root, "configs", "exps", "envgs_synthetic.yaml")
@@ -330,12 +346,16 @@ def test_unported_modes_and_options_raise():
     with pytest.raises(NotImplementedError, match="tiled_interp"):
         cli.main(["train", "-c", path,
                   "model_cfg.sampler_cfg.tracer_backend=tiled_interp"],
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="aux_cfg"):
-        cli.main(["train", "-c", path,
-                  "model_cfg.supervisor_cfg.aux_cfg.dpt_loss_weight=1",
-                  "model_cfg.sampler_cfg.tracer_backend=tiled"],
                  device="cpu")  # overrides after -c are read
+    runner = cli.make_runner(load_config(path, overrides=[
+        "model_cfg.supervisor_cfg.aux_cfg.dpt_loss_weight=1",
+        "model_cfg.supervisor_cfg.aux_cfg.dpt_loss_kind=ssimse",
+        "model_cfg.sampler_cfg.tracer_backend=tiled", f"out_root={tmp_path}",
+        *tiny], root=root),
+        device="cpu")
+    assert runner.aux_cfg == AuxLossConfig(dpt_loss_weight=1,
+                                           dpt_loss_kind="ssimse")
+    assert runner.start_iter == 0
     for mode in ("train", "test"):  # another model family
         with pytest.raises(NotImplementedError,
                            match="VolumetricVideoNetwork"):
