@@ -144,6 +144,26 @@ Phases, one or more lines each:
      "128"])` from phase 15's smoke checkpoint; (e) make_scene's default
      capture (12 views of 128x128 through the reference renderers): ms per
      view, no kernel.
+ 19. the other gauss3d families: (a) small Spacetime Gaussian (STGS) runs
+     with the static SH and with sh_degree_t = 1: render_stgs, one step
+     (every gradient, t / scaling_t / motion among them), stgs_maintenance
+     on the same split draws and reset_t, CUDA against CPU at phase 10's
+     bounds; (b) the 3DGS bench scene's 500K Gaussians as STGS (times in
+     [0, 1], temporal scale 0.1414, motions N(0, 0.05^2)), its renders at 4
+     times as the targets, trained from its motion zeroed: renders that
+     launch K5 and gauss3d K1 once and nothing else, render fps; 1 + 10
+     steps launching K5 and gauss3d K1 / K2 once each, the motion
+     gradients live, steps/s, forward / backward / optimizer device ms;
+     stgs_maintenance and reset_t, 3 more steps; peak memory; (c)
+     PointPlanes (the JAX defaults) on 2^18 points, 8 frames at 1558x1038
+     of a teacher's renders, the pair cap printed, 1 + 10 steps, steps/s,
+     peak memory, a small step CUDA against CPU; (d) `cli.main(["train",
+     "-c", ...])` of stgs_synthetic.yaml and point_planes_synthetic.yaml
+     (launches per step, metrics.json, point_cloud.ply, latest.npz), a run
+     of 60 iterations killed at iteration 55 and resumed from its
+     checkpoint of iteration 50, train_stgs on phase 16's capture (ratio 0.5, 30 iterations),
+     train_point_planes on an 8-view 8-frame video capture written here
+     (20 iterations).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -474,9 +494,9 @@ def small_train(device, vgg_path=None):
     def mid_run(params):
         return AdamState(
             GaussianParams(*(t(rng.normal(size=p.shape) * 1e-3)
-                             for p in params)),
+                             for p in params if p is not None)),
             GaussianParams(*(t(rng.random(p.shape) * 1e-5 + 1e-6)
-                             for p in params)),
+                             for p in params if p is not None)),
             torch.tensor(10, dtype=torch.int32, device=device))
 
     state = init_train_state(base, env)._replace(
@@ -526,7 +546,8 @@ def compare_small_train(got, want):
             raise AssertionError(f"small train: {k} {int(g)} vs {int(w)}")
     for k in ("base", "env"):
         for f, g, w in zip(w_grads[k]._fields, g_grads[k], w_grads[k]):
-            worst[f"grad {k} {f}"] = rel_err(cpu(g), w)
+            if w is not None:
+                worst[f"grad {k} {f}"] = rel_err(cpu(g), w)
     for k in ("means2d", "env_means3d"):
         worst[f"grad {k}"] = rel_err(cpu(g_grads[k]), w_grads[k])
     bad = {k: v for k, v in worst.items()
@@ -551,12 +572,12 @@ def compare_small_train(got, want):
         opt0 = getattr(s0, "opt_" + name)
         pairs = [(f"param {name} {f}", g, w, p0) for f, g, w, p0 in zip(
             w_pool.params._fields, g_pool.params, w_pool.params,
-            start.params)]
+            start.params) if w is not None]
         for m in ("mu", "nu"):
             pairs += [(f"{m} {name} {f}", g, w, p0) for f, g, w, p0 in zip(
                 w_pool.params._fields, getattr(getattr(g_new, "opt_" + name), m),
                 getattr(getattr(w_new, "opt_" + name), m),
-                getattr(opt0, m))]
+                getattr(opt0, m)) if w is not None]
         for key, g, w, p0 in pairs:
             p0 = cpu(p0)
             worst[key] = rel_err((cpu(g) - p0)[keep], (w - p0)[keep])
@@ -602,8 +623,10 @@ def small_gaussiant(device):
         stats=pool.stats._replace(
             sh_degree=torch.tensor(1, dtype=torch.int32, device=device)))
     opt = AdamState(
-        GaussianParams(*(t(rng.normal(size=x.shape) * 1e-3) for x in p)),
-        GaussianParams(*(t(rng.random(x.shape) * 1e-5 + 1e-6) for x in p)),
+        GaussianParams(*(t(rng.normal(size=x.shape) * 1e-3) for x in p
+                         if x is not None)),
+        GaussianParams(*(t(rng.random(x.shape) * 1e-5 + 1e-6) for x in p
+                         if x is not None)),
         torch.tensor(10, dtype=torch.int32, device=device))
     K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
     cam = make_camera(H, W, K, np.eye(3, dtype=np.float32),
@@ -764,9 +787,9 @@ def small_run(device, out_root, start_from=None):
     def mid_run(params):
         return AdamState(
             GaussianParams(*(t(rng.normal(size=p.shape) * 1e-3)
-                             for p in params)),
+                             for p in params if p is not None)),
             GaussianParams(*(t(rng.random(p.shape) * 1e-5 + 1e-6)
-                             for p in params)),
+                             for p in params if p is not None)),
             torch.tensor(10, dtype=torch.int32, device=device))
 
     runner.state = runner.state._replace(opt_base=mid_run(base.params),
@@ -794,7 +817,8 @@ def small_run(device, out_root, start_from=None):
             out = {}
             res = step(*args, grads_out=out)
             grads.append({name: {k: v.cpu().numpy() for k, v in
-                                 out[name]._asdict().items()}
+                                 out[name]._asdict().items()
+                                 if v is not None}
                           for name in ("base", "env")})
             return res
 
@@ -870,14 +894,16 @@ def compare_small_run(got, want):
             # the optimizer: the CPU's Adam from the card's state after
             # maintenance on the card's gradients, against what it stored
             pool = getattr(start, name)
-            grads = type(pool.params)(*(torch.tensor(g_grads[it][name][k])
-                                        for k in pool.params._fields))
+            grads = type(pool.params)(**{
+                k: torch.tensor(v) for k, v in g_grads[it][name].items()})
             new_p, new_opt = sparse_adam_update(
                 pool.params, grads, getattr(start, "opt_" + name),
                 lr_tree_for(it, lr))
             for grp, tree in (("params", new_p), ("mu", new_opt.mu),
                               ("nu", new_opt.nu)):
                 for k, ref in zip(tree._fields, tree):
+                    if ref is None:
+                        continue
                     z = gm[name][grp][k]
                     d_want = ref.numpy() - z
                     # in the xyz learning rate's warm-up a step moves a
@@ -1055,7 +1081,7 @@ def full_run(device, out_root, kernels, size=None):
             raise AssertionError(f"run it {it}: launches off: {rose}")
     for pool in (state.base, state.env):
         for name, p in zip(pool.params._fields, pool.params):
-            if not bool(torch.isfinite(p).all()):
+            if p is not None and not bool(torch.isfinite(p).all()):
                 raise AssertionError(f"run: non-finite {name}")
     grown = (runner.model_cfg.pair_cap, runner.model_cfg.env_pair_cap)
     sps = total / (t_end - t_train - dense["s"])
@@ -1096,7 +1122,7 @@ def full_run(device, out_root, kernels, size=None):
             raise AssertionError(f"resume: {which} counts")
         for trees in ((a.params, b.params), (oa.mu, ob.mu), (oa.nu, ob.nu)):
             for x, y in zip(*trees):
-                if not torch.equal(x[:n], y[act]):
+                if x is not None and not torch.equal(x[:n], y[act]):
                     raise AssertionError(f"resume: {which} arrays differ")
     ckpt.save_checkpoint(os.path.join(out_root, "trained_model", "run_dense",
                                       "latest.npz"), dense["state"], dense_it)
@@ -1479,7 +1505,7 @@ def check_capture_run(name, info, kernels, gate):
         raise AssertionError(f"{name}: non-finite loss {losses}")
     for pool in (r.state.base, r.state.env):
         for field, p in zip(pool.params._fields, pool.params):
-            if not bool(torch.isfinite(p).all()):
+            if p is not None and not bool(torch.isfinite(p).all()):
                 raise AssertionError(f"{name}: non-finite {field}")
     total = r.sched.total_iters
     if len(snaps) != total + 1 or len(losses) != total:
@@ -1789,6 +1815,8 @@ def nonfinite(tree) -> dict:
     for k, v in tree.items():
         for f, x in (zip(v._fields, v) if hasattr(v, "_fields")
                      else ((None, v),)):
+            if x is None:
+                continue
             n = int((~torch.isfinite(x)).sum())
             if n:
                 out[k if f is None else f"{k}.{f}"] = n
@@ -2258,7 +2286,7 @@ def aux_step_run(kernels, vgg, card):
         sps[kind] = AUX_STEPS / (time.perf_counter() - t0)
         for pool in (state.base, state.env):
             for name, p in zip(pool.params._fields, pool.params):
-                if not bool(torch.isfinite(p).all()):
+                if p is not None and not bool(torch.isfinite(p).all()):
                     raise AssertionError(f"aux {kind}: non-finite {name}")
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2430,6 +2458,783 @@ def scene_run(kernels, card):
           f"{scene.cams[0].W}x{scene.cams[0].H} through the reference "
           f"renderers in {ms:.1f} ms a view, no kernel launched, masks cover "
           f"{min(cover):.3f}-{max(cover):.3f} [{card}]", flush=True)
+
+
+# ---- phase 19: the other gauss3d families (STGS, PointPlanes) ----
+
+STGS_YAML = "configs/exps/stgs_synthetic.yaml"
+PP_YAML = "configs/exps/point_planes_synthetic.yaml"
+STGS_TIMES = (0.2, 0.4, 0.6, 0.8)  # phase 19b: the teacher's renders
+PP_POINTS = 2 ** 18  # phase 19c: points, frames at the train scene's size
+PP_FRAMES = 8
+PP_LR = 5e-3  # the JAX package's default learning rate
+VIDEO_VIEWS = 8  # phase 19d: the video capture's cameras and frames
+VIDEO_FRAMES = 8
+
+
+def small_stgs(device, sh_degree_t):
+    """Phase 19a's scene: 300 Gaussians in a pool of 512 seen at 64x64,
+    from one numpy-made mid-run state (SH degree 1 active, anisotropic
+    scales, temporal centers in [0, 1], temporal scales 0.2-0.6, motions of
+    ~0.3, Adam moments at step 10) -> (state, cam, cfg, target)."""
+    from envgs_tpu_torch.models import stgs as S
+    from envgs_tpu_torch.models.gaussians import GaussianParams
+    from envgs_tpu_torch.train.optimizer import AdamState
+    from envgs_tpu_torch.utils.camera import make_camera
+
+    rng = np.random.default_rng(19 + sh_degree_t)
+    P, cap, H, W, f = 300, 512, 64, 64, 70.0
+    xyz = np.concatenate([rng.normal(size=(P, 2)) * 0.6,
+                          rng.random((P, 1)) * 2 + 2.0], -1).astype(np.float32)
+    cfg = S.STGSConfig(sh_degree=3, sh_degree_t=sh_degree_t,
+                       pair_cap=2 ** 15)
+    pool = S.init_stgs_pool(xyz, rng.random(P).astype(np.float32),
+                            rng.random((P, 3)).astype(np.float32), cap, cfg,
+                            device=device)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    p = pool.params
+    act = np.arange(cap)[:, None] < P
+    pool = pool._replace(
+        params=p._replace(
+            scaling=t(np.log(rng.uniform(0.01, 0.06, (cap, 3)))),
+            features_rest=t(rng.normal(size=p.features_rest.shape) * 0.2),
+            opacity=t(rng.normal(size=(cap, 1)) + 1.0),
+            scaling_t=t(np.log(rng.uniform(0.2, 0.6, (cap, 1)))),
+            motion=t(np.where(act, rng.normal(size=(cap, 3)) * 0.3, 0.0))),
+        stats=pool.stats._replace(
+            sh_degree=torch.tensor(1, dtype=torch.int32, device=device)))
+    opt = AdamState(
+        GaussianParams(*(t(rng.normal(size=x.shape) * 1e-3) for x in p
+                         if x is not None)),
+        GaussianParams(*(t(rng.random(x.shape) * 1e-5 + 1e-6) for x in p
+                         if x is not None)),
+        torch.tensor(10, dtype=torch.int32, device=device))
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    cam = make_camera(H, W, K, np.eye(3, dtype=np.float32),
+                      np.zeros(3, np.float32), device=device)
+    return S.STGSState(pool, opt), cam, cfg, t(rng.random((H, W, 3)))
+
+
+def run_small_stgs(device, sh_degree_t):
+    """Phase 19a's render at t = 0.45 and one train step (iteration 700) on
+    one device -> (render, start, new state (numpy dicts), aux, gradients
+    as numpy)."""
+    from envgs_tpu_torch.models import stgs as S
+
+    state, cam, cfg, target = small_stgs(device, sh_degree_t)
+    with torch.no_grad():
+        out = S.render_stgs(state.pool, cam, 0.45, cfg)
+    grads = {}
+    new, aux = S.make_stgs_train_step(cfg, cam, S.stgs_lr_config())(
+        state, cam.K, cam.R, cam.T, 0.45, target, 700, grads_out=grads)
+    g = {k: v.detach().cpu().numpy()
+         for k, v in grads["params"]._asdict().items() if v is not None}
+    return (out, S.stgs_state_to_numpy(state), S.stgs_state_to_numpy(new),
+            aux, g)
+
+
+def maintain_small_stgs(src: dict, device, eps):
+    """stgs_maintenance (the weight-quantile split on) then reset_t of the
+    numpy state `src` on one device with the split draws `eps` -> the
+    state as a numpy dict."""
+    from envgs_tpu_torch.models import stgs as S
+    from envgs_tpu_torch.models.gaussians import DensifyConfig
+
+    state = S.stgs_maintenance(
+        S.stgs_state_from_numpy(src, device),
+        DensifyConfig(spatial_scale=1.0, min_weight_threshold=0.3),
+        eps=[e.to(device) for e in eps])
+    pool, opt = S.reset_t(state.pool, state.opt, 0.0, 0.9)
+    return S.stgs_state_to_numpy(S.STGSState(pool, opt))
+
+
+def compare_small_stgs(got, want, g_dens, w_dens):
+    """Phase 19a's checks of the CUDA run against the CPU run at phase
+    10's bounds -> the worst error of each kind."""
+    g_out, start, g_new, g_aux, g_grads = got
+    w_out, _, w_new, w_aux, w_grads = want
+    worst = {}
+    for k in ("rgb", "depth", "alpha", "trans"):
+        worst[f"render {k}"] = float(
+            (getattr(g_out, k).cpu() - getattr(w_out, k)).abs().max())
+        if not worst[f"render {k}"] <= SMALL_ATOL:
+            raise AssertionError(f"small STGS render {k}: {worst}")
+    if not torch.equal(g_out.radii.cpu(), w_out.radii):
+        raise AssertionError("small STGS render: radii differ")
+    worst["render wet"] = rel_err(g_out.wet.cpu(), w_out.wet)
+    worst["step loss"] = abs(float(g_aux["loss"]) - float(w_aux["loss"])) / \
+        abs(float(w_aux["loss"]))
+    if not worst["step loss"] <= LOSS_RTOL:
+        raise AssertionError(f"small STGS step loss: {worst}")
+    if int(g_aux["pair_overflow"]) or int(w_aux["pair_overflow"]):
+        raise AssertionError("small STGS step: pairs over the cap")
+    for k, w in w_grads.items():
+        if k in ("specular", "roughness"):
+            if g_grads[k].any() or w.any():
+                raise AssertionError(f"small STGS: a gradient of {k}")
+            continue
+        if not np.abs(w).max() > 0:
+            raise AssertionError(f"small STGS: no gradient of {k}")
+        worst[f"grad {k}"] = rel_err(torch.tensor(g_grads[k]),
+                                     torch.tensor(w))
+    for grp in ("params", "mu", "nu"):
+        for k, w in w_new[grp].items():
+            worst[f"{grp} {k}"] = rel_err(
+                torch.tensor(g_new[grp][k] - start[grp][k]),
+                torch.tensor(w - start[grp][k]))
+    gs, ws = g_new["stats"], w_new["stats"]
+    for k in ("active", "denom", "max_radii2d", "sh_degree"):
+        if not np.array_equal(gs[k], ws[k]):
+            raise AssertionError(f"small STGS step: stats {k} differ")
+    for k in ("grad_accum", "weight_accum"):
+        worst[k] = rel_err(torch.tensor(gs[k]), torch.tensor(ws[k]))
+    for k, v in worst.items():
+        if not k.startswith(("render", "step")) and not v <= STEP_RTOL:
+            raise AssertionError(f"small STGS step {k}: {v}")
+    if not worst["render wet"] <= STEP_RTOL:
+        raise AssertionError(f"small STGS render wet: {worst['render wet']}")
+    for k, w in w_dens["stats"].items():
+        if not np.array_equal(g_dens["stats"][k], w):
+            raise AssertionError(f"small STGS maintenance: stats {k} differ")
+    for grp in ("params", "mu", "nu"):
+        for k, w in w_dens[grp].items():
+            worst[f"maintenance {grp} {k}"] = rel_err(
+                torch.tensor(g_dens[grp][k]), torch.tensor(w))
+            if not worst[f"maintenance {grp} {k}"] <= DENSIFY_RTOL:
+                raise AssertionError(f"small STGS maintenance {grp} {k}")
+    born = int((w_dens["stats"]["active"]
+                & ~w_new["stats"]["active"]).sum())
+    if born < 5 or w_dens["params"]["t"].max() > 0.9:
+        raise AssertionError(f"small STGS maintenance: {born} children, "
+                             f"t up to {w_dens['params']['t'].max()}")
+    worst["maintenance children"] = born
+    return worst
+
+
+def _launch_check(kernels, want, what):
+    """A context for one call: the launches it adds must be exactly one of
+    each kernel in `want` and none of the others -> {name: count}."""
+    @contextlib.contextmanager
+    def ctx():
+        before = dict(kernels.LAUNCHES)
+        rose = {}
+        yield rose
+        rose.update({k: kernels.LAUNCHES[k] - before[k] for k in before
+                     if kernels.LAUNCHES[k] != before[k]})
+        if rose != {k: 1 for k in want}:
+            raise AssertionError(f"{what}: launches {rose}")
+    return ctx()
+
+
+def marked_stages(one, reps=3) -> dict:
+    """Median device ms of a step's stages over `reps` calls of one(mark)
+    (a step that calls mark("forward"), mark("backward"),
+    mark("optimizer")), from CUDA events recorded between them."""
+    marks = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks[-1].append((name, e))
+
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        marks.append([("start", e0)])
+        one(mark)
+    torch.cuda.synchronize()
+    stage = {}
+    for run in marks:
+        for (_, a), (name, b) in zip(run, run[1:]):
+            stage.setdefault(name, []).append(a.elapsed_time(b))
+        stage.setdefault("step", []).append(
+            run[0][1].elapsed_time(run[-1][1]))
+    return {k: round(statistics.median(v), 3) for k, v in stage.items()}
+
+
+def stgs_full(kernels, card):
+    """Phase 19b: the 3DGS bench scene's 500K Gaussians as Spacetime
+    Gaussians (times uniform in [0, 1], temporal scale 0.1414, motions
+    N(0, 0.05^2)): renders of this teacher at STGS_TIMES as the targets,
+    then from the same pool with its motion zeroed: renders, 1 + 10 steps,
+    the stage ms of 3 more, one maintenance at a densify step and reset_t,
+    3 more steps. -> {path: launch counts}."""
+    from envgs_tpu_torch import bench
+    from envgs_tpu_torch.models import stgs as S
+    from envgs_tpu_torch.models.gaussians import DensifyConfig
+
+    t0 = time.perf_counter()
+    gstate, cam, gcfg, _, _ = bench.make_gaussiant_scene("cuda")
+    pool = gstate.pool
+    cap = pool.cap
+    rng = np.random.default_rng(19)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device="cuda")
+
+    teacher = pool._replace(params=pool.params._replace(
+        t=f32(rng.random((cap, 1))),
+        scaling_t=f32(np.full((cap, 1), np.log(0.1414))),
+        motion=f32(rng.normal(0.0, 0.05, (cap, 3)))))
+    del gstate, pool
+    cfg = S.STGSConfig(sh_degree=3, pair_cap=gcfg.pair_cap)
+    with torch.no_grad():
+        targets = [S.render_stgs(teacher, cam, tt, cfg).rgb
+                   for tt in STGS_TIMES]
+    start = teacher._replace(params=teacher.params._replace(
+        motion=torch.zeros_like(teacher.params.motion)))
+    del teacher
+    state = S.init_stgs_state(start)
+    n_act = int(start.stats.active.sum())
+    print(f"[stgs] bench scene as STGS: {n_act} Gaussians in {cap} slots, "
+          f"{cam.W}x{cam.H}, targets at t = {STGS_TIMES}, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    for i, tt in enumerate((0.3, 0.5, 0.7)):
+        with _launch_check(kernels, GAUSSIANT_RENDER_KERNELS,
+                           f"STGS render {i}") as rose:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                out = S.render_stgs(state.pool, cam, tt, cfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+        n_pairs = int(out.num_pairs)
+        if n_pairs > cfg.pair_cap or not bool(torch.isfinite(out.rgb).all()):
+            raise AssertionError(f"STGS render {i}: {n_pairs} pairs")
+        print(f"[stgs] render t={tt}: {ms:.1f} ms, pairs {n_pairs}/"
+              f"{cfg.pair_cap}, rgb std {float(out.rgb.std()):.4f}, launches "
+              f"{rose}", flush=True)
+    del out
+    with torch.no_grad():
+        S.render_stgs(state.pool, cam, 0.5, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(10):
+            S.render_stgs(state.pool, cam, 0.3 + 0.04 * i, cfg)
+        torch.cuda.synchronize()
+    fps = 10 / (time.perf_counter() - t1)
+    print(f"[stgs] render fps over 10 renders: {fps:.3f}", flush=True)
+    paths = {"stgs_render": dict(kernels.LAUNCHES)}
+
+    step = S.make_stgs_train_step(cfg, cam, S.stgs_lr_config())
+    it = [600]
+
+    def steps(state, n, what, timed=False, grads=None):
+        t1 = None
+        for i in range(n):
+            if timed and i == 1:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            j = it[0] % len(STGS_TIMES)
+            with _launch_check(kernels, GAUSSIANT_TRAIN_KERNELS,
+                               f"STGS {what} step {i}") as rose:
+                state, aux = step(state, cam.K, cam.R, cam.T, STGS_TIMES[j],
+                                  targets[j], it[0],
+                                  grads_out=grads if i == 0 else None)
+            it[0] += 1
+            loss, of = float(aux["loss"]), int(aux["pair_overflow"])
+            if i in (0, 1, n - 1):
+                print(f"[stgs] {what} step {i}: loss {loss:.6f}, active "
+                      f"{int(aux['n_active'])}, pair_overflow {of}, launches "
+                      f"{rose}", flush=True)
+            if not np.isfinite(loss) or of:
+                raise AssertionError(f"STGS {what} step {i}: loss {loss}, "
+                                     f"pair_overflow {of}")
+        torch.cuda.synchronize()
+        return state, ((n - 1) / (time.perf_counter() - t1) if timed
+                       else None)
+
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    grads = {}
+    state, sps = steps(state, 11, "train", timed=True, grads=grads)
+    g = grads["params"]
+    moved = (g.xyz != 0).any(-1)
+    live = (g.motion != 0).any(-1)
+    print(f"[stgs] train steps/s over 10 steps: {sps:.4f} ({1e3 / sps:.1f} "
+          f"ms per step); the first step's gradients: {int(moved.sum())} "
+          f"Gaussians with a position gradient, {int(live.sum())} with a "
+          f"motion gradient, {int((g.t != 0).any(-1).sum())} with a t "
+          f"gradient, {int((g.scaling_t != 0).any(-1).sum())} with a "
+          "scaling_t gradient", flush=True)
+    if not int(live.sum()) >= 0.99 * int(moved.sum()) > 1000:
+        raise AssertionError("STGS: the motion gradients are not live")
+    for name, p in state.pool.params._asdict().items():
+        if p is not None and not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"STGS: non-finite {name}")
+    def one(mark):
+        nonlocal state
+        j = it[0] % len(STGS_TIMES)
+        state, _ = step(state, cam.K, cam.R, cam.T, STGS_TIMES[j], targets[j],
+                        it[0], mark=mark)
+        it[0] += 1
+
+    print(f"[stgs] step stage device ms (median of 3, CUDA events): "
+          f"{json.dumps(marked_stages(one))}", flush=True)
+    n0 = int(state.pool.stats.active.sum())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state = S.stgs_maintenance(state, DensifyConfig(spatial_scale=1.0,
+                                                    max_gs=cap),
+                               torch.Generator(device="cuda").manual_seed(0))
+    pool, opt = S.reset_t(state.pool, state.opt, 0.0, 1.0)
+    state = S.STGSState(pool, opt)
+    torch.cuda.synchronize()
+    m_ms = (time.perf_counter() - t1) * 1e3
+    print(f"[stgs] stgs_maintenance + reset_t: {m_ms:.1f} ms, active {n0} -> "
+          f"{int(state.pool.stats.active.sum())} of {cap}, t in "
+          f"[{float(state.pool.params.t.min()):.3f}, "
+          f"{float(state.pool.params.t.max()):.3f}]", flush=True)
+    state, _ = steps(state, 3, "after maintenance")
+    for name, p in state.pool.params._asdict().items():
+        if p is not None and not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"STGS: non-finite {name} after maintenance")
+    paths["stgs_train"] = dict(kernels.LAUNCHES)
+    print(f"[stgs] params finite; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})",
+          flush=True)
+    return paths
+
+
+def _ring_cams(n, H, W, f, radius, device, height=0.0):
+    """n cameras on a ring of `radius` about the origin, looking at it, as
+    (K, R, T) numpy triples and Cameras on `device`."""
+    from envgs_tpu_torch.utils.camera import make_camera
+
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    out = []
+    for i in range(n):
+        a = 2 * np.pi * i / n
+        c = np.array([radius * np.sin(a), height, -radius * np.cos(a)])
+        z = -c / np.linalg.norm(c)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        y = np.cross(z, x)
+        R = np.stack([x, y, z]).astype(np.float32)
+        T = (-R @ c).astype(np.float32)
+        out.append((K, R, T, make_camera(H, W, K, R, T, 0.02, 100.0,
+                                         device=device)))
+    return out
+
+
+def small_point_planes(device, d=None):
+    """Phase 19c's small step on one device: 2048 points at 64x64, the
+    weights numpy-made (or `d`, JAX's parameter dict) -> (loss, gradients,
+    the weights and moments after the step, the weights before) as numpy."""
+    from envgs_tpu_torch.models import point_planes as PP
+
+    cfg = PP.PointPlanesConfig(pair_cap=2 ** 16)
+    if d is None:
+        rng = np.random.default_rng(23)
+        model = cfg.init(rng.uniform(-1, 1, (2048, 3)).astype(np.float32),
+                         torch.Generator().manual_seed(23))
+        d = PP.point_planes_params_to_jax(model)
+    model = PP.point_planes_params_from_jax(d, cfg, device)
+    _, _, _, cam = _ring_cams(1, 64, 64, 60.0, 2.5, device)[0]
+    target = torch.tensor(np.random.default_rng(24).random(
+        (64, 64, 3)).astype(np.float32), device=device)
+    _, step = PP.make_point_planes_train_step(cfg, cam, PP_LR)
+    grads = {}
+    state, aux = step(model, PP.adam_init(model), 0.5, cam.K, cam.R, cam.T,
+                      target, grads_out=grads)
+    host = lambda xs: [x.detach().cpu().numpy() for x in xs]  # noqa: E731
+    return (float(aux["loss"]), host(grads["grads"]),
+            host(PP.flat_params(model) + state.mu + state.nu), d)
+
+
+def compare_small_point_planes(got, want):
+    """Phase 19c's small step, the card against the CPU: the loss, each
+    gradient leaf (max|d| / max|ref|), and Adam held apart: the CPU's
+    adam_update from the start on the card's gradients gives the card's
+    weights and moments within ADAM_RTOL of each array's largest change,
+    past one float32 rounding of the array's values (a weight of ~1 moved
+    by ~lr = 5e-3 holds its new value to 2^-23 of 1: 2.4e-5 of the move)."""
+    from envgs_tpu_torch.models import point_planes as PP
+
+    worst = {"loss": abs(got[0] - want[0]) / abs(want[0])}
+    worst["grads"] = max(rel_err(torch.tensor(g), torch.tensor(w))
+                         for g, w in zip(got[1], want[1]) if np.abs(w).any())
+    model = PP.point_planes_params_from_jax(want[3], PP.PointPlanesConfig())
+    start = [p.detach().clone() for p in PP.flat_params(model)]
+    state = PP.adam_update(PP.flat_params(model),
+                           [torch.tensor(g) for g in got[1]],
+                           PP.adam_init(model), PP_LR)
+    mine = PP.flat_params(model) + state.mu + state.nu
+    zeros = [torch.zeros_like(x) for x in state.mu + state.nu]
+    worst["adam"] = 0.0
+    for g, m, s0 in zip(got[2], mine, start + zeros):
+        m = m.detach()
+        d = float((torch.tensor(g) - m).abs().max())
+        past = max(d - 2.0 ** -23 * float(m.abs().max()), 0.0)
+        worst["adam"] = max(worst["adam"],
+                            past / max(float((m - s0).abs().max()), 1e-30))
+    if not (worst["loss"] <= LOSS_RTOL and worst["grads"] <= STEP_RTOL
+            and worst["adam"] <= ADAM_RTOL):
+        raise AssertionError(f"small PointPlanes: {worst}")
+    return worst
+
+
+def point_planes_full(kernels, card):
+    """Phase 19c: PointPlanes with the JAX defaults (feat_width 64, K-Planes
+    8 features at 16 and 32, SH degree 2) on PP_POINTS points in its
+    bounds, PP_FRAMES frames at the train scene's 1558x1038 rendered by a
+    teacher of other weights; a pair cap no step overflows; 1 + 10 steps;
+    a small step CUDA against CPU from one set of weights."""
+    from envgs_tpu_torch import bench
+    from envgs_tpu_torch.models import point_planes as PP
+
+    H, W = bench.TRAIN_H, bench.TRAIN_W
+    rng = np.random.default_rng(29)
+    pts = rng.uniform(-1, 1, (PP_POINTS, 3)).astype(np.float32)
+    cfg = PP.PointPlanesConfig(pair_cap=2 ** 24)
+    _, _, _, cam = _ring_cams(1, H, W, 0.6 * W, 2.5, "cuda", 0.4)[0]
+    teacher = cfg.init(pts, torch.Generator(device="cuda").manual_seed(1),
+                       "cuda")
+    with torch.no_grad():  # the teacher moves: its displacement head is live
+        teacher.resd.weights[-1].normal_(0.0, 0.05, generator=torch.Generator(
+            device="cuda").manual_seed(2))
+        outs = [PP.point_planes_forward(cfg, teacher, i / (PP_FRAMES - 1),
+                                        cam) for i in range(PP_FRAMES)]
+    most = max(int(o.num_pairs) for o in outs)
+    pair_cap = max(2 ** 20, 1 << int(np.ceil(np.log2(2 * most))))
+    targets = [o.rgb for o in outs]
+    del outs, teacher
+    cfg = cfg._replace(pair_cap=pair_cap)
+    print(f"[point_planes] {PP_POINTS} points, {PP_FRAMES} frames at {W}x{H},"
+          f" the teacher's renders take up to {most} pairs: pair_cap "
+          f"{pair_cap}; target std {float(targets[0].std()):.4f}",
+          flush=True)
+    init, step = PP.make_point_planes_train_step(cfg, cam, PP_LR)
+    model, opt = init(pts, torch.Generator(device="cuda").manual_seed(0),
+                      "cuda")
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t1 = None
+    for i in range(11):
+        if i == 1:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        j = i % PP_FRAMES
+        with _launch_check(kernels, GAUSSIANT_TRAIN_KERNELS,
+                           f"PointPlanes step {i}") as rose:
+            opt, aux = step(model, opt, j / (PP_FRAMES - 1), cam.K, cam.R,
+                            cam.T, targets[j])
+        loss, of = float(aux["loss"]), int(aux["pair_overflow"])
+        if i in (0, 1, 10):
+            print(f"[point_planes] step {i}: loss {loss:.6f}, psnr "
+                  f"{float(aux['psnr']):.3f}, pair_overflow {of}, launches "
+                  f"{rose}", flush=True)
+        if not np.isfinite(loss) or of:
+            raise AssertionError(f"PointPlanes step {i}: {loss}, {of}")
+    torch.cuda.synchronize()
+    sps = 10 / (time.perf_counter() - t1)
+    for p in PP.flat_params(model):
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError("PointPlanes: non-finite weights")
+    print(f"[point_planes] train steps/s over 10 steps: {sps:.4f} "
+          f"({1e3 / sps:.1f} ms per step); weights finite; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"({card})", flush=True)
+
+    def one(mark):
+        nonlocal opt
+        opt, _ = step(model, opt, 0.5, cam.K, cam.R, cam.T, targets[3],
+                      mark=mark)
+
+    print(f"[point_planes] step stage device ms (median of 3, CUDA events): "
+          f"{json.dumps(marked_stages(one))}", flush=True)
+    paths = {"point_planes_train": dict(kernels.LAUNCHES)}
+    del model, opt, targets
+    want = small_point_planes("cpu")
+    worst = compare_small_point_planes(small_point_planes("cuda", want[3]),
+                                       want)
+    print(f"[point_planes] small step (2048 points, 64x64) cuda vs cpu: loss "
+          f"rel {worst['loss']:.3g} (bound {LOSS_RTOL:g}), gradients "
+          f"{worst['grads']:.3g} of each leaf's largest (bound "
+          f"{STEP_RTOL:g}); the CPU's Adam on the card's gradients "
+          f"{worst['adam']:.3g} of each array's largest change past one "
+          f"float32 rounding of its values (bound {ADAM_RTOL:g})",
+          flush=True)
+    return paths
+
+
+def family_step_probe(module, name, kernels, log, tuple_out=False,
+                      crash_at=None):
+    """Wrap module.<name> (make_stgs_train_step or
+    make_point_planes_train_step) so that every step's launches, loss and
+    pair overflow (and the STGS step's iteration) are appended to `log`;
+    the STGS step of iteration `crash_at` raises KeyboardInterrupt after it
+    ran (a kill). -> the original, to put back."""
+    make = getattr(module, name)
+
+    def made(*a, **kw):
+        out = make(*a, **kw)
+        step = out[1] if tuple_out else out
+
+        def counted(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = dict(kernels.LAUNCHES)
+            res = step(*args, **kwargs)
+            aux = res[-1]
+            log.append(dict(
+                rose={k: kernels.LAUNCHES[k] - before[k] for k in before
+                      if kernels.LAUNCHES[k] != before[k]},
+                loss=float(aux["loss"]), overflow=int(aux["pair_overflow"]),
+                it=None if tuple_out else int(args[6])))
+            if crash_at is not None and log[-1]["it"] == crash_at:
+                raise KeyboardInterrupt("killed")
+            return res
+        return (out[0], counted) if tuple_out else counted
+
+    setattr(module, name, made)
+    return make
+
+
+
+def check_family_run(what, log, n_steps, launches, n_eval):
+    """Every step of a family run launched K5, gauss3d K1 and K2 once, with
+    a finite loss and no pair over the cap; the run's launches are the
+    steps' plus K5 and gauss3d K1 once per held-out render."""
+    if len(log) != n_steps:
+        raise AssertionError(f"{what}: {len(log)} steps, not {n_steps}")
+    for i, s in enumerate(log):
+        if s["rose"] != {k: 1 for k in GAUSSIANT_TRAIN_KERNELS}:
+            raise AssertionError(f"{what} step {i}: launches {s['rose']}")
+        if not np.isfinite(s["loss"]) or s["overflow"]:
+            raise AssertionError(f"{what} step {i}: {s}")
+    want = {"fill_forward": n_steps + n_eval,
+            "raster_blend_fwd_gauss3d": n_steps + n_eval,
+            "raster_blend_bwd_gauss3d": n_steps}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, not {want}")
+
+
+def write_video_capture(root, n_views=VIDEO_VIEWS, n_frames=VIDEO_FRAMES):
+    """A multi-view video capture at the train scene's 1558x1038: a
+    PointPlanes teacher of PP_POINTS points (moving: its displacement head
+    drawn) rendered on the card from n_views cameras on a ring at n_frames
+    times, as images/<cam>/<frame>.jpg, intri.yml / extri.yml and the
+    points as points3D.ply -> seconds."""
+    import cv2
+
+    from envgs_tpu_torch import bench
+    from envgs_tpu_torch.models import point_planes as PP
+    from envgs_tpu_torch.utils.easycam import write_cameras
+    from envgs_tpu_torch.utils.ply import save_sfm_ply
+
+    t0 = time.perf_counter()
+    H, W = bench.TRAIN_H, bench.TRAIN_W
+    rng = np.random.default_rng(31)
+    pts = rng.uniform(-1, 1, (PP_POINTS, 3)).astype(np.float32)
+    cfg = PP.PointPlanesConfig(n_frames=n_frames, pair_cap=2 ** 24)
+    teacher = cfg.init(pts, torch.Generator(device="cuda").manual_seed(3),
+                       "cuda")
+    cams = {}
+    with torch.no_grad():
+        teacher.resd.weights[-1].normal_(0.0, 0.05, generator=torch.Generator(
+            device="cuda").manual_seed(4))
+        for v, (K, R, T, cam) in enumerate(_ring_cams(n_views, H, W, 0.6 * W,
+                                                      2.5, "cuda", 0.4)):
+            name = f"{v:02d}"
+            cams[name] = dict(K=K.astype(np.float64), R=R.astype(np.float64),
+                              T=T.reshape(3, 1).astype(np.float64),
+                              D=np.zeros((5, 1)), H=H, W=W)
+            d = os.path.join(root, "images", name)
+            os.makedirs(d)
+            for f in range(n_frames):
+                rgb = PP.point_planes_forward(cfg, teacher,
+                                              f / (n_frames - 1), cam).rgb
+                im = (rgb.clamp(0, 1) * 255 + 0.5).to(torch.uint8).cpu().numpy()
+                cv2.imwrite(os.path.join(d, f"{f:06d}.jpg"), im[..., ::-1])
+    write_cameras(cams, root)
+    save_sfm_ply(os.path.join(root, "points3D.ply"), pts,
+                 rng.random((PP_POINTS, 3)).astype(np.float32))
+    return time.perf_counter() - t0
+
+
+def family_cli_runs(kernels, tmp, capture, card):
+    """Phase 19d: the families through the entry point in `tmp`:
+    `cli.main(["train", "-c", <config>])` of stgs_synthetic.yaml and
+    point_planes_synthetic.yaml as shipped (150 iterations each); a run of
+    stgs_synthetic.yaml cut to 60 iterations killed at iteration 55 and
+    resumed from its latest.npz of iteration 50; train_stgs on phase 16's capture at ratio 0.5
+    (30 iterations); train_point_planes on a video capture written here (20
+    iterations). -> {path: launch counts}."""
+    from envgs_tpu_torch import cli
+    from envgs_tpu_torch.models import point_planes as PP
+    from envgs_tpu_torch.models import stgs as S
+    from envgs_tpu_torch.train.families import train_point_planes, train_stgs
+
+    paths = {}
+    runs = (("stgs_cli", STGS_YAML, S, "make_stgs_train_step", False),
+            ("point_planes_cli", PP_YAML, PP, "make_point_planes_train_step",
+             True))
+    for path, yaml_path, module, name, tuple_out in runs:
+        out_root = os.path.join(tmp, path)
+        log = []
+        make = family_step_probe(module, name, kernels, log, tuple_out)
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        try:
+            res, summary = cli.main(["train", "-c", yaml_path,
+                                     f"out_root={out_root}"])
+        finally:
+            setattr(module, name, make)
+        secs = time.perf_counter() - t0
+        paths[path] = dict(kernels.LAUNCHES)
+        exp = os.path.splitext(os.path.basename(yaml_path))[0]
+        check_family_run(path, log, 150, paths[path], len(summary["frames"]))
+        model_dir = os.path.join(out_root, "trained_model", exp)
+        files = ["latest.npz"] + (["point_cloud.ply"] if module is S else [])
+        if not all(os.path.exists(os.path.join(model_dir, f)) for f in files):
+            raise AssertionError(f"{path}: {files} not all written")
+        psnr = summary["summary"]["psnr_mean"]
+        if not np.isfinite(psnr):
+            raise AssertionError(f"{path}: PSNR {psnr}")
+        print(f"[families] train -c {yaml_path}: 150 iterations, K5 and "
+              f"gauss3d K1 / K2 once a step, loss {log[0]['loss']:.4f} -> "
+              f"{log[-1]['loss']:.4f}, held-out PSNR {psnr:.3f} over "
+              f"{len(summary['frames'])} views, {', '.join(files)} written; "
+              f"{secs:.1f} s in all", flush=True)
+
+    # a run of 60 iterations killed at iteration 55 (after the checkpoint
+    # of 50), resumed
+    out_root = os.path.join(tmp, "stgs_resume")
+    argv = ["train", "-c", STGS_YAML, f"out_root={out_root}",
+            "runner_cfg.ep_iter=60"]
+    log = []
+    make = family_step_probe(S, "make_stgs_train_step", kernels, log,
+                             crash_at=55)
+    try:
+        cli.main(argv)
+        raise AssertionError("the run meant to be killed finished")
+    except KeyboardInterrupt:
+        pass
+    finally:
+        S.make_stgs_train_step = make
+    killed = len(log)
+    z = np.load(os.path.join(out_root, "trained_model", "stgs_synthetic",
+                             "latest.npz"))
+    saved = int(z["iter"])
+    log.clear()
+    family_step_probe(S, "make_stgs_train_step", kernels, log)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    try:
+        _, summary = cli.main(argv)
+    finally:
+        S.make_stgs_train_step = make
+    paths["stgs_resume"] = dict(kernels.LAUNCHES)
+    check_family_run("stgs_resume", log, 60 - saved, paths["stgs_resume"],
+                     len(summary["frames"]))
+    if saved != 50 or log[0]["it"] != saved:
+        raise AssertionError(f"resume: saved {saved}, first iteration "
+                             f"{log[0]['it']}")
+    print(f"[families] stgs_synthetic killed at iteration {killed - 1} "
+          f"(latest.npz of iteration {saved}), resumed: first iteration "
+          f"{log[0]['it']}, {len(log)} steps, loss {log[-1]['loss']:.4f}",
+          flush=True)
+
+    # train_stgs on phase 16's capture (multiview source, SfM points)
+    from envgs_tpu_torch.engine import Config
+
+    log = []
+    make = family_step_probe(S, "make_stgs_train_step", kernels, log)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    try:
+        state, summary = train_stgs(Config.wrap({
+            "exp_name": "stgs_capture", "out_root": os.path.join(tmp, "cap"),
+            "dataset_cfg": {"source": "multiview", "data_root": capture,
+                            "ratio": 0.5, "eval_every": 8},
+            "model_cfg": {"sampler_cfg": {
+                "type": "STGSModel", "pool_cap": 2 ** 20,
+                "pair_cap": 2 ** 24}},
+            "runner_cfg": {"ep_iter": 30, "log_interval": 10}}))
+    finally:
+        S.make_stgs_train_step = make
+    secs = time.perf_counter() - t0
+    paths["stgs_capture"] = dict(kernels.LAUNCHES)
+    check_family_run("stgs_capture", log, 30, paths["stgs_capture"],
+                     len(summary["frames"]))
+    print(f"[families] train_stgs on the capture (ratio 0.5, "
+          f"{int(state.pool.stats.active.sum())} SfM points in "
+          f"{state.pool.cap} slots): 30 iterations, loss {log[0]['loss']:.4f}"
+          f" -> {log[-1]['loss']:.4f}, held-out PSNR "
+          f"{summary['summary']['psnr_mean']:.3f} over "
+          f"{len(summary['frames'])} views; {secs:.1f} s in all", flush=True)
+
+    # train_point_planes on a video capture
+    video = os.path.join(tmp, "video")
+    wsecs = write_video_capture(video)
+    log = []
+    make = family_step_probe(PP, "make_point_planes_train_step", kernels,
+                             log, True)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    try:
+        model, summary = train_point_planes(Config.wrap({
+            "exp_name": "pp_video", "out_root": os.path.join(tmp, "vid"),
+            "dataset_cfg": {"source": "multiview", "data_root": video,
+                            "eval_every": 4},
+            "model_cfg": {"sampler_cfg": {"type": "PointPlanesSampler",
+                                          "pair_cap": 2 ** 22}},
+            "runner_cfg": {"ep_iter": 20, "log_interval": 10}}))
+    finally:
+        PP.make_point_planes_train_step = make
+    secs = time.perf_counter() - t0
+    paths["point_planes_video"] = dict(kernels.LAUNCHES)
+    check_family_run("point_planes_video", log, 20,
+                     paths["point_planes_video"], len(summary["frames"]))
+    print(f"[families] train_point_planes on a {VIDEO_VIEWS}-view "
+          f"{VIDEO_FRAMES}-frame video capture at 1558x1038 (written in "
+          f"{wsecs:.1f} s; {model.points.shape[0]} points): 20 iterations, "
+          f"loss {log[0]['loss']:.4f} -> {log[-1]['loss']:.4f}, held-out "
+          f"PSNR {summary['summary']['psnr_mean']:.3f} over "
+          f"{len(summary['frames'])} (view, frame) items; {secs:.1f} s in "
+          f"all ({card})", flush=True)
+    return paths
+
+
+def family_runs(kernels, tmp, capture, card):
+    """Phase 19: (a) small STGS runs CUDA against CPU, (b) STGS at full
+    width, (c) PointPlanes at a realistic size, (d) both families through
+    the entry point. -> {path: launch counts}."""
+    from envgs_tpu_torch.models.gaussians import DensifyConfig
+
+    g = torch.Generator().manual_seed(19)
+    eps = [torch.randn((512, 3), generator=g)
+           for _ in range(DensifyConfig().split_n
+                          + DensifyConfig().weight_split_n)]
+    for deg_t in (0, 1):
+        want = run_small_stgs("cpu", deg_t)
+        got = run_small_stgs("cuda", deg_t)
+        worst = compare_small_stgs(got, want,
+                                   maintain_small_stgs(want[2], "cuda", eps),
+                                   maintain_small_stgs(want[2], "cpu", eps))
+        print(f"[small-stgs] sh_degree_t {deg_t} cuda vs cpu " + json.dumps(
+            {k: (v if isinstance(v, int) else float(f"{v:.3g}"))
+             for k, v in worst.items()}), flush=True)
+    print(f"[small-stgs] bounds (phase 10's): render max abs {SMALL_ATOL:g}, "
+          f"radii and stats equal, loss rel {LOSS_RTOL:g}, wet, gradients, "
+          f"params, moments and grad_accum max|d|/max|ref| {STEP_RTOL:g}, "
+          f"maintenance masks equal and arrays {DENSIFY_RTOL:g}", flush=True)
+    paths = stgs_full(kernels, card)
+    paths.update(point_planes_full(kernels, card))
+    paths.update(family_cli_runs(kernels, tmp, capture, card))
+    return paths
 
 
 def main():
@@ -2809,7 +3614,7 @@ def main():
                                  f", trace_dropped {dr}")
     for pool in (state.base, state.env):
         for name, p in zip(pool.params._fields, pool.params):
-            if not bool(torch.isfinite(p).all()):
+            if p is not None and not bool(torch.isfinite(p).all()):
                 raise AssertionError(f"non-finite {name} after training")
     print(f"[train] train steps/s over {n_steps} steps: {sps:.4f} "
           f"({1e3 / sps:.1f} ms per step); peak device memory "
@@ -2997,9 +3802,10 @@ def main():
               f"{float(gstate.pool.get_opacity.max()):.4f}", flush=True)
         gstate, _ = steps(gstate, 3, f"after it={it}")
     for name, p in zip(gstate.pool.params._fields, gstate.pool.params):
-        if not bool(torch.isfinite(p).all()):
+        if p is not None and not bool(torch.isfinite(p).all()):
             raise AssertionError(f"3DGS: non-finite {name} after training")
-    inf_nu = sum(int((~torch.isfinite(v)).sum()) for v in gstate.opt.nu)
+    inf_nu = sum(int((~torch.isfinite(v)).sum()) for v in gstate.opt.nu
+                 if v is not None)
     with torch.no_grad():  # opacity was just reset: rgb is faint here
         n_pairs = int(G.render_gaussiant(gstate.pool, gcam, gcfg).num_pairs)
     if n_pairs > gcfg.pair_cap:
@@ -3154,8 +3960,9 @@ def main():
         cli_launches = cli_run(kernels, smoke_tmp)
 
         # ---- 16. a capture on disk at full width, through the configs ----
-        with tempfile.TemporaryDirectory() as tmp:
-            capture_launches = capture_runs(kernels, tmp, card)
+        # (the capture stays on disk for phase 19)
+        cap_tmp = keep.enter_context(tempfile.TemporaryDirectory())
+        capture_launches = capture_runs(kernels, cap_tmp, card)
 
         # ---- 17. base tracing, two bounces, the goldens ----
         traced, traced_paths = traced_runs(kernels)
@@ -3176,12 +3983,18 @@ def main():
         del make_run_runner
         scene_run(kernels, card)
 
+        # ---- 19. the other gauss3d families: STGS, PointPlanes ----
+        family_launches = family_runs(
+            kernels, keep.enter_context(tempfile.TemporaryDirectory()),
+            os.path.join(cap_tmp, "capture"), card)
+
     paths = {"render": render_launches, "train": train_launches,
              "gaussiant": gaussiant_launches, "run": run_launches,
              "run_eval": eval_launches, "probe": probe_launches,
              "render_path": path_launches, "cli": cli_launches,
              **capture_launches, **traced_paths, "aux_train": aux_launches,
-             "mesh": mesh_launches, "mesh_cli": mesh_cli_launches}
+             "mesh": mesh_launches, "mesh_cli": mesh_cli_launches,
+             **family_launches}
 
     def entry(name, src, replaces, err, ms, plain_ms, bound, library_ms=None,
               keys=None, **extra):

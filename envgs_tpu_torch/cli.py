@@ -1,13 +1,15 @@
 """Command-line entry points of the port: train / test / render / mesh /
 smoke / dist / sig (port of envgs_tpu/cli.py for the EnvGS family and the
-config-driven plain 3DGS family, on the synthetic scene or a capture on
-disk).
+config-driven gauss3d families: plain 3DGS, Spacetime Gaussians and
+PointPlanes, on the synthetic scene or a capture on disk).
 
   python -m envgs_tpu_torch smoke            # synthetic end-to-end run
   python -m envgs_tpu_torch train -c configs/exps/envgs_synthetic.yaml
   python -m envgs_tpu_torch train -c <scene config> \
       dataset_cfg.data_root=<capture>
   python -m envgs_tpu_torch train -c configs/exps/gaussiant_synthetic.yaml
+  python -m envgs_tpu_torch train -c configs/exps/stgs_synthetic.yaml
+  python -m envgs_tpu_torch train -c configs/exps/point_planes_synthetic.yaml
   python -m envgs_tpu_torch test  -c configs/exps/envgs_synthetic.yaml \
       model_cfg.sampler_cfg.tracer_backend=tiled
   python -m envgs_tpu_torch render -c <config> --path-kind orbit \
@@ -35,10 +37,14 @@ the blends' kernels on the card, `ref` the exact oracles
 multiview` reads a capture in easyvolcap layout (data/dataset.py:
 `images/<cam>/`, `intri.yml` / `extri.yml`, `sparse/0`, `normals/`,
 `envs/points3D.ply`). `train` with `sampler_cfg.type: GaussianTSampler` runs
-the 3DGS family's loop (through `engine.TRAINERS`).
+the 3DGS family's loop, with `STGSModel` / `STGSSampler` the Spacetime
+Gaussians' and with `PointPlanesSampler` PointPlanes' (train/families.py;
+a video capture for PointPlanes: `images/<cam>/<frame>`), all through
+`engine.TRAINERS`; their other modes raise.
 `model_cfg.supervisor_cfg.aux_cfg` enables the aux supervisors by weight
 (train/aux_supervisors.py::AuxLossConfig). A mode or option the port lacks
-(the other model families, `ws`) raises NotImplementedError naming it.
+(the NeRF, NeuS and ENeRF families, `ws`) raises NotImplementedError
+naming it.
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ from envgs_tpu_torch.engine import TRAINERS, Config, call_filtered, load_config
 from envgs_tpu_torch.models import gaussians as G
 from envgs_tpu_torch.models.envgs import EnvGSConfig
 from envgs_tpu_torch.ops.common import BACKENDS, check_backend
+from envgs_tpu_torch.train import families  # noqa: F401 (registrations)
 from envgs_tpu_torch.train.aux_supervisors import AuxLossConfig
 from envgs_tpu_torch.train.optimizer import LRConfig
 from envgs_tpu_torch.train.runner import Runner
@@ -482,8 +489,10 @@ def main(argv=None, device="cuda"):
     mcfg = cfg.get("model_cfg", {}) or {}
     styp = (mcfg.get("sampler_cfg", {}) or {}).get("type")
     ntyp = (mcfg.get("network_cfg", {}) or {}).get("type")
-    if a.mode == "train" and styp in TRAINERS:
-        return TRAINERS.get(styp)(cfg, device)
+    if a.mode == "train":
+        for typ in (styp, ntyp):
+            if typ and typ in TRAINERS:
+                return TRAINERS.get(typ)(cfg, device)
     for typ in (styp, ntyp):
         if typ and typ != "EnvGSSampler":
             raise NotImplementedError(

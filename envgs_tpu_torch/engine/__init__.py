@@ -3,17 +3,20 @@ from envgs_tpu_torch.engine.registry import Registry, call_filtered
 
 # The registries the port fills (the JAX package's engine/__init__.py has
 # the reference's whole taxonomy): datasets, the moderators' schedules and
-# the model-family training entry points, keyed by the reference's names.
+# the model-family training entry points, the learning-rate schedulers and
+# the index samplers, keyed by the reference's names.
 # Components register where they are defined; importing them fills these.
 DATASETS = Registry("datasets")
 MODERATORS = Registry("moderators")
 TRAINERS = Registry("trainers")
+SCHEDULERS = Registry("schedulers")
+DATASAMPLERS = Registry("datasamplers")
 
 # the JAX package's other registries: nothing of the port registers there
 UNPORTED_REGISTRIES = (
-    "DATALOADERS", "DATASAMPLERS", "MODELS", "CAMERAS", "SAMPLERS",
+    "DATALOADERS", "MODELS", "CAMERAS", "SAMPLERS",
     "NETWORKS", "EMBEDDERS", "REGRESSORS", "RENDERERS", "SUPERVISORS",
-    "RUNNERS", "OPTIMIZERS", "SCHEDULERS", "RECORDERS", "EVALUATORS",
+    "RUNNERS", "OPTIMIZERS", "RECORDERS", "EVALUATORS",
     "VISUALIZERS")
 
 
@@ -25,4 +28,5 @@ def __getattr__(name):
 
 
 __all__ = ["Config", "load_config", "merge_dotted", "Registry",
-           "call_filtered", "DATASETS", "MODERATORS", "TRAINERS"]
+           "call_filtered", "DATASETS", "MODERATORS", "TRAINERS",
+           "SCHEDULERS", "DATASAMPLERS"]

@@ -3,6 +3,9 @@ gaussians.py): the pool, its weight bridge, densification-statistic
 accumulation, the SH degree bump, adaptive density control
 (`densify_and_prune`), the opacity reset and the 3DGS-DR resets of the
 EnvGS schedule (specular reset, normal propagation, color sabotage).
+The temporal fields of the Spacetime Gaussians (`t`, `scaling_t`,
+`motion`) are optional: None in the static families, carried by every
+field walk (`map_params`) as the JAX package's pytrees carry them.
 
 The pool keeps the JAX package's layout: raw (pre-activation) parameter
 tensors of a static capacity `cap` plus an `active` mask, so masked arrays
@@ -56,6 +59,35 @@ class GaussianParams(NamedTuple):
     opacity: torch.Tensor  # (N, 1) logit
     specular: torch.Tensor  # (N, S) logit
     roughness: torch.Tensor  # (N, 1) logit
+    # temporal extension (the STGS family; None in the static families)
+    t: torch.Tensor | None = None  # (N, 1) temporal center
+    scaling_t: torch.Tensor | None = None  # (N, 1) log temporal scale
+    motion: torch.Tensor | None = None  # (N, 3) linear velocity
+
+
+# the fields of every pool (the STGS pools add the temporal ones)
+STATIC_FIELDS = GaussianParams._fields[:8]
+
+
+def map_params(fn, *trees):
+    """fn applied field by field over NamedTuples of one type (parameters,
+    gradients, moments); a field that is None in the first tree stays
+    None, as a None pytree node does in the JAX package."""
+    return type(trees[0])(*(None if xs[0] is None else fn(*xs)
+                            for xs in zip(*trees)))
+
+
+def present(params) -> list:
+    """The fields of a NamedTuple of tensors that are not None, in order
+    (the leaves of the JAX package's flattened pytree)."""
+    return [x for x in params if x is not None]
+
+
+def fill_params(like, leaves):
+    """Inverse of present: `leaves` in the fields where `like` holds a
+    tensor, None elsewhere."""
+    it = iter(leaves)
+    return type(like)(*(None if x is None else next(it) for x in like))
 
 
 class GaussianStats(NamedTuple):
@@ -103,9 +135,8 @@ class GaussianPool(NamedTuple):
 def pool_from_numpy(params: dict, stats: dict, max_sh_degree: int,
                     device: torch.device | str | None = None) -> GaussianPool:
     """Build a pool from numpy arrays keyed by the JAX field names
-    (GaussianParams / GaussianStats of envgs_tpu). Keys the port does not
-    have (the temporal fields, None in the static families) must be absent
-    or None."""
+    (GaussianParams / GaussianStats of envgs_tpu). A temporal field absent
+    or None stays None (the static families)."""
     extra = [k for k, v in params.items()
              if v is not None and k not in GaussianParams._fields]
     if extra:
@@ -115,7 +146,8 @@ def pool_from_numpy(params: dict, stats: dict, max_sh_degree: int,
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
     p = GaussianParams(**{k: t(params[k], torch.float32)
-                          for k in GaussianParams._fields})
+                          for k in GaussianParams._fields
+                          if params.get(k) is not None})
     s = GaussianStats(
         active=t(stats["active"], torch.bool),
         max_radii2d=t(stats["max_radii2d"], torch.float32),
@@ -128,8 +160,10 @@ def pool_from_numpy(params: dict, stats: dict, max_sh_degree: int,
 
 
 def pool_to_numpy(pool: GaussianPool) -> tuple[dict, dict]:
-    """(params, stats) numpy dicts under the JAX field names."""
-    return ({k: v.detach().cpu().numpy() for k, v in pool.params._asdict().items()},
+    """(params, stats) numpy dicts under the JAX field names; a None
+    (temporal) field is left out."""
+    return ({k: v.detach().cpu().numpy()
+             for k, v in pool.params._asdict().items() if v is not None},
             {k: v.detach().cpu().numpy() for k, v in pool.stats._asdict().items()})
 
 
@@ -146,16 +180,22 @@ def create_pool(
     init_roughness: float = 0.5,
     seed: int = 0,
     scale_axes: int = 2,
+    times: np.ndarray | None = None,
+    init_scale_t: float = 0.1414,
+    sh_degree_t: int = 0,
     device: torch.device | str | None = None,
 ) -> GaussianPool:
     """Build a pool from an initial point cloud (host-side numpy, then moved
     to `device`): 3-NN scales, random rotations from
     `np.random.default_rng(seed)`, constant opacity/specular/roughness —
     the same draws as envgs_tpu's create_pool. scale_axes: 2 = surfels
-    (2DGS), 3 = full 3D Gaussians (the 3DGS family)."""
+    (2DGS), 3 = full 3D Gaussians (the 3DGS family). With `times` the
+    temporal fields: t from the times, log(init_scale_t) temporal scales,
+    zero motion; sh_degree_t > 0 adds sh_degree_t cosine blocks of
+    coefficients (4D SH) to features_rest."""
     P = int(xyz.shape[0])
     assert P <= cap, f"init points {P} exceed pool capacity {cap}"
-    K = num_sh_coeffs(sh_degree)
+    K = num_sh_coeffs(sh_degree) * (sh_degree_t + 1)
     rng = np.random.default_rng(seed)
 
     f_dc = np.zeros((cap, 1, 3), np.float32)
@@ -184,6 +224,14 @@ def create_pool(
                   opacity=const(init_opacity, 1),
                   specular=const(init_specular, specular_channels),
                   roughness=const(init_roughness, 1))
+    if times is not None:
+        t_full = np.zeros((cap, 1), np.float32)
+        t_full[:P] = np.asarray(times, np.float32).reshape(P, 1)
+        params.update(
+            t=t_full,
+            scaling_t=np.full((cap, 1), np.log(max(init_scale_t, 1e-6)),
+                              np.float32),
+            motion=np.zeros((cap, 3), np.float32))
     zeros = np.zeros((cap,), np.float32)
     stats = dict(active=active, max_radii2d=zeros, grad_accum=zeros,
                  weight_accum=zeros, denom=zeros,
@@ -279,10 +327,10 @@ def _write_children(params: GaussianParams, adam_tree, child: GaussianParams,
         t[dst] = rows
         return t
 
-    params = type(params)(*(put(d, s[src]) for d, s in zip(params, child)))
+    params = map_params(lambda d, s: put(d, s[src]), params, child)
     if adam_tree is not None:
         adam_tree = type(adam_tree)(
-            type(m)(*(put(x, 0.0) for x in m)) for m in adam_tree)
+            map_params(lambda x: put(x, 0.0), m) for m in adam_tree)
     return params, adam_tree
 
 

@@ -24,7 +24,10 @@ from envgs_tpu_torch.models.gaussians import (
     accumulate_stats,
     create_pool,
     densify_and_prune,
+    fill_params,
+    map_params,
     oneup_sh_degree,
+    present,
     reset_opacity,
     sh_degree_mask,
 )
@@ -135,8 +138,8 @@ def make_gaussiant_train_step(cfg: GaussianTConfig, cam_template: Camera,
     def step(state: GaussianTState, K, R, T, target):
         cam = Camera(H, W, K, R, T, znear, zfar)
         pool = state.pool
-        params = type(pool.params)(*(p.detach().requires_grad_(True)
-                                     for p in pool.params))
+        params = map_params(lambda p: p.detach().requires_grad_(True),
+                            pool.params)
         m2z = torch.zeros((pool.cap, 2), device=params.xyz.device,
                           requires_grad=True)
         out = render_gaussiant(pool._replace(params=params), cam, cfg,
@@ -144,11 +147,11 @@ def make_gaussiant_train_step(cfg: GaussianTConfig, cam_template: Camera,
         l1 = torch.mean(torch.abs(out.rgb - target))
         s = ssim(out.rgb, target)
         loss = (1.0 - cfg.ssim_weight) * l1 + cfg.ssim_weight * (1.0 - s)
-        leaves = [*params, m2z]
+        leaves = [*present(params), m2z]
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for g, x in zip(grads, leaves)]
-        g_params, g_m2z = type(params)(*grads[:-1]), grads[-1]
+        g_params, g_m2z = fill_params(params, grads[:-1]), grads[-1]
 
         new_params, new_opt = sparse_adam_update(
             pool.params, g_params, state.opt,

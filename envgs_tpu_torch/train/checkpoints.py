@@ -114,9 +114,9 @@ def load_checkpoint(path: str, base_cap: int, env_cap: int,
         if extra:
             raise NotImplementedError(
                 f"{path}: parameters the port does not carry: {extra}")
-        group = lambda short: {  # noqa: E731
+        group = lambda short: {  # noqa: E731  temporal fields when saved
             k: _pad(z[f"{tag}/{short}/{k}"], cap)
-            for k in GaussianParams._fields}
+            for k in GaussianParams._fields if f"{tag}/{short}/{k}" in z}
         stats = {k: (z[f"{tag}/s/{k}"] if z[f"{tag}/s/{k}"].ndim == 0
                      else _pad(z[f"{tag}/s/{k}"], cap))
                  for k in GaussianStats._fields}

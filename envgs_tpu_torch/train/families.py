@@ -1,0 +1,400 @@
+"""Config-driven training of the other model families (port of the gauss3d
+part of envgs_tpu/train/families.py): the Spacetime Gaussians
+(`STGSModel` / `STGSSampler`) and PointPlanes (`PointPlanesSampler`),
+registered in `engine.TRAINERS` under the reference's names, so that
+
+    python -m envgs_tpu_torch train -c configs/exps/stgs_synthetic.yaml
+
+dispatches by `sampler_cfg.type` as the JAX package does. Both render
+through the 3DGS rasterizer: on a CUDA tensor each step launches K5,
+gauss3d K1 and gauss3d K2 once, on a CPU tensor their plain versions run.
+
+`FamilyLoop` gives each family loop the runner's services: resume from
+`latest.npz`, a checkpoint every `save_latest_every` iterations, the
+recorder's scalars, log lines with an ETA, an eval cadence. `latest.npz`
+holds the leaves of the parameter and optimizer trees in the JAX
+package's flattened order (`p<i>`, `o<i>`, `iter`), so a checkpoint of
+either package's loop resumes in the other. The port runs one process.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from envgs_tpu_torch.engine import TRAINERS, Config, call_filtered
+from envgs_tpu_torch.models.gaussians import DensifyConfig, GaussianPool
+from envgs_tpu_torch.ops.common import check_backend
+
+
+def _runner_cfg(cfg: Config):
+    rcfg = cfg.get("runner_cfg", {}) or {}
+    total = int(rcfg.get("epochs", 1)) * int(rcfg.get("ep_iter", 500))
+    return rcfg, total
+
+
+# ---------------------------------------------------------------------------
+# trees in the JAX package's flattened order
+# ---------------------------------------------------------------------------
+
+def tree_flatten(tree) -> list:
+    """The tensors of a tree in jax.tree_util.tree_flatten's order:
+    NamedTuples field by field, dicts by sorted key, lists and tuples in
+    order, None left out; a GaussianPool is its params and stats (its
+    max_sh_degree is static, not a leaf)."""
+    if tree is None:
+        return []
+    if isinstance(tree, GaussianPool):
+        return tree_flatten(tree.params) + tree_flatten(tree.stats)
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_flatten(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for c in tree for x in tree_flatten(c)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves: list):
+    """Inverse of tree_flatten: `like`'s structure around `leaves`."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, GaussianPool):
+            return t._replace(params=build(t.params), stats=build(t.stats))
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(build(c) for c in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(c) for c in t)
+        return next(it)
+
+    return build(like)
+
+
+def tensor_like(ref: torch.Tensor, arr) -> torch.Tensor:
+    """A checkpoint leaf with the reference leaf's dtype and device (the
+    JAX package's jnp_like); another shape raises KeyError (the families'
+    shapes are static)."""
+    a = np.asarray(arr)
+    if a.shape != tuple(ref.shape):
+        raise KeyError(f"shape {a.shape} != {tuple(ref.shape)}")
+    return torch.tensor(a, dtype=ref.dtype, device=ref.device)
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+class FamilyLoop:
+    """The runner's services for a family loop:
+
+        loop = FamilyLoop(cfg, "stgs")
+        params, opt_state, start = loop.restore(params, opt_state)
+        for it in range(start, loop.total):
+            ... step ...
+            loop.step_done(it, aux, params, opt_state)
+        loop.finish(params, opt_state)
+    """
+
+    def __init__(self, cfg: Config, default_exp: str):
+        from envgs_tpu_torch.train.recorder import Recorder
+
+        rcfg, self.total = _runner_cfg(cfg)
+        self.log_every = int(rcfg.get("log_interval", 50))
+        self.save_latest_every = int(rcfg.get("save_latest_every", 1000))
+        self.eval_every_iters = int(rcfg.get("eval_every_iters", 0))
+        self.resume = bool(rcfg.get("resume", True))
+        exp = cfg.get("exp_name", default_exp)
+        root = cfg.get("out_root", "data")
+        self.model_dir = os.path.join(root, "trained_model", exp)
+        self.result_dir = os.path.join(root, "result", exp)
+        os.makedirs(self.model_dir, exist_ok=True)
+        self.recorder = Recorder(
+            os.path.join(root, "record", exp),
+            enabled=bool(rcfg.get("record", True)),
+            resolved_config=cfg.to_dict() if hasattr(cfg, "to_dict")
+            else dict(cfg))
+        self._t0 = time.time()
+        self._start = 0
+
+    @property
+    def latest(self) -> str:
+        return os.path.join(self.model_dir, "latest.npz")
+
+    def save(self, it: int, params, opt_state):
+        """latest.npz: the iteration and both trees' leaves."""
+        np.savez_compressed(
+            self.latest, iter=it,
+            **{f"p{i}": _np(x) for i, x in enumerate(tree_flatten(params))},
+            **{f"o{i}": _np(x)
+               for i, x in enumerate(tree_flatten(opt_state))})
+
+    def restore(self, params, opt_state):
+        """latest.npz -> (params, opt_state, start iteration); the trees as
+        given when there is none, resume is off, or its leaves do not
+        match (count or shapes)."""
+        if not self.resume or not os.path.exists(self.latest):
+            return params, opt_state, 0
+        z = np.load(self.latest)
+        pf, of = tree_flatten(params), tree_flatten(opt_state)
+        try:
+            new_p = [tensor_like(pf[i], z[f"p{i}"]) for i in range(len(pf))]
+            new_o = [tensor_like(of[i], z[f"o{i}"]) for i in range(len(of))]
+        except KeyError:
+            print(f"[resume] {self.latest} layout mismatch; starting fresh")
+            return params, opt_state, 0
+        self._start = int(z["iter"])
+        print(f"[resume] {self.latest} @ iter {self._start}")
+        return (tree_unflatten(params, new_p),
+                tree_unflatten(opt_state, new_o), self._start)
+
+    def step_done(self, it: int, aux: dict, params, opt_state,
+                  eval_fn=None):
+        nxt = it + 1
+        if it % self.log_every == 0 or nxt == self.total:
+            stats = {k: float(v) for k, v in aux.items()
+                     if (v.dim() if torch.is_tensor(v) else np.ndim(v)) == 0}
+            self.recorder.record("TRAIN", stats, it=it)
+            done = it - self._start + 1
+            eta = (time.time() - self._t0) / max(done, 1) * (self.total - nxt)
+            line = " ".join(f"{k} {v:.4f}" for k, v in stats.items()
+                            if k in ("loss", "psnr"))
+            print(f"iter {it}/{self.total} {line} eta {eta / 60:.1f}m",
+                  flush=True)
+        if self.save_latest_every and nxt % self.save_latest_every == 0:
+            self.save(nxt, params, opt_state)
+        if (self.eval_every_iters and eval_fn is not None
+                and nxt % self.eval_every_iters == 0):
+            try:
+                eval_fn(nxt)
+            except Exception as e:  # an eval must not end the training
+                print(f"[eval error ignored] {e}")
+
+    def finish(self, params, opt_state):
+        self.save(self.total, params, opt_state)
+        self.recorder.close()
+
+
+def _dataset_kwargs(dcfg: dict) -> dict:
+    """dataset_cfg without the keys the loops read themselves (`source`,
+    `preload_gs`): the dataset's keyword arguments."""
+    return {k: v for k, v in dcfg.items()
+            if k not in ("source", "preload_gs")}
+
+
+def _load_views_generic(cfg: Config, device="cuda"):
+    """dataset_cfg -> (train views, eval views): the synthetic scene (a
+    time t = i / (n - 1) per view, every `eval_every`-th view held out) or
+    a capture on disk (MultiViewDataset), cameras on `device`."""
+    dcfg = cfg.get("dataset_cfg", {}) or {}
+    if dcfg.get("source", "synthetic") == "synthetic":
+        from envgs_tpu_torch.data.synthetic import make_scene
+
+        scene = make_scene(n_views=dcfg.get("n_views", 12),
+                           H=dcfg.get("H", 64), W=dcfg.get("W", 64),
+                           seed=dcfg.get("seed", 0), device=device)
+        split = dcfg.get("eval_every", 4)
+        views, eval_views = [], []
+        for i, cam in enumerate(scene.cams):
+            v = dict(rgb=scene.images[i], camera=cam, name=f"{i:02d}",
+                     t=i / max(len(scene.cams) - 1, 1))
+            (eval_views if (split and i % split == 0) else views).append(v)
+        return views, eval_views
+    from envgs_tpu_torch.data.dataset import MultiViewDataset
+
+    kw = _dataset_kwargs(dcfg)
+    ds = call_filtered(MultiViewDataset, dict(kw, split="train",
+                                              device=device))
+    vs = call_filtered(MultiViewDataset, dict(kw, split="val",
+                                              device=device))
+    return [ds[i] for i in range(len(ds))], [vs[i] for i in range(len(vs))]
+
+
+def _evaluate(render, eval_views, result_dir, device):
+    """PSNR / SSIM (/ LPIPS) of render(view) -> rgb on the held-out views
+    into <result_dir>/metrics.json -> the metrics dict."""
+    from envgs_tpu_torch.train.evaluator import Evaluator
+
+    ev = Evaluator(result_dir)
+    with torch.no_grad():
+        for i, v in enumerate(eval_views):
+            rgb = torch.clamp(render(v), 0.0, 1.0)
+            ev.evaluate(rgb, torch.as_tensor(v["rgb"], dtype=torch.float32,
+                                             device=device),
+                        name=v.get("name", str(i)))
+    summary = ev.summarize()
+    print(json.dumps(summary["summary"], indent=2))
+    return summary
+
+
+# sampler_cfg keys of the STGS loop that no tuple holds
+_STGS_KEYS = frozenset({"type", "n_points", "pool_cap",
+                        "densification_interval", "densify_until_iter",
+                        "reset_t_interval"})
+
+
+@TRAINERS.register(name="STGSModel")
+@TRAINERS.register(name="STGSSampler")
+def train_stgs(cfg: Config, device="cuda"):
+    """The Spacetime-Gaussian family over a (view, time) stream: the pool
+    from random points (synthetic) or the capture's SfM cloud, times
+    uniform in [0, 1]; densify / prune every densification_interval until
+    densify_until_iter (split offsets from a generator seeded with
+    runner_cfg.seed), reset_t every reset_t_interval; then
+    `point_cloud.ply` (the 4D layout) and the held-out views' metrics.
+    -> (final STGSState, the metrics dict or None without held-out
+    views)."""
+    from envgs_tpu_torch.cli import _named
+    from envgs_tpu_torch.models.stgs import (
+        STGSConfig,
+        init_stgs_pool,
+        init_stgs_state,
+        make_stgs_train_step,
+        render_stgs,
+        reset_t,
+        save_stgs_ply,
+        stgs_lr_config,
+        stgs_maintenance,
+    )
+
+    mcfg = cfg.get("model_cfg", {}) or {}
+    scfg = {**(mcfg.get("network_cfg", {}) or {}),
+            **(mcfg.get("sampler_cfg", {}) or {})}
+    gcfg = _named(STGSConfig, scfg,
+                  frozenset(DensifyConfig._fields) | _STGS_KEYS)
+    check_backend("raster", gcfg.raster_backend)
+    views, eval_views = _load_views_generic(cfg, device)
+    rcfg, total = _runner_cfg(cfg)
+    loop = FamilyLoop(cfg, "stgs")
+
+    dcfg = cfg.get("dataset_cfg", {}) or {}
+    seed = int(rcfg.get("seed", 0))
+    rng = np.random.default_rng(seed)
+    if dcfg.get("source", "synthetic") == "synthetic":
+        P0 = int(scfg.get("n_points", 2048))
+        pts = rng.uniform(-1, 1, (P0, 3)).astype(np.float32)
+        pts[:, 2] += 3.0
+        cols = rng.random((P0, 3)).astype(np.float32)
+    else:
+        from envgs_tpu_torch.data.dataset import MultiViewDataset
+
+        ds = call_filtered(MultiViewDataset, dict(
+            _dataset_kwargs(dcfg), split="train", device=device))
+        pts, cols = ds.load_sfm(dcfg.get("preload_gs"))
+    times = rng.random(len(pts)).astype(np.float32)
+    cap = int(scfg.get("pool_cap", max(len(pts) * 4, 1024)))
+    state = init_stgs_state(init_stgs_pool(pts, times, cols, cap, gcfg,
+                                           device=device))
+    lr_cfg = stgs_lr_config(duration=gcfg.duration)
+    dens = _named(DensifyConfig, dict(scfg, max_gs=cap),
+                  frozenset(STGSConfig._fields) | _STGS_KEYS)
+    densify_every = int(scfg.get("densification_interval", 200))
+    densify_until = int(scfg.get("densify_until_iter", total // 2))
+    reset_t_every = int(scfg.get("reset_t_interval", 0))
+
+    step_cache: dict = {}
+
+    def step_for(cam):
+        k = (cam.H, cam.W)
+        if k not in step_cache:
+            step_cache[k] = make_stgs_train_step(gcfg, cam, lr_cfg)
+        return step_cache[k]
+
+    def tensor(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    state, _, start = loop.restore(state, ())
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for it in range(start, loop.total):
+        if 0 < it < densify_until and it % densify_every == 0:
+            state = stgs_maintenance(state, dens, gen)
+        if reset_t_every and it > 0 and it % reset_t_every == 0:
+            pool, opt = reset_t(state.pool, state.opt, 0.0, gcfg.duration)
+            state = state._replace(pool=pool, opt=opt)
+        v = views[int(rng.integers(0, len(views)))]
+        cam = v["camera"]
+        state, aux = step_for(cam)(state, cam.K, cam.R, cam.T,
+                                   float(v.get("t", 0.0)), tensor(v["rgb"]),
+                                   it)
+        loop.step_done(it, aux, state, ())
+    loop.finish(state, ())
+    save_stgs_ply(state.pool, os.path.join(loop.model_dir, "point_cloud.ply"))
+    if not eval_views:
+        return state, None
+    return state, _evaluate(
+        lambda v: render_stgs(state.pool, v["camera"],
+                              float(v.get("t", 0.0)), gcfg).rgb,
+        eval_views, loop.result_dir, device)
+
+
+@TRAINERS.register(name="PointPlanesSampler")
+def train_point_planes(cfg: Config, device="cuda"):
+    """The PointPlanes family over the frames of a video: points uniform in
+    [-1, 1]^3 (synthetic, one frame a view) or the capture's SfM cloud
+    (MultiViewVideoDataset), weights from a generator seeded with
+    runner_cfg.seed (not the JAX package's draws: a latest.npz of either
+    package resumes), Adam at runner_cfg.lr; then the held-out views'
+    metrics. -> (the PointPlanes module, the metrics dict or None)."""
+    from envgs_tpu_torch.cli import _named
+    from envgs_tpu_torch.models.point_planes import (
+        PointPlanesConfig,
+        flat_params,
+        make_point_planes_train_step,
+        point_planes_forward,
+    )
+
+    dcfg = cfg.get("dataset_cfg", {}) or {}
+    scfg = (cfg.get("model_cfg", {}) or {}).get("sampler_cfg", {}) or {}
+    rcfg, total = _runner_cfg(cfg)
+    lr = float(rcfg.get("lr", 5e-3))
+    if dcfg.get("source", "synthetic") == "synthetic":
+        views, eval_views = _load_views_generic(cfg, device)
+        rng0 = np.random.default_rng(0)
+        pts = rng0.uniform(-1, 1, (int(scfg.get("n_points", 2048)), 3)
+                           ).astype(np.float32)
+        n_frames = int(scfg.get("n_frames", max(len(views), 2)))
+    else:
+        from envgs_tpu_torch.data.video_dataset import MultiViewVideoDataset
+
+        # (MultiViewVideoDataset hands every other keyword to
+        # MultiViewDataset, which takes no others)
+        kw = _dataset_kwargs(dcfg)
+        ds = MultiViewVideoDataset(**kw, split="train", device=device)
+        vs = MultiViewVideoDataset(**kw, split="val", device=device)
+        views = [ds[i] for i in range(len(ds))]
+        eval_views = [vs[i] for i in range(len(vs))]
+        pts, _ = ds.load_sfm(dcfg.get("preload_gs"))
+        n_frames = ds.n_frames
+    pcfg = _named(PointPlanesConfig, dict(scfg, n_frames=n_frames),
+                  {"type", "n_points"})
+    check_backend("raster", pcfg.raster_backend)
+
+    init, step = make_point_planes_train_step(pcfg, views[0]["camera"], lr)
+    gen = torch.Generator(device=device).manual_seed(int(rcfg.get("seed", 0)))
+    model, opt_state = init(pts, gen, device)
+    loop = FamilyLoop(cfg, "point_planes")
+    tree, opt_state, start = loop.restore(model.jax_tree(), opt_state)
+    with torch.no_grad():
+        for p, x in zip(flat_params(model), tree_flatten(tree)):
+            p.copy_(x)
+    rng = np.random.default_rng(0)
+    for it in range(start, loop.total):
+        v = views[int(rng.integers(0, len(views)))]
+        cam = v["camera"]
+        opt_state, aux = step(model, opt_state, float(v.get("t", 0.0)),
+                              cam.K, cam.R, cam.T,
+                              torch.as_tensor(v["rgb"], dtype=torch.float32,
+                                              device=device))
+        loop.step_done(it, aux, model.jax_tree(), opt_state)
+    loop.finish(model.jax_tree(), opt_state)
+    if not eval_views:
+        return model, None
+    return model, _evaluate(
+        lambda v: point_planes_forward(pcfg, model, float(v.get("t", 0.0)),
+                                       v["camera"]).rgb,
+        eval_views, loop.result_dir, device)

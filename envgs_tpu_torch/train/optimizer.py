@@ -1,11 +1,15 @@
 """Sparse-update Adam and the per-parameter learning-rate schedules (port
-of envgs_tpu/train/optimizer.py for the static surfel pools).
+of envgs_tpu/train/optimizer.py).
 
 `sparse_adam_update` skips every element whose gradient is exactly zero:
 untouched surfels keep their moments and do not decay, the semantics
 adaptive density control relies on. Learning rates follow the per-name
 table, the log-linear xyz decay and the 3DGS-DR opacity pulse. The
-schedules are computed in float32, as the JAX package computes them.
+schedules are computed in float32, as the JAX package computes them. A
+parameter field that is None (the temporal fields of a static pool) stays
+None in the moments and the update. The named schedulers of the reference
+(`NoopLR`, `ExponentialLR`, `WarmupExponentialLR`) are registered in
+`engine.SCHEDULERS`.
 """
 from __future__ import annotations
 
@@ -14,7 +18,8 @@ from typing import NamedTuple
 
 import torch
 
-from envgs_tpu_torch.models.gaussians import GaussianParams
+from envgs_tpu_torch.engine import SCHEDULERS
+from envgs_tpu_torch.models.gaussians import GaussianParams, map_params
 
 
 class AdamState(NamedTuple):
@@ -25,9 +30,8 @@ class AdamState(NamedTuple):
 
 def init_adam(params) -> AdamState:
     """Zero moments for a NamedTuple of parameter tensors."""
-    cls = type(params)
-    return AdamState(cls(*map(torch.zeros_like, params)),
-                     cls(*map(torch.zeros_like, params)),
+    return AdamState(map_params(torch.zeros_like, params),
+                     map_params(torch.zeros_like, params),
                      torch.zeros((), dtype=torch.int32,
                                  device=params[0].device))
 
@@ -40,13 +44,19 @@ def sparse_adam_update(params, grads, state: AdamState, lr_tree,
                        b1: float = 0.9, b2: float = 0.999,
                        eps: float = 1e-15):
     """One masked Adam step over matching NamedTuples of tensors; lr_tree
-    holds a python float per field. -> (new params, new AdamState)."""
+    holds a python float per field (None where the parameter is None).
+    -> (new params, new AdamState)."""
     step = state.step + 1
     stepf = step.to(torch.float32)
     c1 = 1.0 - _f32(b1).to(stepf.device) ** stepf
     c2 = 1.0 - _f32(b2).to(stepf.device) ** stepf
     new_p, new_m, new_v = [], [], []
     for p, g, m, v, lr in zip(params, grads, state.mu, state.nu, lr_tree):
+        if p is None:
+            new_p.append(None)
+            new_m.append(None)
+            new_v.append(None)
+            continue
         live = g != 0.0
         m_new = torch.where(live, b1 * m + (1 - b1) * g, m)
         v_new = torch.where(live, b2 * v + (1 - b2) * g * g, v)
@@ -77,8 +87,8 @@ def expon_lr(step, lr_init, lr_final, lr_delay_steps=0, lr_delay_mult=1.0,
 
 
 class LRConfig(NamedTuple):
-    """Per-field LRs (envgs.yaml optimizer_cfg defaults; the JAX package's
-    fields without the temporal ones, which the static pools lack)."""
+    """Per-field LRs (envgs.yaml optimizer_cfg defaults); the temporal
+    (STGS) fields are None, as the static pools' parameters."""
 
     xyz: float = 0.00016
     features_dc: float = 0.0025
@@ -88,6 +98,9 @@ class LRConfig(NamedTuple):
     rotation: float = 0.001
     specular: float = 0.01
     roughness: float = 0.05
+    t: float | None = None
+    scaling_t: float | None = None
+    motion: float | None = None
     # xyz schedule
     xyz_lr_init: float = 0.00016
     xyz_lr_final: float = 0.0000016
@@ -129,4 +142,36 @@ def lr_tree_for(it, cfg: LRConfig) -> GaussianParams:
         xyz=xyz_lr, features_dc=f32(cfg.features_dc),
         features_rest=f32(cfg.features_rest), scaling=f32(cfg.scaling),
         rotation=f32(cfg.rotation), opacity=f32(opac_lr),
-        specular=f32(cfg.specular), roughness=f32(cfg.roughness))
+        specular=f32(cfg.specular), roughness=f32(cfg.roughness),
+        **{k: None if getattr(cfg, k) is None else f32(getattr(cfg, k))
+           for k in ("t", "scaling_t", "motion")})
+
+
+# the reference's named schedulers (runners/schedulers.py): functions of the
+# iteration, float32 as the JAX package computes them; `MultiLR` is left out
+# as there (the reference raises NotImplementedError for it)
+
+def noop_lr(step, lr, **_):
+    """NoopLR: the constant lr."""
+    return lr
+
+
+def exponential_lr(step, lr, gamma: float = 0.1, decay_iter: int = 30000,
+                   min_lr: float = 0.0, **_):
+    """ExponentialLR with a floor: max(lr * gamma^(step / decay_iter),
+    min_lr)."""
+    return torch.clamp(_f32(lr) * _f32(gamma) ** (_f32(step) / decay_iter),
+                       min=min_lr)
+
+
+def warmup_exponential_lr(step, lr, gamma: float = 0.1,
+                          decay_iter: int = 30000, warmup_iter: int = 500,
+                          min_lr: float = 0.0, **_):
+    """A linear warm-up over warmup_iter into the exponential decay."""
+    warm = torch.clamp(_f32(step) / max(warmup_iter, 1), 0.0, 1.0)
+    return warm * exponential_lr(step, lr, gamma, decay_iter, min_lr)
+
+
+SCHEDULERS.register(noop_lr, name="NoopLR")
+SCHEDULERS.register(exponential_lr, name="ExponentialLR")
+SCHEDULERS.register(warmup_exponential_lr, name="WarmupExponentialLR")

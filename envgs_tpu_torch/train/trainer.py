@@ -160,8 +160,8 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
         base, env = state.base, state.env
         dev = base.params.xyz.device
         leaf = lambda x: x.detach().requires_grad_(True)  # noqa: E731
-        bparams = G.GaussianParams(*map(leaf, base.params))
-        eparams = G.GaussianParams(*map(leaf, env.params))
+        bparams = G.map_params(leaf, base.params)
+        eparams = G.map_params(leaf, env.params)
         zeros = lambda *s: torch.zeros(s, device=dev, requires_grad=True)  # noqa: E731
         # screen-space (raster) or world-space (traced base) densification
         # gradients
@@ -184,13 +184,14 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
         if mark:
             mark("forward")
 
-        leaves = [*bparams, *eparams, m2z, e3z, wz_b, wz_e, *(cres or ())]
+        bleaves, eleaves = G.present(bparams), G.present(eparams)
+        leaves = [*bleaves, *eleaves, m2z, e3z, wz_b, wz_e, *(cres or ())]
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for g, x in zip(grads, leaves)]
-        nb, ne = len(bparams), len(eparams)
-        g_base = G.GaussianParams(*grads[:nb])
-        g_env = G.GaussianParams(*grads[nb:nb + ne])
+        nb, ne = len(bleaves), len(eleaves)
+        g_base = G.fill_params(bparams, grads[:nb])
+        g_env = G.fill_params(eparams, grads[nb:nb + ne])
         g_m2z, g_e3z, g_wet_b, g_wet_e = grads[nb + ne:nb + ne + 4]
         if grads_out is not None:
             grads_out.update(base=g_base, env=g_env, means2d=g_m2z,
@@ -379,21 +380,21 @@ def pool_state_to_numpy(pool: G.GaussianPool, opt: AdamState) -> dict:
     """{"params", "stats", "mu", "nu": {field: array}, "step": int,
     "max_sh_degree": int} of one pool and its Adam state."""
     params, stats = G.pool_to_numpy(pool)
-    return dict(params=params, stats=stats,
-                mu={k: _np(v) for k, v in opt.mu._asdict().items()},
-                nu={k: _np(v) for k, v in opt.nu._asdict().items()},
+    moments = lambda m: {k: _np(v) for k, v in m._asdict().items()  # noqa: E731
+                         if v is not None}
+    return dict(params=params, stats=stats, mu=moments(opt.mu),
+                nu=moments(opt.nu),
                 step=int(opt.step), max_sh_degree=pool.max_sh_degree)
 
 
 def pool_state_from_numpy(s: dict, device=None):
-    """Inverse of pool_state_to_numpy -> (pool, AdamState). Parameter dicts
-    may carry the JAX package's temporal fields as None (the static
-    families)."""
+    """Inverse of pool_state_to_numpy -> (pool, AdamState). A temporal
+    field absent or None stays None (the static families)."""
     def params(fields):
-        return G.GaussianParams(*(
-            torch.tensor(np.asarray(fields[k]), dtype=torch.float32,
-                         device=device)
-            for k in G.GaussianParams._fields))
+        return G.GaussianParams(**{
+            k: torch.tensor(np.asarray(fields[k]), dtype=torch.float32,
+                            device=device)
+            for k in G.GaussianParams._fields if fields.get(k) is not None})
 
     return (G.pool_from_numpy(s["params"], s["stats"], s["max_sh_degree"],
                               device),

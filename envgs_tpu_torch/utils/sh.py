@@ -1,6 +1,9 @@
 """Real spherical-harmonics evaluation, degrees 0..4 (port of
-envgs_tpu/utils/sh.py; standard 3DGS basis and constants)."""
+envgs_tpu/utils/sh.py; standard 3DGS basis and constants), and the 4D
+(view + time) SH of the dynamic families."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -134,3 +137,29 @@ def eval_sh_color(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tenso
 
 def rgb2sh0(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb - 0.5) / C0
+
+
+def sh02rgb(sh: torch.Tensor) -> torch.Tensor:
+    return sh * C0 + 0.5
+
+
+def num_sh_coeffs_4d(deg: int, deg_t: int) -> int:
+    return (deg + 1) ** 2 * (deg_t + 1)
+
+
+def eval_sh_4d(deg: int, deg_t: int, sh: torch.Tensor, dirs: torch.Tensor,
+               dirs_t: torch.Tensor, l: float = 1.0) -> torch.Tensor:
+    """4D SH: the spatial basis of degree `deg` times a temporal cosine
+    basis; block k of (deg+1)^2 coefficients is weighted by
+    cos(2 pi k t / l), k = 0..deg_t (block 0 is the static SH).
+
+    sh (..., C, (deg+1)^2 (deg_t+1)); dirs (..., 3); dirs_t (...,) or
+    (..., 1) time offsets; l the temporal period. -> (..., C)."""
+    K = num_sh_coeffs(deg)
+    t = dirs_t[..., 0] if dirs_t.dim() == dirs.dim() else dirs_t
+    t = t[..., None]  # broadcast over channels
+    result = eval_sh(deg, sh[..., :K], dirs)
+    for k in range(1, deg_t + 1):
+        tk = torch.cos(2.0 * math.pi * k * t / l)
+        result = result + tk * eval_sh(deg, sh[..., k * K:(k + 1) * K], dirs)
+    return result

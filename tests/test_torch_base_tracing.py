@@ -232,17 +232,17 @@ def test_traced_base_gradients_match_jax(depth):
         jb.params, je.params, *hooks)
 
     leaf = lambda x: x.detach().requires_grad_(True)  # noqa: E731
-    bp = tg.GaussianParams(*map(leaf, tb.params))
-    ep = tg.GaussianParams(*map(leaf, te.params))
+    bp = tg.map_params(leaf, tb.params)
+    ep = tg.map_params(leaf, te.params)
     thooks = [torch.zeros(np.shape(h), requires_grad=True) for h in hooks]
     out = tenv.forward_envgs(tb._replace(params=bp), te._replace(params=ep),
                              tcam.make_camera(H, W, K, EYE, ZERO), 10, tcfg,
                              *thooks)
     loss = sum(torch.sum(getattr(out, k) * torch.tensor(w))
                for k, w in wts.items())
-    leaves = [*bp, *ep, *thooks]
+    leaves = [*tg.present(bp), *tg.present(ep), *thooks]
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    fields = tg.GaussianParams._fields
+    fields = tg.STATIC_FIELDS  # the temporal ones are None
     want = ([getattr(jg[0], f) for f in fields]
             + [getattr(jg[1], f) for f in fields] + list(jg[2:]))
     names = ([f"base.{f}" for f in fields] + [f"env.{f}" for f in fields]

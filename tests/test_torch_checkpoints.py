@@ -74,7 +74,8 @@ def _active_rows(pool):
 
 def _torch_rows(pool):
     act = pool.stats.active.numpy()
-    return {k: v.numpy()[act] for k, v in pool.params._asdict().items()}
+    return {k: v.numpy()[act] for k, v in pool.params._asdict().items()
+            if v is not None}
 
 
 def test_checkpoints_cross_between_the_packages(tmp_path):

@@ -22,15 +22,11 @@ TUPLES = {
     ("train.supervisor", "LossConfig"): {},
     ("train.trainer", "ScheduleConfig"): {},
     ("models.gaussians", "DensifyConfig"): {},
-    ("train.optimizer", "LRConfig"): {
-        # ROADMAP.md Queue 1 item 8 (models/stgs.py) brings the temporal
-        # fields of GaussianParams and these learning rates with them
-        "t": "temporal (STGS) pools are not ported: Queue 1 item 8",
-        "scaling_t": "as t",
-        "motion": "as t",
-    },
+    ("train.optimizer", "LRConfig"): {},
     ("train.trainer", "CamOptConfig"): {},
     ("models.gaussiant", "GaussianTConfig"): {},
+    ("models.stgs", "STGSConfig"): {},
+    ("models.point_planes", "PointPlanesConfig"): {},
 }
 
 

@@ -94,7 +94,7 @@ def test_densify_and_prune_matches_jax(case):
     assert born.sum() > 5 and (before & ~after).sum() > 5, case
     if case == "gauss3d":  # the pool was too small: children were dropped
         assert (~before).sum() == born.sum()
-    for k in tg.GaussianParams._fields:
+    for k in tg.STATIC_FIELDS:
         np.testing.assert_allclose(getattr(tnew.params, k).numpy(),
                                    np.asarray(getattr(jnew.params, k)),
                                    atol=1e-6, rtol=1e-6, err_msg=k)
@@ -115,7 +115,7 @@ def test_reset_opacity_matches_jax():
                                np.asarray(jnew.params.opacity), atol=1e-6)
     assert float(tg.sigmoid(tnew.params.opacity).max()) <= 0.01 + 1e-6
     for tm, jm in zip(tmom, jmom):
-        for k in tg.GaussianParams._fields:
+        for k in tg.STATIC_FIELDS:
             np.testing.assert_array_equal(getattr(tm, k).numpy(),
                                           np.asarray(getattr(jm, k)))
     assert not tmom[0].opacity.any() and tmom[0].xyz.any()

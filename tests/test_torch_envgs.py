@@ -136,7 +136,7 @@ def test_make_render_scene_matches_jax():
     tbase, tenv_, tcam_, tcfg = tbench.make_render_scene("cpu")
     for jp, tp in ((jbase, tbase), (jenv, tenv_)):
         assert tp.max_sh_degree == jp.max_sh_degree
-        for k in tp.params._fields:
+        for k in tg.STATIC_FIELDS:
             np.testing.assert_allclose(getattr(tp.params, k).numpy(),
                                        np.asarray(getattr(jp.params, k)),
                                        atol=1e-6, err_msg=k)
@@ -178,7 +178,7 @@ def test_make_train_scene_matches_jax():
 
     tbase, tenv_, tcam_, tcfg, batch = tbench.make_train_scene("cpu")
     for jp, tp in ((jbase, tbase), (jenv, tenv_)):
-        for k in tp.params._fields:
+        for k in tg.STATIC_FIELDS:
             np.testing.assert_allclose(getattr(tp.params, k).numpy(),
                                        np.asarray(getattr(jp.params, k)),
                                        atol=1e-6, err_msg=k)

@@ -741,3 +741,148 @@ def test_fill_forward_kernel_on_the_aligned_layouts_markers(cuda):
     got = kernels.fill_forward(marks, valid)
     torch.cuda.synchronize()
     assert torch.equal(got, fill_forward_torch(marks, valid))
+
+
+# ---------------------------------------------------------------------------
+# the other gauss3d families on the card: Spacetime Gaussians (STGS) and
+# PointPlanes launch K5, gauss3d K1 and K2 once a step and match the CPU's
+# plain versions (their parity with the JAX package: tests/test_torch_stgs.py,
+# test_torch_point_planes.py, test_torch_families.py)
+# ---------------------------------------------------------------------------
+
+# a step on the card against the CPU: the loss's sums and each gradient
+# array's, per array max|d| / max|ref|
+FAMILY_LOSS_RTOL = 1e-4
+FAMILY_GRAD_RTOL = 5e-4
+FAMILY_STEP = {"fill_forward": 1, "raster_blend_fwd_gauss3d": 1,
+               "raster_blend_bwd_gauss3d": 1}
+
+
+def _rose(before):
+    return {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v != before[k]}
+
+
+def _rel(got, want):
+    return float((got.cpu() - want).abs().max() / want.abs().max())
+
+
+def _stgs_state(device, sh_degree_t):
+    """60 Gaussians in 128 slots with numpy-made temporal fields, SH degree
+    1 active, on `device`."""
+    from envgs_tpu_torch.models import stgs as S
+
+    rng = np.random.default_rng(5)
+    P, cap = 60, 128
+    xyz = np.concatenate([rng.normal(size=(P, 2)) * 0.35,
+                          rng.normal(size=(P, 1)) * 0.2 + 3.0],
+                         -1).astype(np.float32)
+    cfg = S.STGSConfig(sh_degree=1, sh_degree_t=sh_degree_t,
+                       pair_cap=2 ** 12)
+    pool = S.init_stgs_pool(xyz, rng.random(P).astype(np.float32),
+                            rng.random((P, 3)).astype(np.float32), cap, cfg,
+                            device=device)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    act = np.arange(cap)[:, None] < P
+    pool = pool._replace(params=pool.params._replace(
+        scaling=t(np.log(rng.uniform(0.02, 0.08, (cap, 3)))),
+        features_rest=t(rng.normal(size=pool.params.features_rest.shape)
+                        * 0.2),
+        scaling_t=t(np.log(rng.uniform(0.2, 0.6, (cap, 1)))),
+        motion=t(np.where(act, rng.normal(size=(cap, 3)) * 0.3, 0.0))),
+        stats=pool.stats._replace(sh_degree=torch.tensor(
+            1, dtype=torch.int32, device=device)))
+    return S.init_stgs_state(pool), cfg
+
+
+@pytest.mark.parametrize("sh_degree_t", [0, 1])
+def test_stgs_render_and_step_on_the_card(cuda, sh_degree_t):
+    """render_stgs launches K5 and gauss3d K1 once, a step K5, gauss3d K1
+    and K2 once; the card's render, loss and every gradient (t, scaling_t,
+    motion among them) as the CPU's."""
+    from envgs_tpu_torch.models import stgs as S
+
+    K = np.array([[50.0, 0, 20], [0, 50.0, 20], [0, 0, 1]], np.float32)
+    target = np.random.default_rng(2).random((40, 40, 3)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", cuda):
+        state, cfg = _stgs_state(dev, sh_degree_t)
+        cam = make_camera(40, 40, K, np.eye(3, dtype=np.float32),
+                          np.array([0.05, -0.03, 0.0], np.float32),
+                          device=dev)
+        before = dict(kernels.LAUNCHES)
+        with torch.no_grad():
+            out = S.render_stgs(state.pool, cam, 0.35, cfg)
+        rendered = _rose(before)
+        before = dict(kernels.LAUNCHES)
+        grads = {}
+        _, aux = S.make_stgs_train_step(cfg, cam, S.stgs_lr_config())(
+            state, cam.K, cam.R, cam.T, 0.35,
+            torch.tensor(target, device=dev), 7, grads_out=grads)
+        res[str(dev)] = (out, aux, grads["params"], rendered, _rose(before))
+    (co, ca, cg, _, _), (go, ga, gg, r_rose, s_rose) = res["cpu"], res["cuda"]
+    assert r_rose == {"fill_forward": 1, "raster_blend_fwd_gauss3d": 1}
+    assert s_rose == FAMILY_STEP
+    np.testing.assert_allclose(go.rgb.cpu().numpy(), co.rgb.numpy(),
+                               atol=ATOL)
+    assert abs(float(ga["loss"]) / float(ca["loss"]) - 1) <= FAMILY_LOSS_RTOL
+    for k in ("xyz", "features_dc", "scaling", "opacity", "t", "scaling_t",
+              "motion"):
+        assert _rel(getattr(gg, k), getattr(cg, k)) <= FAMILY_GRAD_RTOL, k
+
+
+def test_point_planes_step_on_the_card(cuda):
+    """A PointPlanes step (numpy-seeded weights carried to the card through
+    the JAX parameter layout) launches K5, gauss3d K1 and K2 once; its loss
+    and every gradient as the CPU's."""
+    from envgs_tpu_torch.models import point_planes as PP
+
+    cfg = PP.PointPlanesConfig(n_frames=4, pair_cap=2 ** 14, radius_max=0.05,
+                               radius_shift=0.0)
+    pts = (np.random.default_rng(0).normal(size=(200, 3)) * 0.12).astype(
+        np.float32)
+    weights = PP.point_planes_params_to_jax(
+        cfg.init(pts, torch.Generator().manual_seed(0)))
+    K = np.array([[46.0, 0, 20], [0, 46.0, 20], [0, 0, 1]], np.float32)
+    target = np.random.default_rng(1).random((40, 40, 3)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", cuda):
+        cam = make_camera(40, 40, K, np.eye(3, dtype=np.float32),
+                          np.array([0.0, 0.0, 2.0], np.float32), device=dev)
+        model = PP.point_planes_params_from_jax(weights, cfg, dev)
+        _, step = PP.make_point_planes_train_step(cfg, cam)
+        before = dict(kernels.LAUNCHES)
+        grads = {}
+        _, aux = step(model, PP.adam_init(model), 1 / 3, cam.K, cam.R, cam.T,
+                      torch.tensor(target, device=dev), grads_out=grads)
+        res[str(dev)] = (aux, grads["grads"], _rose(before))
+    assert res["cuda"][2] == FAMILY_STEP
+    assert abs(float(res["cuda"][0]["loss"]) / float(res["cpu"][0]["loss"])
+               - 1) <= FAMILY_LOSS_RTOL
+    for i, (g, w) in enumerate(zip(res["cuda"][1], res["cpu"][1])):
+        if w.abs().max() > 0:
+            assert _rel(g, w) <= FAMILY_GRAD_RTOL, i
+
+
+@pytest.mark.parametrize("config", ["stgs_synthetic", "point_planes_synthetic"])
+def test_family_config_on_the_card(cuda, tmp_path, config):
+    """`train -c configs/exps/<config>.yaml` cut down (4 views of 16x16, 3
+    iterations) on the card: K5, gauss3d K1 and K2 once a step, K5 and
+    gauss3d K1 once per held-out render, nothing else."""
+    import os
+
+    from envgs_tpu_torch import cli
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    before = dict(kernels.LAUNCHES)
+    _, summary = cli.main([
+        "train", "-c", os.path.join(root, "configs", "exps",
+                                    f"{config}.yaml"),
+        "dataset_cfg.H=16", "dataset_cfg.W=16", "dataset_cfg.n_views=4",
+        f"out_root={tmp_path}", "runner_cfg.ep_iter=3",
+        "runner_cfg.record=false"], device="cuda")
+    n_eval = len(summary["frames"])
+    assert n_eval == 1 and np.isfinite(summary["summary"]["psnr_mean"])
+    assert _rose(before) == {"fill_forward": 3 + n_eval,
+                             "raster_blend_fwd_gauss3d": 3 + n_eval,
+                             "raster_blend_bwd_gauss3d": 3}

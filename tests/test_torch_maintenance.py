@@ -14,7 +14,7 @@ from envgs_tpu_torch import bench
 from envgs_tpu_torch.models import gaussians as tg
 from envgs_tpu_torch.train import trainer as ttrain
 
-FIELDS = tg.GaussianParams._fields
+FIELDS = tg.STATIC_FIELDS  # the temporal fields are None in these pools
 
 
 def _pool_arrays(rng, P, cap, seed):
@@ -255,7 +255,7 @@ def test_maintain_draws_from_the_state_generator(pools):
         return maintain(st, 12)  # color sabotage (+ SH one-ups)
 
     a, b = run(False), run(True)
-    for x, y in zip(a.base.params, b.base.params):
+    for x, y in zip(tg.present(a.base.params), tg.present(b.base.params)):
         assert torch.equal(x, y)
     assert int(a.base.stats.active.sum()) > 70
     assert not torch.equal(a.base.params.features_dc,

@@ -68,7 +68,8 @@ def test_moderators_registered_by_reference_name():
         with pytest.raises(NotImplementedError, match=name):
             getattr(engine, name)
     assert set(engine.UNPORTED_REGISTRIES) | {
-        "DATASETS", "MODERATORS", "TRAINERS"} == {
+        "DATASETS", "MODERATORS", "TRAINERS", "SCHEDULERS",
+        "DATASAMPLERS"} == {
         k for k, v in vars(jengine).items() if isinstance(v, jregistry)}
 
 

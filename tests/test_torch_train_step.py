@@ -113,7 +113,7 @@ def test_sparse_adam_and_lr_tree_match_jax():
                   features_rest=(20, 15, 3), scaling=(20, 2),
                   rotation=(20, 4), opacity=(20, 1), specular=(20, 1),
                   roughness=(20, 1))
-    fields = tg.GaussianParams._fields  # the JAX tuple adds temporal Nones
+    fields = tg.STATIC_FIELDS  # the temporal fields are None in both packages
     to_t = lambda jt: tg.GaussianParams(*(  # noqa: E731
         torch.tensor(np.asarray(getattr(jt, k))) for k in fields))
     jp = _jparams(rng, shapes, 1.0)
@@ -138,7 +138,8 @@ def test_sparse_adam_and_lr_tree_match_jax():
                17999, 18000, 18100, 25000, 40000):
         want = jopt.lr_tree_for(it, jopt.LRConfig())
         got = topt.lr_tree_for(it, topt.LRConfig())
-        for k in tg.GaussianParams._fields:
+        assert got.t is None and want.t is None
+        for k in tg.STATIC_FIELDS:
             np.testing.assert_allclose(getattr(got, k),
                                        float(getattr(want, k)), rtol=1e-6,
                                        err_msg=f"{k} at {it}")
@@ -285,8 +286,8 @@ def test_detach_reflection(detach):
     ts = ttrain.state_from_numpy(_jax_state_to_numpy(state))
     cfg = tenv.EnvGSConfig(pair_cap=2 ** 12, env_pair_cap=2 ** 13,
                            reflection_start_iter=0, detach_reflection=detach)
-    bparams = tg.GaussianParams(*(p.clone().requires_grad_(True)
-                                  for p in ts.base.params))
+    bparams = tg.map_params(lambda p: p.clone().requires_grad_(True),
+                            ts.base.params)
     exyz = ts.env.params.xyz.clone().requires_grad_(True)
     env = ts.env._replace(params=ts.env.params._replace(xyz=exyz))
     cam = tcam.make_camera(H, W, K, EYE, ZERO)
