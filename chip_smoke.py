@@ -164,6 +164,23 @@ Phases, one or more lines each:
      checkpoint of iteration 50, train_stgs on phase 16's capture (ratio 0.5, 30 iterations),
      train_point_planes on an 8-view 8-frame video capture written here
      (20 iterations).
+ 20. the kernel-free families and serving: (a) a small NeRF, NeuS and
+     ENeRF step (bench.family_small_step) CUDA against CPU at phase 10's
+     bounds; NeRF (NerfConfig(): 256 x 8, 64 + 64 samples, 1024 rays) and
+     NeuS (NeusConfig(): 128 x 4, 48 samples, 512 rays) through
+     `cli.main(["train", "-c", <nerf|neus>_synthetic.yaml, ...])` on phase
+     16's capture at ratio 0.25 (779x519; 22 views train, 2 held out), 30
+     steps each, and ENeRF (ENeRFConfig(): 64 + 8 planes, 2 sources)
+     through train_enerf on phase 19d's 1558x1038 video capture
+     (ImageBasedDataset, 20 steps): steps/s, forward / backward /
+     optimizer device ms, peak memory, finite losses and parameters, the
+     held-out PSNR, no kernel of the repo launched; (b) a RenderServer in
+     watch mode on a runner resumed from phase 14's checkpoint, on a
+     loopback websocket: the training view, an 8-step yaw sweep, each of
+     the 8 render types, then a later checkpoint and one more frame; each
+     frame K1 and K3 once and nothing else, its JPEG the render's in this
+     process, nothing truncated; frames/s, the server's render_ms /
+     encode_ms medians, the new iteration and state after the reload.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -3237,6 +3254,331 @@ def family_runs(kernels, tmp, capture, card):
     return paths
 
 
+# ---- phase 20: the kernel-free families (NeRF, NeuS, ENeRF), serving ----
+NERF_YAML = "configs/exps/nerf_synthetic.yaml"
+NEUS_YAML = "configs/exps/neus_synthetic.yaml"
+RAY_RATIO = 0.25  # phase 16's 3116x2076 capture cut to 779x519
+RAY_ITERS = 30  # NeRF / NeuS steps
+ENERF_ITERS = 20  # ENeRF steps on the video capture
+# the small family steps, CUDA against CPU: a leaf whose exact gradient is
+# a cancelling difference (ENeRF's blend logits, a softmax over the
+# sources) keeps the rounding of its terms: its scale is at least this
+# share of the step's largest gradient
+FAMILY_GRAD_FLOOR = 1e-2
+# a ReLU whose pre-activation sits within rounding of 0 takes its unit in
+# or out of the backward on one device only (the card's sinf / cosf and the
+# CPU's part in the last bit, and the positional encoding feeds the first
+# layer): the leaves upstream of it, in the same network, part by that
+# unit's share. At most FAMILY_BRANCH_LEAVES leaves, each within
+# BRANCH_RTOL (H100 80GB HBM3 against its host's CPU: the small NeRF's
+# fine network, its first three layers, up to 3.4e-3; in float64 the two
+# devices agree to 1e-14)
+FAMILY_BRANCH_LEAVES = 6
+SERVE_YAWS = (-4.0, -3.0, -2.0, -1.0, 1.0, 2.0, 3.0, 4.0)  # degrees
+
+
+def compare_family_steps(got: dict, want: dict) -> dict:
+    """Phase 20a's small step, CUDA against CPU: the loss within LOSS_RTOL,
+    every gradient leaf within STEP_RTOL of its largest (at least
+    FAMILY_GRAD_FLOOR of the step's largest) but at most
+    FAMILY_BRANCH_LEAVES within BRANCH_RTOL, and Adam apart: the CPU's
+    optax Adam fed the card's gradients gives the card's parameters and
+    moments within ADAM_RTOL of each array's largest change past one
+    float32 rounding of its values. -> the worst of each."""
+    from envgs_tpu_torch.train.optax_adam import AdamState, adam_update
+
+    worst = {"loss": abs(got["loss"] - want["loss"]) / abs(want["loss"])}
+    top = max(np.abs(w).max() for w in want["grads"])
+    errs = sorted(
+        np.abs(g - w).max() / max(np.abs(w).max(), FAMILY_GRAD_FLOOR * top)
+        for g, w in zip(got["grads"], want["grads"]))
+    branch = [e for e in errs if e > STEP_RTOL]
+    worst["grads"] = max([e for e in errs if e <= STEP_RTOL], default=0.0)
+    worst["branch_leaves"] = len(branch)
+    worst["branch"] = max(branch, default=0.0)
+    params = [torch.tensor(p) for p in got["params0"]]
+    state = adam_update(params, [torch.tensor(g) for g in got["grads"]],
+                        AdamState(torch.zeros((), dtype=torch.int32),
+                                  [torch.zeros_like(p) for p in params],
+                                  [torch.zeros_like(p) for p in params]),
+                        got["lr"])
+    adam = 0.0
+    for mine, theirs, start in zip(
+            [*params, *state.mu, *state.nu],
+            [*got["params"], *got["mu"], *got["nu"]],
+            [*got["params0"], *[0 * m for m in got["mu"]],
+             *[0 * v for v in got["nu"]]]):
+        change = max(np.abs(theirs - start).max(), 1e-30)
+        excess = max(np.abs(mine.numpy() - theirs).max()
+                     - np.abs(theirs).max() * 2.0 ** -23, 0.0)
+        adam = max(adam, excess / change)
+    worst["adam"] = adam
+    if not (worst["loss"] <= LOSS_RTOL and worst["adam"] <= ADAM_RTOL
+            and len(branch) <= FAMILY_BRANCH_LEAVES
+            and worst["branch"] <= BRANCH_RTOL):
+        raise AssertionError(f"small family step, cuda vs cpu: {worst}")
+    return worst
+
+
+def ray_step_probe(module, name, kernels, log):
+    """Wrap module.<name> (make_nerf_train_step, make_neus_train_step or
+    make_enerf_train_step) so that every step runs synchronized, with its
+    host seconds, CUDA-event stage ms, loss and launches appended to `log`
+    (and the config it was made with first). -> the original."""
+    make = getattr(module, name)
+
+    def made(*a, **kw):
+        log.append({"cfg": a[0]})
+        init, step = make(*a, **kw)
+
+        def counted(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = dict(kernels.LAUNCHES)
+            marks = []
+
+            def mark(stage):
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                marks.append((stage, e))
+
+            mark("start")
+            t0 = time.perf_counter()
+            res = step(*args, mark=mark, **kwargs)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            log.append(dict(
+                rose={k: kernels.LAUNCHES[k] - before[k] for k in before
+                      if kernels.LAUNCHES[k] != before[k]},
+                loss=float(res[-1]["loss"]), s=secs,
+                stages={n: a.elapsed_time(b)
+                        for (_, a), (n, b) in zip(marks, marks[1:])}))
+            return res
+        return init, counted
+
+    setattr(module, name, made)
+    return make
+
+
+def ray_family_runs(kernels, capture, video, tmp, card):
+    """Phase 20a: (1) a small NeRF, NeuS and ENeRF step CUDA against CPU
+    (bench.family_small_step) at phase 10's bounds; (2) NeRF and NeuS at
+    the JAX defaults' widths through `cli.main(["train", "-c", ...])` on
+    phase 16's capture at RAY_RATIO, ENeRF (ENeRFConfig(): 64 + 8 planes,
+    2 sources) through train_enerf on phase 19d's 1558x1038 video capture
+    (ImageBasedDataset): steps/s, stage ms, peak memory, finite loss and
+    parameters, the held-out views' PSNR, no kernel of the repo launched.
+    -> {path: launch counts}."""
+    from envgs_tpu_torch import bench, cli
+    from envgs_tpu_torch.engine import Config
+    from envgs_tpu_torch.models import enerf as E
+    from envgs_tpu_torch.models import nerf as N
+    from envgs_tpu_torch.models import neus as NS
+    from envgs_tpu_torch.train.families import train_enerf
+
+    for fam in ("nerf", "neus", "enerf"):
+        worst = compare_family_steps(bench.family_small_step(fam, "cuda"),
+                                     bench.family_small_step(fam, "cpu"))
+        print(f"[ray-families] small {fam} step cuda vs cpu " + json.dumps(
+            {k: float(f"{v:.3g}") for k, v in worst.items()})
+            + f" (bounds: loss rel {LOSS_RTOL:g}, gradients {STEP_RTOL:g} "
+            f"of each leaf's largest (at least {FAMILY_GRAD_FLOOR:g} of the "
+            f"step's) but {FAMILY_BRANCH_LEAVES} leaves within "
+            f"{BRANCH_RTOL:g} (a ReLU at its kink), Adam {ADAM_RTOL:g})",
+            flush=True)
+
+    common = ["dataset_cfg.source=multiview",
+              f"dataset_cfg.data_root={capture}",
+              f"dataset_cfg.ratio={RAY_RATIO}", "dataset_cfg.eval_every=12",
+              "dataset_cfg.near=2.0", "dataset_cfg.far=16.0",
+              f"runner_cfg.ep_iter={RAY_ITERS}", "runner_cfg.log_interval=10",
+              "runner_cfg.record=false"]
+    runs = (
+        ("nerf", N, "make_nerf_train_step", N.NerfConfig(), lambda out: (
+            cli.main(["train", "-c", NERF_YAML, f"out_root={out}", *common,
+                      "model_cfg.network_cfg.width=256",
+                      "model_cfg.network_cfg.depth=8",
+                      "model_cfg.network_cfg.feat_dim=256",
+                      "model_cfg.network_cfg.n_samples=[64,64]",
+                      "runner_cfg.n_rays=1024"]))),
+        ("neus", NS, "make_neus_train_step", NS.NeusConfig(), lambda out: (
+            cli.main(["train", "-c", NEUS_YAML, f"out_root={out}", *common,
+                      "model_cfg.network_cfg.width=128",
+                      "model_cfg.network_cfg.depth=4",
+                      "model_cfg.network_cfg.n_samples=48",
+                      "runner_cfg.n_rays=512"]))),
+        ("enerf", E, "make_enerf_train_step", E.ENeRFConfig(), lambda out: (
+            train_enerf(Config.wrap({
+                "exp_name": "enerf_video", "out_root": out,
+                "dataset_cfg": {"source": "multiview", "data_root": video,
+                                "near": 0.5, "far": 8.0, "eval_every": 4},
+                "model_cfg": {"sampler_cfg": {"type": "CostVolumeSampler",
+                                              "n_srcs": 2}},
+                "runner_cfg": {"ep_iter": ENERF_ITERS, "log_interval": 10,
+                               "record": False}})))),
+    )
+    paths = {}
+    for fam, module, name, want_cfg, run in runs:
+        log = []
+        make = ray_step_probe(module, name, kernels, log)
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            net, summary = run(os.path.join(tmp, fam))
+        finally:
+            setattr(module, name, make)
+        secs = time.perf_counter() - t0
+        paths[f"{fam}_family"] = launches = dict(kernels.LAUNCHES)
+        cfg, steps = log[0]["cfg"], log[1:]
+        cfg = cfg._replace(**{k: tuple(v) for k, v in cfg._asdict().items()
+                              if isinstance(v, list)})  # YAML lists
+        if cfg != want_cfg:
+            raise AssertionError(f"{fam}: config {cfg}, not {want_cfg}")
+        n = ENERF_ITERS if fam == "enerf" else RAY_ITERS
+        if len(steps) != n or any(s["rose"] for s in steps) or any(
+                launches.values()):
+            raise AssertionError(f"{fam}: {len(steps)} steps, launches "
+                                 f"{[s['rose'] for s in steps]} {launches}")
+        if not all(np.isfinite(s["loss"]) for s in steps) or not all(
+                bool(torch.isfinite(p).all()) for p in net.parameters()):
+            raise AssertionError(f"{fam}: a loss or a parameter not finite")
+        psnr = summary["summary"]["psnr_mean"]
+        if not np.isfinite(psnr):
+            raise AssertionError(f"{fam}: PSNR {psnr}")
+        timed = steps[1:]
+        stages = {k: statistics.median(s["stages"][k] for s in timed)
+                  for k in ("forward", "backward", "optimizer")}
+        print(f"[ray-families] {fam} ({card}): {cfg}; {n} steps, loss "
+              f"{steps[0]['loss']:.4f} -> {steps[-1]['loss']:.4f}, "
+              f"{len(timed) / sum(s['s'] for s in timed):.4f} steps/s "
+              f"(synchronized, after one), device ms forward "
+              f"{stages['forward']:.3f} backward {stages['backward']:.3f} "
+              f"optimizer {stages['optimizer']:.3f}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"held-out PSNR {psnr:.3f} over {len(summary['frames'])} "
+              f"views; no kernel of the repo launched; {secs:.1f} s in all",
+              flush=True)
+    return paths
+
+
+def serve_run(kernels, make_runner, card):
+    """Phase 20b: a RenderServer (watch mode) on a fresh runner resumed
+    from phase 14's checkpoint, on a loopback websocket (127.0.0.1, a free
+    port): the training view, a yaw sweep, each render type once, then a
+    later checkpoint written beside the run's and one more frame. Each
+    frame: K1 and K3 launched once and nothing else, its JPEG equal to
+    encode_jpeg(typed_map(render_view(cam), type)) in this process, no
+    truncation, finite rgb of std > 0.01. -> {path: launch counts}."""
+    import asyncio
+    import threading
+
+    import websockets
+
+    from envgs_tpu_torch import bench
+    from envgs_tpu_torch.serve import websocket_server as WS
+    from envgs_tpu_torch.train import checkpoints as ckpt
+
+    runner = make_runner(True)
+    srv = WS.RenderServer(runner, watch=True)
+    thread = threading.Thread(target=lambda: asyncio.run(srv.serve(
+        host="127.0.0.1", port=0)), daemon=True)
+    thread.start()
+    if not srv.ready.wait(120):
+        raise AssertionError("the render server did not start")
+    cam0 = runner.views[0]["camera"]
+    frames, total = [], {k: 0 for k in kernels.LAUNCHES}
+    new_iter = {}
+
+    def write_later_checkpoint():
+        st = runner.state
+        p = st.base.params
+        later = st._replace(base=st.base._replace(params=p._replace(
+            features_dc=p.features_dc * 0.5)))
+        it = int(srv.attached_iter) + 1000
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(os.path.join(runner.model_dir, "latest.npz"),
+                             later, it)
+        new_iter.update(it=it, s=time.perf_counter() - t0)
+
+    async def frame(ws, label, cam, kind):
+        torch.cuda.synchronize()
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        await ws.send(WS.encode_camera(cam.K.cpu().numpy(),
+                                       cam.R.cpu().numpy(),
+                                       cam.T.cpu().numpy()))
+        jpeg = await ws.recv()
+        stats = json.loads(await ws.recv())["stats"]
+        secs = time.perf_counter() - t0
+        rose = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        for k, v in rose.items():
+            total[k] += v
+        if {k: v for k, v in rose.items() if v} != {
+                k: 1 for k in RENDER_KERNELS}:
+            raise AssertionError(f"served frame {label}: launches {rose}")
+        out = runner.render_view(cam)  # the reference, not counted
+        bench.check_render(out, runner.model_cfg)
+        if jpeg != WS.encode_jpeg(WS.typed_map(out, kind)):
+            raise AssertionError(f"served frame {label} ({kind}): the JPEG "
+                                 "is not the render's")
+        frames.append(dict(label=label, kind=kind, s=secs, stats=stats,
+                           jpeg=jpeg))
+
+    async def session():
+        async with websockets.connect(f"ws://127.0.0.1:{srv.port}",
+                                      max_size=2 ** 25) as ws:
+            hello = json.loads(await ws.recv())
+            if (hello["H"], hello["W"]) != (cam0.H, cam0.W) or not hello[
+                    "watch"]:
+                raise AssertionError(f"hello frame {hello}")
+            await frame(ws, "view", cam0, "RENDER")
+            for deg in SERVE_YAWS:
+                await frame(ws, f"yaw {deg:+g}", bench.yawed(cam0, deg),
+                            "RENDER")
+            for kind in WS.RENDER_TYPES:
+                await ws.send(json.dumps({"render_type": kind}))
+                if json.loads(await ws.recv()) != {"render_type": kind}:
+                    raise AssertionError(f"render type {kind} not taken")
+                await frame(ws, "type", cam0, kind)
+            await ws.send(json.dumps({"render_type": "RENDER"}))
+            await ws.recv()
+            # the loop keeps answering pings while the checkpoint is written
+            await asyncio.get_running_loop().run_in_executor(
+                None, write_later_checkpoint)
+            await frame(ws, "after", cam0, "RENDER")
+
+    try:
+        asyncio.run(session())
+    finally:
+        srv.stop()
+        thread.join(60)
+    if thread.is_alive():
+        raise AssertionError("the render server did not stop")
+    first, last = frames[0], frames[-1]
+    if first["stats"].get("iter") != runner.start_iter or last["stats"].get(
+            "iter") != new_iter["it"] or last["jpeg"] == first["jpeg"]:
+        raise AssertionError(
+            f"watch: iterations {first['stats'].get('iter')} -> "
+            f"{last['stats'].get('iter')}, want {runner.start_iter} -> "
+            f"{new_iter['it']}, the frame changed: "
+            f"{last['jpeg'] != first['jpeg']}")
+    sweep = [f for f in frames if f["label"].startswith("yaw")]
+    med = {k: statistics.median(f["stats"][k] for f in frames)
+           for k in ("render_ms", "encode_ms", "jpeg_kb")}
+    print(f"[serve] {len(frames)} frames at {cam0.W}x{cam0.H} over a "
+          f"loopback websocket ({card}): K1 and K3 once a frame and nothing "
+          f"else, each JPEG the render's, nothing truncated; "
+          f"{len(sweep) / sum(f['s'] for f in sweep):.3f} frames/s over the "
+          f"yaw sweep (send to stats received); the server's median "
+          f"render_ms {med['render_ms']}, encode_ms {med['encode_ms']}, "
+          f"{med['jpeg_kb']} KiB a JPEG; watch: iteration "
+          f"{first['stats']['iter']} -> {last['stats']['iter']} after a "
+          f"checkpoint written in {new_iter['s']:.1f} s, the next frame the "
+          f"new state's", flush=True)
+    return {"serve": total}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3980,13 +4322,24 @@ def main():
               + f" (phase 7's bounds)", flush=True)
         mesh_launches, mesh_cli_launches = mesh_run(kernels, make_run_runner,
                                                     smoke_tmp, card)
+        make_serve_runner = make_run_runner  # phase 20b serves the run
         del make_run_runner
         scene_run(kernels, card)
 
         # ---- 19. the other gauss3d families: STGS, PointPlanes ----
+        # (the video capture stays on disk for phase 20)
+        fam_tmp = keep.enter_context(tempfile.TemporaryDirectory())
         family_launches = family_runs(
-            kernels, keep.enter_context(tempfile.TemporaryDirectory()),
-            os.path.join(cap_tmp, "capture"), card)
+            kernels, fam_tmp, os.path.join(cap_tmp, "capture"), card)
+
+        # ---- 20. the kernel-free families; serving ----
+        t20 = time.perf_counter()
+        family_launches.update(ray_family_runs(
+            kernels, os.path.join(cap_tmp, "capture"),
+            os.path.join(fam_tmp, "video"),
+            keep.enter_context(tempfile.TemporaryDirectory()), card))
+        family_launches.update(serve_run(kernels, make_serve_runner, card))
+        print(f"[phase 20] {time.perf_counter() - t20:.1f} s", flush=True)
 
     paths = {"render": render_launches, "train": train_launches,
              "gaussiant": gaussiant_launches, "run": run_launches,

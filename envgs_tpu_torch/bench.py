@@ -647,3 +647,102 @@ def main_gaussiant() -> dict:
 if __name__ == "__main__":
     mains = {"train": main_train, "gaussiant": main_gaussiant}
     print(json.dumps(mains[sys.argv[1]]() if sys.argv[1:] else main()))
+
+
+# ---- the kernel-free families' small steps (CUDA against CPU) ----
+
+def _smooth_images(n: int, H: int, W: int, rng) -> np.ndarray:
+    """n images of a few random sinusoids in [0.1, 0.9]."""
+    yy, xx = np.mgrid[0:H, 0:W] / 8.0
+    out = []
+    for _ in range(n):
+        f = rng.uniform(0.5, 2.0, (3, 2))
+        p = rng.uniform(0, 6, 3)
+        out.append(np.stack([0.5 + 0.4 * np.sin(f[c, 0] * xx + f[c, 1] * yy
+                                                + p[c]) for c in range(3)],
+                            -1))
+    return np.stack(out).astype(np.float32)
+
+
+def family_small_step(family: str, device, seed: int = 0,
+                      dtype=torch.float32) -> dict:
+    """One train step of a small NeRF ("nerf", two rounds), NeuS ("neus",
+    with the eikonal term) or ENeRF ("enerf", 32x48, two sources) on
+    `device`, from weights and inputs made on the CPU from `seed` (the
+    samplers' draws handed in): -> {"loss", "grads", "params", "mu", "nu"}
+    as numpy arrays in the parameter tree's leaf order (the parameters and
+    moments after the step), "params0" before it, and the step's "lr".
+    `dtype` float64 gives the reference float32 is held to."""
+    from envgs_tpu_torch.train.families import tree_flatten
+    from envgs_tpu_torch.train.optax_adam import adam_init
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device).to(
+            dtype)
+
+    if family == "enerf":
+        from envgs_tpu_torch.models import enerf as E
+
+        H, W = 32, 48
+        cfg = E.ENeRFConfig(n_planes=(8, 4), n_samples=3, cost_dim=4,
+                            ibr_hidden=8, feat_dims=(4, 6))
+        net = cfg.init(gen).to(dtype).to(device)
+        K = np.array([[40.0, 0, W / 2], [0, 40.0, H / 2], [0, 0, 1]])
+        cams = []
+        for x in (-0.5, 0.45, 0.0):
+            a = 0.15 * x
+            R = np.array([[np.cos(a), 0, -np.sin(a)], [0, 1, 0],
+                          [np.sin(a), 0, np.cos(a)]])
+            cams.append((K, R, -R @ np.array([x, 0.05 * x, -3.0])))
+        imgs = _smooth_images(3, H, W, rng)
+        lr = 5e-4
+        _, step = E.make_enerf_train_step(
+            cfg, Camera(H, W, t(K), t(cams[2][1]), t(cams[2][2])), 2, 1.0,
+            6.0, lr)
+        args = (*map(t, cams[2]), t(imgs[:2]),
+                *(t(np.stack([c[i] for c in cams[:2]])) for i in range(3)),
+                t(imgs[2]))
+        kw = {}
+    else:
+        P = 48
+        o = rng.normal(size=(P, 3)) * 0.1 + np.array([0.0, 0.0, -2.0])
+        d = rng.normal(size=(P, 3)) * 0.3
+        d[:, 2] = 1.0
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        near, far = np.full(P, 0.5), np.full(P, 4.0)
+        target = rng.uniform(0, 1, (P, 3))
+        args = tuple(map(t, (o, d, near, far, target)))
+        if family == "nerf":
+            from envgs_tpu_torch.models import nerf as N
+
+            cfg = N.NerfConfig(xyz_freqs=4, dir_freqs=2, width=32, depth=5,
+                               feat_dim=16, n_samples=(16, 16),
+                               separate_levels=True)
+            net = cfg.init(gen).to(dtype).to(device)
+            lr = 5e-3
+            _, step = N.make_nerf_train_step(cfg, lr)
+            kw = dict(draws=[t(rng.uniform(0, 1, (P, n)))
+                             for n in cfg.n_samples])
+        else:
+            from envgs_tpu_torch.models import neus as NS
+
+            cfg = NS.NeusConfig(width=32, depth=4, feat_dim=8, color_width=16,
+                                n_samples=16, eikonal_weight=0.5)
+            net = cfg.init(gen).to(dtype).to(device)
+            lr = 5e-3
+            _, step = NS.make_neus_train_step(cfg, lr)
+            kw = dict(u=t(rng.uniform(0, 1, (P, cfg.n_samples))))
+
+    def leaves(xs):
+        return [x.detach().cpu().numpy().copy() for x in xs]
+
+    params = tree_flatten(net.jax_params())
+    params0 = leaves(params)
+    out = {}
+    state, info = step(net, adam_init(params), *args, grads_out=out, **kw)
+    return dict(loss=float(info["loss"]), grads=leaves(out["grads"]),
+                params0=params0, params=leaves(params), mu=leaves(state.mu),
+                nu=leaves(state.nu), lr=lr)

@@ -1,7 +1,7 @@
 """Command-line entry points of the port: train / test / render / mesh /
-smoke / dist / sig (port of envgs_tpu/cli.py for the EnvGS family and the
-config-driven gauss3d families: plain 3DGS, Spacetime Gaussians and
-PointPlanes, on the synthetic scene or a capture on disk).
+smoke / ws / dist / sig (port of envgs_tpu/cli.py for the EnvGS family and
+the config-driven families: plain 3DGS, Spacetime Gaussians, PointPlanes,
+NeRF, NeuS and ENeRF, on the synthetic scene or a capture on disk).
 
   python -m envgs_tpu_torch smoke            # synthetic end-to-end run
   python -m envgs_tpu_torch train -c configs/exps/envgs_synthetic.yaml
@@ -10,12 +10,16 @@ PointPlanes, on the synthetic scene or a capture on disk).
   python -m envgs_tpu_torch train -c configs/exps/gaussiant_synthetic.yaml
   python -m envgs_tpu_torch train -c configs/exps/stgs_synthetic.yaml
   python -m envgs_tpu_torch train -c configs/exps/point_planes_synthetic.yaml
+  python -m envgs_tpu_torch train -c configs/exps/nerf_synthetic.yaml
+  python -m envgs_tpu_torch train -c configs/exps/neus_synthetic.yaml
+  python -m envgs_tpu_torch train -c configs/exps/enerf_synthetic.yaml
   python -m envgs_tpu_torch test  -c configs/exps/envgs_synthetic.yaml \
       model_cfg.sampler_cfg.tracer_backend=tiled
   python -m envgs_tpu_torch render -c <config> --path-kind orbit \
       --path-frames 60 [--path-dir <dir with intri.yml, extri.yml>]
   python -m envgs_tpu_torch mesh -c <config> [--mesh-res 256] \
       [--mesh-stride 1]
+  python -m envgs_tpu_torch ws -c <config> [--host 127.0.0.1] [--port 1024]
   python -m envgs_tpu_torch sig --name <experiment> [--signal usr2]
 
 `render` resumes the latest checkpoint (through make_runner) and writes the
@@ -26,7 +30,9 @@ as `<out_root>/result/<exp>/mesh.ply` (Runner.extract_mesh); `dist` is
 checkpoint) or SIGUSR2 (checkpoint only) to the running python processes
 whose command line names envgs_tpu and `--name`; `--debug-nans` turns on
 autograd's anomaly detection (the backward raises at the operation that
-made a NaN).
+made a NaN); `ws` serves renders of the config's resumed state over
+websockets on `--host` / `--port` (serve/websocket_server.py; needs the
+`websockets` package), its browser viewer at http://<host>:<port>/.
 
 Configs are the JAX package's (engine/config.py: parents via `configs:`,
 `_delete_`, CLI `a.b.c=value` overrides). Everything runs on the CUDA card
@@ -38,13 +44,14 @@ multiview` reads a capture in easyvolcap layout (data/dataset.py:
 `images/<cam>/`, `intri.yml` / `extri.yml`, `sparse/0`, `normals/`,
 `envs/points3D.ply`). `train` with `sampler_cfg.type: GaussianTSampler` runs
 the 3DGS family's loop, with `STGSModel` / `STGSSampler` the Spacetime
-Gaussians' and with `PointPlanesSampler` PointPlanes' (train/families.py;
-a video capture for PointPlanes: `images/<cam>/<frame>`), all through
-`engine.TRAINERS`; their other modes raise.
+Gaussians', with `PointPlanesSampler` PointPlanes' (a video capture for
+PointPlanes: `images/<cam>/<frame>`), with `network_cfg.type:
+VolumetricVideoNetwork` NeRF's, `NeusNetwork` NeuS's and with
+`CostVolumeSampler` ENeRF's (train/families.py), all through
+`engine.TRAINERS`; their other modes raise NotImplementedError naming the
+family, as the JAX package has only `train` for them.
 `model_cfg.supervisor_cfg.aux_cfg` enables the aux supervisors by weight
-(train/aux_supervisors.py::AuxLossConfig). A mode or option the port lacks
-(the NeRF, NeuS and ENeRF families, `ws`) raises NotImplementedError
-naming it.
+(train/aux_supervisors.py::AuxLossConfig).
 """
 from __future__ import annotations
 
@@ -67,8 +74,8 @@ from envgs_tpu_torch.train.runner import Runner
 from envgs_tpu_torch.train.supervisor import LossConfig
 from envgs_tpu_torch.train.trainer import CamOptConfig, ScheduleConfig
 
-MODES = ("train", "test", "render", "mesh", "smoke", "dist", "sig")
-UNPORTED_MODES = ("ws",)
+MODES = ("train", "test", "render", "mesh", "smoke", "ws", "dist", "sig")
+UNPORTED_MODES = ()
 
 
 # sampler_cfg keys that no config tuple holds: build_from_config and
@@ -457,6 +464,8 @@ def main(argv=None, device="cuda"):
                    help="mesh mode: TSDF grid resolution")
     p.add_argument("--mesh-stride", type=int, default=1,
                    help="mesh mode: fuse every Nth training view")
+    p.add_argument("--host", default="127.0.0.1", help="ws mode: bind host")
+    p.add_argument("--port", type=int, default=1024, help="ws mode: port")
     p.add_argument("--debug-nans", action="store_true",
                    help="turn on autograd's anomaly detection: a backward "
                    "that makes a NaN raises at the operation (slow)")
@@ -484,7 +493,7 @@ def main(argv=None, device="cuda"):
         return runner.test()
 
     if not a.config:
-        p.error("train/test/render/mesh require -c <config[,config2,...]>")
+        p.error("train/test/render/mesh/ws require -c <config[,config2,...]>")
     cfg = load_config(a.config, overrides=a.opts, root=os.getcwd())
     mcfg = cfg.get("model_cfg", {}) or {}
     styp = (mcfg.get("sampler_cfg", {}) or {}).get("type")
@@ -499,6 +508,11 @@ def main(argv=None, device="cuda"):
                 f"model family {typ!r} in {a.mode} mode: the port's "
                 "config-driven entry points are EnvGS (every mode) and "
                 f"{', '.join(sorted(TRAINERS._modules))} (train)")
+    if a.mode == "ws":
+        from envgs_tpu_torch.serve.websocket_server import serve_config
+
+        return serve_config(a.config, a.opts, host=a.host, port=a.port,
+                            device=device)
     runner = make_runner(cfg, device)
     if a.mode == "render":
         out = runner.render_path(

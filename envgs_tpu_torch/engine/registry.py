@@ -1,9 +1,13 @@
 """Name -> constructor registries with config-driven build (the port's own
 copy of envgs_tpu/engine/registry.py): `build` pops `type`, filters the
 keyword arguments by the constructor's signature (warning on, not
-rejecting, unknown keys), and `type=None` builds to None."""
+rejecting, unknown keys), and `type=None` builds to None.
+`register_lazy(name, "module:attr")` registers a name whose object is
+imported at its first `get` (models/__init__.py registers the model zoo so,
+without importing every model module with the package)."""
 from __future__ import annotations
 
+import importlib
 import inspect
 import warnings
 from typing import Any, Callable
@@ -24,12 +28,22 @@ class Registry:
 
         return _do(cls) if cls is not None else _do
 
+    def register_lazy(self, name: str, target: str):
+        """`name` -> the attribute `target` = "package.module:attr",
+        imported when first asked for."""
+        self._modules[name] = target
+
     def get(self, key: str) -> Callable:
         if key not in self._modules:
             raise KeyError(
                 f"{key!r} not registered in {self.name} "
                 f"(available: {sorted(self._modules)})")
-        return self._modules[key]
+        obj = self._modules[key]
+        if isinstance(obj, str):
+            module, attr = obj.split(":")
+            obj = self._modules[key] = getattr(
+                importlib.import_module(module), attr)
+        return obj
 
     def __contains__(self, key):
         return key in self._modules

@@ -14,7 +14,7 @@ The points render as isotropic 3D Gaussians (scales = radius, the
 identity quaternion) through the 3DGS rasterizer (`ops/raster3d.py`: K5,
 gauss3d K1 and gauss3d K2 on a CUDA tensor, their plain versions on a CPU
 tensor). The optimizer is the optax Adam of the JAX package written out
-(`adam_init` / `adam_update`). `point_planes_params_from_jax` /
+(train/optax_adam.py). `point_planes_params_from_jax` /
 `point_planes_params_to_jax` carry the weights across the packages in the
 JAX parameter dict (`points`, `planes`, `resd`, `geo`, `rgb`).
 """
@@ -30,6 +30,8 @@ from envgs_tpu_torch.models.embedders import KPlanesEmbedder
 from envgs_tpu_torch.models.regressors import MLP
 from envgs_tpu_torch.ops.raster3d import Raster3DOutput, render_gaussians3d
 from envgs_tpu_torch.train.families import tree_flatten
+from envgs_tpu_torch.train.optax_adam import AdamState, adam_update, grads_of
+from envgs_tpu_torch.train.optax_adam import adam_init as adam_init_params
 from envgs_tpu_torch.utils.camera import Camera
 from envgs_tpu_torch.utils.sh import eval_sh_color
 from envgs_tpu_torch.utils.transforms import normalize
@@ -146,51 +148,13 @@ def point_planes_forward(cfg: PointPlanesConfig, model: PointPlanes, t,
                               backend=cfg.raster_backend)
 
 
-# ---------------------------------------------------------------------------
-# optax.adam written out: the state is (count, mu, nu) with the moments in
-# the order of the flattened JAX parameter dict, the leaf order of optax's
-# ScaleByAdamState
-# ---------------------------------------------------------------------------
-
-class AdamState(NamedTuple):
-    count: torch.Tensor  # () int32
-    mu: list
-    nu: list
-
-
 def flat_params(model: PointPlanes) -> list:
     """The module's tensors in the JAX parameter dict's leaf order."""
     return tree_flatten(model.jax_tree())
 
 
 def adam_init(model: PointPlanes) -> AdamState:
-    params = flat_params(model)
-    return AdamState(
-        torch.zeros((), dtype=torch.int32, device=params[0].device),
-        [torch.zeros_like(p) for p in params],
-        [torch.zeros_like(p) for p in params])
-
-
-@torch.no_grad()
-def adam_update(params: list, grads: list, state: AdamState, lr: float,
-                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                eps_root: float = 0.0) -> AdamState:
-    """One optax.adam step in place on `params`: mu and nu as moving
-    averages of g and g^2, the bias corrections 1 - b^count in float32,
-    the update -lr * mu_hat / (sqrt(nu_hat + eps_root) + eps)."""
-    count = state.count + 1
-    cf = count.to(torch.float32)
-    bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=cf.device) ** cf
-    bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=cf.device) ** cf
-    mus, nus = [], []
-    for p, g, m, v in zip(params, grads, state.mu, state.nu):
-        m = (1 - b1) * g + b1 * m
-        v = (1 - b2) * g ** 2 + b2 * v
-        u = (m / bc1) / (torch.sqrt(v / bc2 + eps_root) + eps)
-        p.add_(-lr * u)
-        mus.append(m)
-        nus.append(v)
-    return AdamState(count, mus, nus)
+    return adam_init_params(flat_params(model))
 
 
 def make_point_planes_train_step(cfg: PointPlanesConfig,
@@ -217,9 +181,7 @@ def make_point_planes_train_step(cfg: PointPlanesConfig,
         if mark:
             mark("forward")
         params = flat_params(model)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, params)]
+        grads = grads_of(loss, params)
         if grads_out is not None:
             grads_out["grads"] = grads
         if mark:

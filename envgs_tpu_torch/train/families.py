@@ -1,13 +1,20 @@
-"""Config-driven training of the other model families (port of the gauss3d
-part of envgs_tpu/train/families.py): the Spacetime Gaussians
-(`STGSModel` / `STGSSampler`) and PointPlanes (`PointPlanesSampler`),
-registered in `engine.TRAINERS` under the reference's names, so that
+"""Config-driven training of the other model families (port of
+envgs_tpu/train/families.py): the Spacetime Gaussians (`STGSModel` /
+`STGSSampler`), PointPlanes (`PointPlanesSampler`), NeRF
+(`VolumetricVideoNetwork`, `MultilevelNetwork`, `UniformSampler`,
+`ImportanceSampler`), NeuS (`NeusNetwork`) and ENeRF
+(`CostVolumeSampler`), registered in `engine.TRAINERS` under the
+reference's names, so that
 
     python -m envgs_tpu_torch train -c configs/exps/stgs_synthetic.yaml
 
-dispatches by `sampler_cfg.type` as the JAX package does. Both render
-through the 3DGS rasterizer: on a CUDA tensor each step launches K5,
-gauss3d K1 and gauss3d K2 once, on a CPU tensor their plain versions run.
+dispatches by `sampler_cfg.type` (or `network_cfg.type`) as the JAX package
+does. STGS and PointPlanes render through the 3DGS rasterizer: on a CUDA
+tensor each step launches K5, gauss3d K1 and gauss3d K2 once, on a CPU
+tensor their plain versions run. NeRF and NeuS train on random batches of
+the training views' rays (the indices from np.random.default_rng(0), as
+the JAX package picks them) and ENeRF on a target view and its nearest
+training views; these three launch no kernel of the repo.
 
 `FamilyLoop` gives each family loop the runner's services: resume from
 `latest.npz`, a checkpoint every `save_latest_every` iterations, the
@@ -398,3 +405,239 @@ def train_point_planes(cfg: Config, device="cuda"):
         lambda v: point_planes_forward(pcfg, model, float(v.get("t", 0.0)),
                                        v["camera"]).rgb,
         eval_views, loop.result_dir, device)
+
+
+def _load_tree(model, tree):
+    """Copy a parameter tree (JAX's leaf order) into the module's tensors."""
+    with torch.no_grad():
+        for p, x in zip(tree_flatten(model.jax_params()), tree_flatten(tree)):
+            p.copy_(x)
+
+
+def _ray_pool(views, device):
+    """Every training ray and its color, for random ray batches: (origins,
+    unit directions, colors), each (N, 3) on `device`."""
+    from envgs_tpu_torch.utils.camera import get_rays
+
+    ro, rd, rgb = [], [], []
+    for v in views:
+        o, d = get_rays(v["camera"], z_depth=False)
+        d = d.reshape(-1, 3)
+        ro.append(torch.broadcast_to(o, d.shape))
+        rd.append(d)
+        rgb.append(torch.as_tensor(v["rgb"], dtype=torch.float32,
+                                   device=device).reshape(-1, 3))
+    return torch.cat(ro), torch.cat(rd), torch.cat(rgb)
+
+
+def _eval_rays_loop(render_chunk, eval_views, result_dir, chunk=4096):
+    """Each held-out view rendered by render_chunk(origins, directions) ->
+    rgb over chunks of `chunk` rays (the last zero-padded to the full
+    size) -> metrics.json (PSNR / SSIM / LPIPS) -> the metrics dict."""
+    from envgs_tpu_torch.train.evaluator import Evaluator
+    from envgs_tpu_torch.utils.camera import get_rays
+
+    ev = Evaluator(result_dir)
+    for i, v in enumerate(eval_views):
+        cam = v["camera"]
+        o, d = get_rays(cam, z_depth=False)
+        d = d.reshape(-1, 3)
+        o = torch.broadcast_to(o, d.shape)
+        outs = []
+        with torch.no_grad():
+            for s in range(0, len(o), chunk):
+                n = min(chunk, len(o) - s)
+                pad = (0, 0, 0, chunk - n)
+                outs.append(render_chunk(
+                    torch.nn.functional.pad(o[s:s + n], pad),
+                    torch.nn.functional.pad(d[s:s + n], pad))[:n])
+        rgb = torch.cat(outs).reshape(cam.H, cam.W, 3)
+        ev.evaluate(torch.clamp(rgb, 0.0, 1.0), torch.as_tensor(
+            v["rgb"], dtype=torch.float32, device=rgb.device),
+            name=v.get("name", str(i)))
+    summary = ev.summarize()
+    print(json.dumps(summary["summary"], indent=2))
+    return summary
+
+
+def _near_far(cfg: Config, views):
+    """dataset_cfg's near / far, else the first view's camera's (far at
+    most 20)."""
+    dcfg = cfg.get("dataset_cfg", {}) or {}
+    cam = views[0]["camera"]
+    return (float(dcfg.get("near", cam.znear)),
+            float(dcfg.get("far", min(cam.zfar, 20.0))))
+
+
+def _ray_family(cfg: Config, device, name: str, config_cls, make_step,
+                render, default_rays: int):
+    """The NeRF / NeuS loop: the field from a generator seeded with
+    runner_cfg.seed (not the JAX package's draws: a latest.npz of either
+    package resumes), n_rays random rays a step, the samples' jitter from
+    another generator of that seed, then the held-out views rendered in
+    chunks. -> (network, metrics dict or None)."""
+    from envgs_tpu_torch.cli import _named
+
+    mcfg = cfg.get("model_cfg", {}) or {}
+    ncfg = _named(config_cls, {**(mcfg.get("network_cfg", {}) or {}),
+                               **(mcfg.get("sampler_cfg", {}) or {})},
+                  {"type"})
+    views, eval_views = _load_views_generic(cfg, device)
+    rcfg, _ = _runner_cfg(cfg)
+    n_rays = int(rcfg.get("n_rays", default_rays))
+    lr = float(rcfg.get("lr", 5e-4))
+    near, far = _near_far(cfg, views)
+    loop = FamilyLoop(cfg, name)
+    seed = int(rcfg.get("seed", 0))
+    init, step = make_step(ncfg, lr)
+    net, opt_state = init(torch.Generator(device=device).manual_seed(seed),
+                          device)
+    tree, opt_state, start = loop.restore(net.jax_params(), opt_state)
+    _load_tree(net, tree)
+    ro, rd, rgb = _ray_pool(views, device)
+    nf = (torch.full((n_rays,), near, device=device),
+          torch.full((n_rays,), far, device=device))
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    rng = np.random.default_rng(0)
+    for it in range(start, loop.total):
+        idx = torch.as_tensor(rng.integers(0, ro.shape[0], n_rays),
+                              device=device)
+        opt_state, aux = step(net, opt_state, ro[idx], rd[idx], *nf,
+                              rgb[idx], generator=gen)
+        loop.step_done(it, aux, net.jax_params(), opt_state)
+    loop.finish(net.jax_params(), opt_state)
+    if not eval_views:
+        return net, None
+
+    def render_chunk(o, d):
+        n = o.shape[0]
+        return render(ncfg, net, o, d, torch.full((n,), near, device=device),
+                      torch.full((n,), far, device=device))["rgb_map"]
+
+    return net, _eval_rays_loop(render_chunk, eval_views, loop.result_dir)
+
+
+@TRAINERS.register(name="VolumetricVideoNetwork")
+@TRAINERS.register(name="MultilevelNetwork")
+@TRAINERS.register(name="UniformSampler")
+@TRAINERS.register(name="ImportanceSampler")
+def train_nerf(cfg: Config, device="cuda"):
+    """The NeRF family: hierarchical ray-batch training (runner_cfg.n_rays,
+    default 1024) and the held-out views. -> (NerfNetworks, metrics dict or
+    None)."""
+    from envgs_tpu_torch.models.nerf import (
+        NerfConfig,
+        make_nerf_train_step,
+        render_rays_nerf,
+    )
+
+    return _ray_family(cfg, device, "nerf", NerfConfig, make_nerf_train_step,
+                       render_rays_nerf, 1024)
+
+
+@TRAINERS.register(name="NeusNetwork")
+def train_neus(cfg: Config, device="cuda"):
+    """The NeuS family: SDF ray-batch training (runner_cfg.n_rays, default
+    512) and the held-out views. -> (NeusNetwork, metrics dict or None)."""
+    from envgs_tpu_torch.models.neus import (
+        NeusConfig,
+        make_neus_train_step,
+        render_rays_neus,
+    )
+
+    return _ray_family(cfg, device, "neus", NeusConfig, make_neus_train_step,
+                       render_rays_neus, 512)
+
+
+# sampler_cfg keys of the ENeRF loop that no tuple holds: read here (type,
+# n_srcs), or left out as the JAX package leaves it (n_depth_hyps: its
+# planes are n_planes)
+_ENERF_KEYS = frozenset({"type", "n_srcs", "n_depth_hyps"})
+
+
+@TRAINERS.register(name="CostVolumeSampler")
+def train_enerf(cfg: Config, device="cuda"):
+    """The ENeRF family: a random training view a step (np.random.
+    default_rng(0)) with its n_srcs nearest training views as sources (the
+    synthetic scene), or ImageBasedDataset's items (a capture on disk);
+    the network from a generator seeded with runner_cfg.seed; then each
+    held-out view rendered from its sources. -> (ENeRFNetwork, metrics
+    dict or None)."""
+    from envgs_tpu_torch.cli import _named
+    from envgs_tpu_torch.models.enerf import (
+        ENeRFConfig,
+        make_enerf_train_step,
+        render_enerf,
+    )
+
+    dcfg = cfg.get("dataset_cfg", {}) or {}
+    scfg = (cfg.get("model_cfg", {}) or {}).get("sampler_cfg", {}) or {}
+    ecfg = _named(ENeRFConfig, scfg, _ENERF_KEYS)
+    n_srcs = int(scfg.get("n_srcs", 2))
+    rcfg, _ = _runner_cfg(cfg)
+    lr = float(rcfg.get("lr", 5e-4))
+
+    if dcfg.get("source", "synthetic") == "synthetic":
+        views, eval_views = _load_views_generic(cfg, device)
+        centers = np.stack([v["camera"].center.cpu().numpy() for v in views])
+
+        def item(i, pool):
+            # the nearest training cameras (the target itself left out by
+            # the zero-distance guard when pool is the training set)
+            v = pool[i]
+            dist = np.linalg.norm(
+                centers - v["camera"].center.cpu().numpy(), axis=-1)
+            dist[dist < 1e-9] = np.inf
+            return v, [views[j] for j in np.argsort(dist)[:n_srcs]]
+    else:
+        from envgs_tpu_torch.data.video_dataset import ImageBasedDataset
+
+        kw = dict(_dataset_kwargs(dcfg), n_srcs=n_srcs, device=device)
+        ds = call_filtered(ImageBasedDataset, dict(kw, split="train"))
+        vs = call_filtered(ImageBasedDataset, dict(kw, split="val"))
+        views = [ds[i] for i in range(len(ds))]
+        eval_views = [vs[i] for i in range(len(vs))]
+
+        def item(i, pool):
+            v = pool[i]
+            return v, [dict(rgb=v["src_inps"][k], camera=v["src_cams"][k])
+                       for k in range(n_srcs)]
+
+    def tensor(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    def sources(srcs):
+        return (torch.stack([tensor(s["rgb"]) for s in srcs]),
+                [s["camera"] for s in srcs])
+
+    near, far = _near_far(cfg, views)
+    init, step = make_enerf_train_step(ecfg, views[0]["camera"], n_srcs,
+                                       near, far, lr)
+    net, opt_state = init(torch.Generator(device=device).manual_seed(
+        int(rcfg.get("seed", 0))), device)
+    loop = FamilyLoop(cfg, "enerf")
+    tree, opt_state, start = loop.restore(net.jax_params(), opt_state)
+    _load_tree(net, tree)
+    rng = np.random.default_rng(0)
+    for it in range(start, loop.total):
+        v, srcs = item(int(rng.integers(0, len(views))), views)
+        cam = v["camera"]
+        imgs, cams = sources(srcs)
+        opt_state, aux = step(
+            net, opt_state, cam.K, cam.R, cam.T, imgs,
+            torch.stack([c.K for c in cams]), torch.stack([c.R for c in cams]),
+            torch.stack([c.T for c in cams]), tensor(v["rgb"]))
+        loop.step_done(it, aux, net.jax_params(), opt_state)
+    loop.finish(net.jax_params(), opt_state)
+    if not eval_views:
+        return net, None
+
+    at = {id(v): i for i, v in enumerate(eval_views)}
+
+    def render(v):
+        _, srcs = item(at[id(v)], eval_views)
+        imgs, cams = sources(srcs)
+        return render_enerf(ecfg, net, v["camera"], imgs, cams, near,
+                            far).rgb_map
+
+    return net, _evaluate(render, eval_views, loop.result_dir, device)

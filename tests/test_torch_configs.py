@@ -27,6 +27,9 @@ TUPLES = {
     ("models.gaussiant", "GaussianTConfig"): {},
     ("models.stgs", "STGSConfig"): {},
     ("models.point_planes", "PointPlanesConfig"): {},
+    ("models.nerf", "NerfConfig"): {},
+    ("models.neus", "NeusConfig"): {},
+    ("models.enerf", "ENeRFConfig"): {},
 }
 
 

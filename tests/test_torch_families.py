@@ -36,6 +36,9 @@ from torch_threads import one_thread  # noqa: F401
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STGS_YAML = os.path.join(ROOT, "configs", "exps", "stgs_synthetic.yaml")
 PP_YAML = os.path.join(ROOT, "configs", "exps", "point_planes_synthetic.yaml")
+NERF_YAML = os.path.join(ROOT, "configs", "exps", "nerf_synthetic.yaml")
+NEUS_YAML = os.path.join(ROOT, "configs", "exps", "neus_synthetic.yaml")
+ENERF_YAML = os.path.join(ROOT, "configs", "exps", "enerf_synthetic.yaml")
 # whole loops: the loss of each iteration (the port's plain blends against
 # JAX's oracle, the synthetic views as each package renders them)
 LOSS_ATOL = 1e-4
@@ -332,8 +335,13 @@ def test_resume_after_kill(tmp_path, capsys):
 
 @pytest.mark.parametrize("mode", ["test", "render"])
 def test_other_modes_refuse_the_families(tmp_path, mode):
+    """The JAX package has only `train` for the families: the port's other
+    modes refuse each by its name."""
     for path, name in ((STGS_YAML, "STGSModel"),
-                       (PP_YAML, "PointPlanesSampler")):
+                       (PP_YAML, "PointPlanesSampler"),
+                       (NERF_YAML, "VolumetricVideoNetwork"),
+                       (NEUS_YAML, "NeusNetwork"),
+                       (ENERF_YAML, "CostVolumeSampler")):
         with pytest.raises(NotImplementedError, match=name):
             cli.main([mode, "-c", path, f"out_root={tmp_path}"],
                      device="cpu")

@@ -886,3 +886,78 @@ def test_family_config_on_the_card(cuda, tmp_path, config):
     assert _rose(before) == {"fill_forward": 3 + n_eval,
                              "raster_blend_fwd_gauss3d": 3 + n_eval,
                              "raster_blend_bwd_gauss3d": 3}
+
+
+def test_served_frame_launches_k1_and_k3_once(cuda, tmp_path):
+    """A frame served by RenderServer.handle (an in-process connection: a
+    CAM0 message in, the hello, the JPEG and its stats out) on a runner of
+    two 64x64 views: K1 and K3 once, nothing else, the JPEG the render's."""
+    import asyncio
+    import json
+
+    from envgs_tpu_torch import cli
+    from envgs_tpu_torch.serve import websocket_server as WS
+
+    cfg = cli.smoke_config()
+    cfg["out_root"] = str(tmp_path)
+    cfg["dataset_cfg"].update(n_views=2, eval_every=0)
+    cfg["runner_cfg"]["record"] = False
+    runner = cli.make_runner(cfg, device="cuda")
+    cam = runner.views[1]["camera"]
+
+    class Conn:
+        def __init__(self, msgs):
+            self.sent, self.msgs = [], list(msgs)
+
+        async def send(self, m):
+            self.sent.append(m)
+
+        def __aiter__(self):
+            return self
+
+        async def __anext__(self):
+            if not self.msgs:
+                raise StopAsyncIteration
+            return self.msgs.pop(0)
+
+    conn = Conn([WS.encode_camera(*(x.cpu().numpy() for x in (
+        cam.K, cam.R, cam.T)))])
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    asyncio.run(WS.RenderServer(runner).handle(conn))
+    torch.cuda.synchronize()
+    assert _rose(before) == {"raster_blend_fwd": 1, "trace_blend_fwd": 1}
+    hello, jpeg, stats = conn.sent
+    assert json.loads(hello)["H"] == 64 and "stats" in json.loads(stats)
+    assert jpeg == WS.encode_jpeg(WS.typed_map(runner.render_view(cam),
+                                               "RENDER"))
+
+
+@pytest.mark.parametrize("family", ["nerf", "neus", "enerf"])
+def test_kernel_free_family_step_on_the_card(cuda, family):
+    """A small NeRF / NeuS / ENeRF step (bench.family_small_step: the same
+    weights, inputs and draws) on the card against the CPU: the loss, each
+    gradient leaf (at least 1e-2 of the step's largest: ENeRF's blend
+    logits' head has a cancelling gradient; leaves upstream of a ReLU at
+    its kink apart), the parameters after the step; no kernel of the repo
+    launched."""
+    from envgs_tpu_torch import bench
+
+    before = dict(kernels.LAUNCHES)
+    got = bench.family_small_step(family, "cuda")
+    assert _rose(before) == {}
+    want = bench.family_small_step(family, "cpu")
+    assert abs(got["loss"] / want["loss"] - 1) <= FAMILY_LOSS_RTOL
+    top = max(np.abs(w).max() for w in want["grads"])
+    errs = [np.abs(g - w).max() / max(np.abs(w).max(), 1e-2 * top)
+            for g, w in zip(got["grads"], want["grads"])]
+    # a ReLU at its kink on one device only (the card's sinf and the CPU's
+    # sin part in the last bit) moves the leaves upstream of it in its
+    # network: at most 6 of them, each within 2e-2 (chip_smoke.py's
+    # FAMILY_BRANCH_LEAVES, BRANCH_RTOL)
+    branch = [e for e in errs if e > FAMILY_GRAD_RTOL]
+    assert len(branch) <= 6 and max(branch, default=0.0) <= 2e-2, errs
+    # one Adam step moves a weight by at most about lr, either way
+    for p, w in zip(got["params"], want["params"]):
+        assert np.isfinite(p).all()
+        assert np.abs(p - w).max() <= 2.5 * got["lr"]

@@ -69,7 +69,8 @@ def test_moderators_registered_by_reference_name():
             getattr(engine, name)
     assert set(engine.UNPORTED_REGISTRIES) | {
         "DATASETS", "MODERATORS", "TRAINERS", "SCHEDULERS",
-        "DATASAMPLERS"} == {
+        "DATASAMPLERS", "SAMPLERS", "NETWORKS", "EMBEDDERS", "REGRESSORS",
+        "RENDERERS"} == {
         k for k, v in vars(jengine).items() if isinstance(v, jregistry)}
 
 

@@ -317,9 +317,12 @@ def test_smoke_entry_point_on_cpu(tmp_path, monkeypatch, capsys):
     assert "iter 7/8" in capsys.readouterr().out
 
 
-def test_unported_modes_and_options_raise(tmp_path):
-    """The mode the port lacks (`ws`) raises by name, as do another model
-    family and backends it lacks; supervisor_cfg.aux_cfg, from a config
+def test_unported_modes_and_options_raise(tmp_path, monkeypatch):
+    """No mode is left unported: `ws` reaches the websocket server with
+    the config and the JAX package's host and port (its frames:
+    tests/test_torch_serve.py). Another model family dispatches `train` to
+    its trainer (NeRF: train_nerf) and refuses the other modes by name, as
+    do backends the port lacks; supervisor_cfg.aux_cfg, from a config
     dict or as an override of a config file, builds the AuxLossConfig the
     runner trains with (the scenes cut to two 16x16 views: nothing
     trains). (The real-data source, the moderators, patch training and
@@ -330,9 +333,11 @@ def test_unported_modes_and_options_raise(tmp_path):
     from envgs_tpu_torch.engine import load_config
     from envgs_tpu_torch.train.aux_supervisors import AuxLossConfig
 
-    assert cli.UNPORTED_MODES == ("ws",)
-    with pytest.raises(NotImplementedError, match="ws"):
-        cli.main(["ws", "-c", "x.yaml"], device="cpu")
+    from envgs_tpu_torch.engine import TRAINERS
+    from envgs_tpu_torch.serve import websocket_server
+    from envgs_tpu_torch.train import families
+
+    assert cli.UNPORTED_MODES == ()
     tiny = ["dataset_cfg.H=16", "dataset_cfg.W=16", "dataset_cfg.n_views=2"]
     cfg = cli.smoke_config()
     cfg["out_root"] = str(tmp_path)  # the runner's records go there
@@ -344,6 +349,12 @@ def test_unported_modes_and_options_raise(tmp_path):
     root = os.path.dirname(os.path.dirname(os.path.abspath(
         envgs_tpu_torch.__file__)))
     path = os.path.join(root, "configs", "exps", "envgs_synthetic.yaml")
+    served = []
+    monkeypatch.setattr(websocket_server, "serve_config",
+                        lambda *a, **kw: served.append((a, kw)))
+    cli.main(["ws", "-c", path], device="cpu")
+    assert served == [((path, []), dict(host="127.0.0.1", port=1024,
+                                         device="cpu"))]
     # the config names the ref tracer, which the port has; a backend it
     # lacks (the JAX package's interpret mode) raises by name
     with pytest.raises(NotImplementedError, match="tiled_interp"):
@@ -359,12 +370,20 @@ def test_unported_modes_and_options_raise(tmp_path):
     assert runner.aux_cfg == AuxLossConfig(dpt_loss_weight=1,
                                            dpt_loss_kind="ssimse")
     assert runner.start_iter == 0
-    for mode in ("train", "test"):  # another model family
-        with pytest.raises(NotImplementedError,
-                           match="VolumetricVideoNetwork"):
-            cli.main([mode, "-c", path,
-                      "model_cfg.network_cfg.type=VolumetricVideoNetwork"],
-                     device="cpu")
+    # another model family: `train` dispatches to its trainer, `test`
+    # refuses it by name
+    assert TRAINERS.get("VolumetricVideoNetwork") is families.train_nerf
+    trained = []
+    monkeypatch.setitem(TRAINERS._modules, "VolumetricVideoNetwork",
+                        lambda cfg, device: trained.append(device))
+    cli.main(["train", "-c", path,
+              "model_cfg.network_cfg.type=VolumetricVideoNetwork"],
+             device="cpu")
+    assert trained == ["cpu"]
+    with pytest.raises(NotImplementedError, match="VolumetricVideoNetwork"):
+        cli.main(["test", "-c", path,
+                  "model_cfg.network_cfg.type=VolumetricVideoNetwork"],
+                 device="cpu")
     for key, name in (("raster_backend", "pallas_interp"),
                       ("tracer_backend", "tiled_interp")):
         cfg = cli.smoke_config()
