@@ -181,6 +181,23 @@ Phases, one or more lines each:
      frame K1 and K3 once and nothing else, its JPEG the render's in this
      process, nothing truncated; frames/s, the server's render_ms /
      encode_ms medians, the new iteration and state after the reload.
+ 21. multi-process training (parallel/) on the card: (a) the train scene
+     at 1558x1024 rendered in training mode in 2 and 4 bands
+     (forward_envgs(band=...)): each band's base-pass maps equal to the
+     full render's rows (max abs 0), K1 / K3 / K5 once a band; K1 train
+     and K2 on a band's layout at row offset 512 against their plain
+     versions (K1's planes also equal to the full image's rows), times,
+     bounds; (b) the band-parallel step on 2 and 4 ranks spawned on the
+     card in a gloo group (NCCL refuses two ranks of one card): the loss
+     and every summed gradient against the single-card step, the CPU's
+     Adam on them, the new state bit-equal on every rank, K1 / K2 / K3 /
+     K4 / K5 once a rank, steps/s of the 2-rank step, bytes all-reduced,
+     peak memory a rank; (c) on 2 ranks the splat-slab base pass against
+     the same slabs composed in one process and against the single render,
+     the env pass's deviation, phase 7's small step through 2 slabs card
+     against CPU; on 4 ranks one 2 x 2 ('band', 'splat') step; (d)
+     Runner.test of phase 14's checkpoint on 2 ranks against one process:
+     the merged means, the split views, rank 0's files alone.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -482,13 +499,14 @@ def small_scene(device):
     return base, env, cam, cfg
 
 
-def small_train(device, vgg_path=None):
+def small_train(device, vgg_path=None, make_step=None):
     """One train step of the small scene from one numpy-made mid-run state
     (random Adam moments at step 10, so updates are smooth in the
     gradients): (start state, new state, stats, gradients). With
     `vgg_path` (a VGG16 npz) the perceptual loss is on from iteration 0
     and the aux supervisors (depth on a seeded prior with holes, mask,
-    entropy) are chained in (phase 18b)."""
+    entropy) are chained in (phase 18b). `make_step` replaces
+    make_train_step (phase 21c: the splat-slab step of a mesh)."""
     import functools
 
     from envgs_tpu_torch.models.gaussians import GaussianParams
@@ -537,8 +555,9 @@ def small_train(device, vgg_path=None):
         dpt = rng.random((cam.H, cam.W, 1)) * 3 + 2
         batch = batch._replace(dpt=t(np.where(
             rng.random(dpt.shape) < 0.2, 0.0, dpt)))
-    step = make_train_step(cam, cfg._replace(render_mode=False), loss_cfg,
-                           LRConfig(), LRConfig(), has_norm=True, **extra)
+    step = (make_step or make_train_step)(
+        cam, cfg._replace(render_mode=False), loss_cfg, LRConfig(),
+        LRConfig(), has_norm=True, **extra)
     grads = {}
     new, stats = step(state, batch, cam.K, cam.R, cam.T, 25_000,
                       grads_out=grads)
@@ -954,6 +973,32 @@ def _to_cpu(tree):
     return tree
 
 
+def run_schedule():
+    """The schedule of phase 14's run: the compressed schedule with one
+    normal propagation."""
+    from envgs_tpu_torch import bench
+
+    return bench.compressed_schedule(normal_prop_interval=16)
+
+
+def run_runner(views, eval_views, base, env, cfg, sched, out_root, resume,
+               exp="run"):
+    """The Runner of phase 14's run (phase 21 builds it again in each
+    rank)."""
+    from envgs_tpu_torch import bench
+    from envgs_tpu_torch.models.gaussians import DensifyConfig
+    from envgs_tpu_torch.train.optimizer import LRConfig
+    from envgs_tpu_torch.train.runner import Runner
+    from envgs_tpu_torch.train.supervisor import LossConfig
+
+    return Runner(
+        views, base, env, cfg, LossConfig(perc_loss_weight=0.0), sched,
+        DensifyConfig(max_gs=base.cap, **bench.RUN_DENSIFY),
+        DensifyConfig(max_gs=env.cap, **bench.RUN_DENSIFY_ENV), LRConfig(),
+        LRConfig(), exp_name=exp, out_root=out_root, eval_views=eval_views,
+        resume=resume, log_every=5, save_latest_every=0)
+
+
 def full_run(device, out_root, kernels, size=None):
     """Phase 14: the compressed schedule through the Runner on the run
     scene (full width unless `size` shrinks it), then save, resume and
@@ -963,12 +1008,8 @@ def full_run(device, out_root, kernels, size=None):
     exp="run_dense" from the one taken before the last opacity reset, the
     views)."""
     from envgs_tpu_torch import bench
-    from envgs_tpu_torch.models.gaussians import DensifyConfig
     from envgs_tpu_torch.train import checkpoints as ckpt
     from envgs_tpu_torch.train import trainer
-    from envgs_tpu_torch.train.optimizer import LRConfig
-    from envgs_tpu_torch.train.runner import Runner
-    from envgs_tpu_torch.train.supervisor import LossConfig
 
     cuda = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -987,19 +1028,12 @@ def full_run(device, out_root, kernels, size=None):
     # 1e20; after a second one at it=24 it passed float32's range on some
     # surfels and their parameters turned NaN. The last line of this phase
     # says how far the next normal propagation would go.
-    sched = bench.compressed_schedule(normal_prop_interval=16)
+    sched = run_schedule()
     cfg = cfg._replace(reflection_start_iter=sched.reflection_start_iter)
 
     def make_runner(resume, run_views=None, exp="run"):
-        return Runner(
-            run_views or views, base, env, cfg,
-            LossConfig(perc_loss_weight=0.0), sched,
-            DensifyConfig(max_gs=base.cap, **bench.RUN_DENSIFY),
-            DensifyConfig(max_gs=env.cap, **bench.RUN_DENSIFY_ENV),
-            LRConfig(),
-            LRConfig(), exp_name=exp, out_root=out_root,
-            eval_views=eval_views, resume=resume, log_every=5,
-            save_latest_every=0)
+        return run_runner(run_views or views, eval_views, base, env, cfg,
+                          sched, out_root, resume, exp)
 
     runner = make_runner(False)
     maintain = runner.maintain
@@ -3579,6 +3613,697 @@ def serve_run(kernels, make_runner, card):
     return {"serve": total}
 
 
+# ---- phase 21: multi-process training (parallel/): bands, slabs ----
+BAND_H = 1024  # the train scene's rows: 1038 is no multiple of 16 * bands
+BAND_COUNTS = (2, 4)
+BAND_ROW_OFF = 512  # K1 train / K2 at a row offset, against the plain
+BAND_MAPS = ("acc_map", "dpt_map", "norm_map", "spec_map", "rough_map",
+             "dist_map", "dif_rgb_map")  # the base pass's maps of a band
+BAND_STEPS = 5  # timed steps of the 2-rank band step
+# the slab render against the same slabs composed in one process: the same
+# blends and the same composition, the gathered parts exact
+SLAB_ATOL = 1e-6
+# ... and against the single render, of each map's largest |value|: a slab
+# blends with its own transmittance from 1, so it keeps pairs the single
+# blend refuses at T (1 - a) < 1e-4 once the nearer slabs took T that low,
+# each weighing a T up to 1e-4 / (1 - a) <= 1e-2 (a <= 0.99)
+SLAB_CUTOFF_RTOL = 1e-2
+RUNNER_EVAL_RTOL = 1e-6  # the split Runner.test's merged means
+RANK_TIMEOUT_S = 600
+
+
+def _launch_delta(kernels, before):
+    return {k: kernels.LAUNCHES[k] - before[k] for k in before}
+
+
+def _zero_counts(kernels):
+    for d in (kernels.LAUNCHES, kernels.ROW_OFF_LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
+def _counts(kernels):
+    """The launches and the row-offset launches since the last zeroing."""
+    return {"launches": dict(kernels.LAUNCHES),
+            "row_off": dict(kernels.ROW_OFF_LAUNCHES)}
+
+
+def _hooks(base, env, m2z_w=2):
+    z = lambda *s: torch.zeros(s, device=base.params.xyz.device)  # noqa: E731
+    return z(base.cap, m2z_w), z(env.cap, 3), z(base.cap), z(env.cap)
+
+
+def band_renders(kernels):
+    """Phase 21a: the train scene at 1558x1024 rendered in training mode in
+    2 and 4 bands (forward_envgs(band=...)), each band's base-pass maps
+    equal to the full render's rows; K1 train and K2 at row offset 512
+    against their plain versions. -> (paths, K1 entry, K2 entry)."""
+    from envgs_tpu_torch import bench
+    from envgs_tpu_torch.models.envgs import _pool_colors, forward_envgs
+    from envgs_tpu_torch.ops.binning import bin_splats
+    from envgs_tpu_torch.ops.common import ROWCULL_LOWPASS_R, prepare_splats
+    from envgs_tpu_torch.ops.raster import _pack_table
+    from envgs_tpu_torch.ops.raster_blend import (
+        CHUNK,
+        TILE,
+        blend_tiles_bwd_torch,
+        blend_tiles_torch,
+    )
+    from envgs_tpu_torch.ops.raster_blend import rows as raster_rows
+
+    base, env, cam, cfg, _ = bench.make_train_scene("cuda", Ht=BAND_H)
+    hooks = _hooks(base, env)
+    with torch.no_grad():
+        full = forward_envgs(base, env, cam, bench.TRAIN_IT, cfg, *hooks)
+    paths = {}
+    for n in BAND_COUNTS:
+        h = BAND_H // n
+        _zero_counts(kernels)
+        worst = 0.0
+        for b in range(n):
+            before = dict(kernels.LAUNCHES)
+            with torch.no_grad():
+                out = forward_envgs(base, env, cam._replace(H=h),
+                                    bench.TRAIN_IT, cfg, *hooks,
+                                    band=(b * h, BAND_H))
+            rose = _launch_delta(kernels, before)
+            want = ("raster_blend_fwd", "trace_blend_fwd", "fill_forward")
+            if any(v != (k in want) for k, v in rose.items()):
+                raise AssertionError(f"band {b} of {n}: launches {rose}")
+            for k in BAND_MAPS:
+                d = (getattr(out, k) - getattr(full, k)[b * h:(b + 1) * h])
+                worst = max(worst, float(d.abs().max()))
+        paths[f"bands_{n}"] = _counts(kernels)
+        print(f"[bands] {n} bands of {h} rows of the train scene at "
+              f"{cam.W}x{BAND_H} (training mode): the base pass's "
+              f"{', '.join(BAND_MAPS)} against the full render's rows max "
+              f"abs {worst:g} (bound 0); K1 {kernels.LAUNCHES['raster_blend_fwd']}"
+              f" launches, {kernels.ROW_OFF_LAUNCHES['raster_blend_fwd']} of "
+              "them at a row offset", flush=True)
+        if worst != 0.0:
+            raise AssertionError(f"{n} bands differ from the full render")
+    del full, out
+
+    # K1 train and K2 at row offset 512: a band's aligned layout from the
+    # full camera's splats, against the plain versions and the full image
+    colors = torch.cat([_pool_colors(base, cam.center), base.get_specular,
+                        base.get_roughness], dim=-1)
+    prep = prepare_splats(base.params.xyz, base.params.rotation,
+                          base.get_scaling, base.get_opacity[:, 0], colors,
+                          cam, active=base.stats.active)
+    C = colors.shape[-1]
+
+    def layout(window):
+        bins = bin_splats(prep, BAND_H, cam.W, TILE, cfg.pair_cap,
+                          align=CHUNK, lowpass_r=ROWCULL_LOWPASS_R,
+                          aligned=True, row_window=window)
+        return (_pack_table(prep, bins.order), bins.gauss_idx,
+                bins.tile_bounds, C, bins.tiles_x, bins.tiles_y)
+
+    k1 = layout((BAND_ROW_OFF // TILE, (BAND_H - BAND_ROW_OFF) // TILE))
+    packed, gidx, bounds, _, tx, ty = k1
+    out1 = kernels.raster_blend_fwd(*k1, BAND_ROW_OFF, True)
+    whole = kernels.raster_blend_fwd(*layout(None), 0, True)
+    rows_err = float((out1 - whole[:, BAND_ROW_OFF:]).abs().max())
+    print(f"[bands] K1 train at row offset {BAND_ROW_OFF}: {tx * ty} tiles, "
+          f"{int(bounds[-1])} aligned slots; its planes against the rows of "
+          f"the full image's K1 max abs {rows_err:g} (bound 0)", flush=True)
+    if rows_err != 0.0:
+        raise AssertionError("K1 at a row offset differs from the full rows")
+    del whole
+    err1 = compare(f"raster_blend_fwd (train, row_off {BAND_ROW_OFF})", out1,
+                   blend_tiles_torch(*k1, BAND_ROW_OFF, True),
+                   train_planes(C), KERNEL_ATOL)
+    ms1 = cuda_ms(lambda: kernels.raster_blend_fwd(*k1, BAND_ROW_OFF, True),
+                  20)
+    plain1 = cuda_ms(lambda: blend_tiles_torch(*k1, BAND_ROW_OFF, True), 3)
+    npix = tx * ty * 256
+    ev = walked(out1[raster_rows(C)["last"]])
+    bound1 = blend_bound(packed, int(bounds[-1]), 0, (C + 11) * npix, ev,
+                         OPS_SURFEL_TERMS)
+    g1 = torch.randn(out1.shape, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(21))
+    k2 = (packed, gidx, bounds, out1, g1, C, tx, ty, BAND_ROW_OFF)
+    cols = list(range(15 + C)) + [31]
+    got, want = kernels.raster_blend_bwd(*k2), blend_tiles_bwd_torch(*k2)
+    err2, rel2 = compare_columns(
+        f"raster_blend_bwd (row_off {BAND_ROW_OFF})", got, want, cols,
+        GRAD_RTOL)
+    rel2 = max(rel2, compare_columns_by_size(
+        f"raster_blend_bwd (row_off {BAND_ROW_OFF})", got, want, cols,
+        GRAD_RTOL))
+    ms2 = cuda_ms(lambda: kernels.raster_blend_bwd(*k2), 20)
+    plain2 = cuda_ms(lambda: blend_tiles_bwd_torch(*k2), 1)
+    bound2 = blend_bound(packed, int(bounds[-1]), 2 * (C + 11) * npix, 0, ev,
+                         OPS_SURFEL_TERMS + 2 * len(cols),
+                         extra_bytes=packed.numel() * 4)
+    print(f"[bands] raster_blend_fwd (train, row_off {BAND_ROW_OFF}) "
+          f"{ms1:.4f} ms, plain {plain1:.2f} ms, bound {bound1[0]:.4f} ms by "
+          f"{bound1[1]}; raster_blend_bwd {ms2:.4f} ms, plain {plain2:.2f} "
+          f"ms, bound {bound2[0]:.4f} ms by {bound2[1]}", flush=True)
+    return (paths, dict(err=err1, ms=ms1, plain_ms=plain1, bound=bound1),
+            dict(err=err2, rel=rel2, ms=ms2, plain_ms=plain2, bound=bound2))
+
+
+def _rank_entry(rank, world, init_file, out_dir, task):
+    """A spawned rank of phase 21: on the card, in a gloo group (two ranks
+    of one card: NCCL refuses them), its result through a file."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    dist.init_process_group(
+        "gloo", init_method=f"file://{init_file}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        res = task(rank, world)
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(task, world, tmp):
+    """task(rank, world) on `world` spawned ranks -> their results. A rank
+    that raises ends the others and raises here."""
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(tmp, f"ranks{world}")
+    os.makedirs(out_dir, exist_ok=True)
+    mp.spawn(_rank_entry, args=(world, os.path.join(out_dir, "init"),
+                                out_dir, task), nprocs=world, join=True)
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def _digest(tree) -> str:
+    """sha256 of every tensor's bytes in a nested NamedTuple / dict."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(x):
+        if torch.is_tensor(x):
+            h.update(x.detach().contiguous().cpu().numpy().tobytes())
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k])
+        elif isinstance(x, tuple):
+            for v in x:
+                walk(v)
+
+    walk(tree)
+    return h.hexdigest()
+
+
+def _host_grads(grads) -> dict:
+    """A step's grads_out on the host: {"base f" / "env f" / hook: tensor}."""
+    out = {f"{k} {f}": v.cpu() for k in ("base", "env")
+           for f, v in grads[k]._asdict().items() if v is not None}
+    out.update({k: grads[k].cpu() for k in ("means2d", "env_means3d",
+                                            "wet_base", "wet_env")})
+    return out
+
+
+def single_step_reference():
+    """The single-card step on phase 21's train scene: (loss, host grads),
+    the reference of the band steps."""
+    from envgs_tpu_torch import bench
+    from envgs_tpu_torch.train.trainer import init_train_state
+
+    base, env, cam, cfg, batch = bench.make_train_scene("cuda", Ht=BAND_H)
+    grads = {}
+    _, stats = bench.make_bench_step(cam, cfg)(
+        init_train_state(base, env), batch, cam.K, cam.R, cam.T,
+        bench.TRAIN_IT, grads_out=grads)
+    return float(stats["loss"]), _host_grads(grads)
+
+
+def band_step_task(rank, world):
+    """Phase 21b on one rank: the band-parallel step on the train scene at
+    1558x1024, each rank a band; the new state's digest, rank 0's summed
+    gradients and its Adam against the CPU's on them; then (2 ranks)
+    BAND_STEPS timed steps."""
+    import torch.distributed as dist
+
+    from envgs_tpu_torch import bench, kernels
+    from envgs_tpu_torch.parallel import collectives
+    from envgs_tpu_torch.parallel.sharding import (
+        make_mesh,
+        make_sharded_train_step,
+    )
+    from envgs_tpu_torch.train.optimizer import (
+        LRConfig,
+        lr_tree_for,
+        sparse_adam_update,
+    )
+    from envgs_tpu_torch.train.supervisor import LossConfig
+    from envgs_tpu_torch.train.trainer import init_train_state
+
+    base, env, cam, cfg, batch = bench.make_train_scene("cuda", Ht=BAND_H)
+    state = init_train_state(base, env)
+    mesh = make_mesh(world, "band")
+    step = make_sharded_train_step(mesh, cam, cfg,
+                                   LossConfig(perc_loss_weight=0.0),
+                                   LRConfig(), LRConfig(), has_norm=True)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    collectives.REDUCED.update(calls=0, bytes=0)
+    grads = {}
+    new, stats = step(state, batch, cam.K, cam.R, cam.T, bench.TRAIN_IT,
+                      grads_out=grads)
+    torch.cuda.synchronize()
+    res = dict(counts=_counts(kernels), reduced=dict(collectives.REDUCED),
+               digest=_digest((new.base, new.env, new.opt_base, new.opt_env,
+                               stats)),
+               stats={k: float(v) for k, v in stats.items()})
+    if any(res["counts"]["launches"][k] != (k in TRAIN_KERNELS)
+           for k in kernels.LAUNCHES):
+        raise AssertionError(f"band step rank {rank}: {res['counts']}")
+    if rank == 0:
+        res["grads"] = _host_grads(grads)
+        # Adam held apart, as in phase 13: the CPU's Adam on the band
+        # step's summed gradients gives the card's new params and moments
+        host = lambda t: t.cpu()  # noqa: E731
+        adam = 0.0
+        for which, lr in (("base", LRConfig()), ("env", LRConfig())):
+            pool, opt = getattr(state, which), getattr(state, f"opt_{which}")
+            g = grads[which]
+            mv = lambda tree: type(tree)(*(  # noqa: E731
+                None if x is None else host(x) for x in tree))
+            p_cpu, o_cpu = sparse_adam_update(
+                mv(pool.params), mv(g), type(opt)(mv(opt.mu), mv(opt.nu),
+                                                  host(opt.step)),
+                lr_tree_for(bench.TRAIN_IT, lr))
+            got_p = getattr(new, which).params
+            got_o = getattr(new, f"opt_{which}")
+            for a, b, p0, ulps in ((p_cpu, got_p, pool.params, 2),
+                                   (o_cpu.mu, got_o.mu, opt.mu, 0),
+                                   (o_cpu.nu, got_o.nu, opt.nu, 0)):
+                for x, y, z in zip(a, b, p0):
+                    if x is None:
+                        continue
+                    y, z = host(y), host(z)
+                    change = float((y - z).abs().max())
+                    # phase 13's allowance: two float32 ulps of the stored
+                    # parameter (a step moves it by tens of them)
+                    slack = ulps * float(np.spacing(np.float32(
+                        z.abs().max())))
+                    err = max(float((x - y).abs().max()) - slack, 0.0)
+                    adam = max(adam, err / max(change, 1e-30))
+        res["adam"] = adam
+    del grads
+    peak_step = torch.cuda.max_memory_allocated() / 2 ** 30
+    if world == 2:
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = new
+        for _ in range(BAND_STEPS):
+            st, s2 = step(st, batch, cam.K, cam.R, cam.T, bench.TRAIN_IT)
+        torch.cuda.synchronize()
+        dist.barrier()
+        res["steps_per_s"] = BAND_STEPS / (time.perf_counter() - t0)
+        if not np.isfinite(float(s2["loss"])):
+            raise AssertionError("band steps: non-finite loss")
+    res["peak_gib"] = peak_step
+    return res
+
+
+ENV_ALL_CAP = 2 ** 26  # phase 21c: env slots that drop nothing uncapped
+
+
+def env_slab_caps():
+    """Phase 21c: the env pass's 2 radial slabs, composed in one process,
+    against the single trace on the same reflected rays of the train scene,
+    at the default candidate cap of a ray tile (2048) and at caps that hold
+    every candidate. -> {caps: max abs acc / rgb deviation, the share of
+    rays whose acc moves by more than 0.1, dropped slots single / slabs}."""
+    from envgs_tpu_torch import bench
+    from envgs_tpu_torch.models.envgs import (
+        _pool_colors_at,
+        reflect_rays,
+        render_base,
+    )
+    from envgs_tpu_torch.ops import tracer
+    from envgs_tpu_torch.ops.tracer_ref import prepare_trace_scene
+    from envgs_tpu_torch.parallel.splat_sharding import (
+        compose_trace_slabs,
+        slab_assignment,
+    )
+
+    base, env, cam, cfg, _ = bench.make_train_scene("cuda", Ht=BAND_H)
+    rcfg = cfg._replace(render_mode=True)
+    zero = torch.zeros(3, device="cuda")
+    res = {}
+    with torch.no_grad():
+        ref_o, ref_d = reflect_rays(cam, render_base(base, cam, rcfg))
+        colors = _pool_colors_at(env, ref_o)
+        apex = torch.mean(ref_o.reshape(-1, 3), dim=0)
+        eslab = slab_assignment(torch.linalg.vector_norm(
+            env.params.xyz - apex, dim=-1), env.stats.active, 2)
+
+        def trace(active, per_tile_cap, cap, raw):
+            return tracer.trace_rays(
+                prepare_trace_scene(env.params.xyz, env.params.rotation,
+                                    env.get_scaling, env.get_opacity[:, 0],
+                                    colors, active=active),
+                ref_o, ref_d, zero, per_tile_cap=per_tile_cap,
+                total_pair_cap=cap, compose_raw=raw)
+
+        for name, ptc, cap in (("default", None, cfg.env_pair_cap),
+                               ("every candidate", env.cap, ENV_ALL_CAP)):
+            parts = [trace(env.stats.active & (eslab == k), ptc, cap, True)
+                     ._replace(num_pairs=None) for k in range(2)]
+            comp = compose_trace_slabs(type(parts[0])(*(
+                None if v[0] is None else torch.stack(v)
+                for v in zip(*parts))), zero)
+            one = trace(env.stats.active, ptc, cap, False)
+            dev = (comp.acc - one.acc).abs()
+            res[name] = dict(
+                acc=float(dev.max()),
+                rgb=float((comp.rgb - one.rgb).abs().max()),
+                rays=float((dev > 0.1).float().mean()),
+                dropped=[int(one.dropped_pairs)]
+                + [int(p.dropped_pairs) for p in parts])
+            del parts, comp, one
+    return res
+
+
+def slab_loop_render(pool, cam, cfg, n_slabs, cap):
+    """The slab base pass composed in one process: each slab rasterized in
+    turn with bg 0 and the parts stacked, as the ranks' gather stacks
+    them."""
+    from envgs_tpu_torch.ops.common import prepare_splats
+    from envgs_tpu_torch.ops.raster import rasterize, render_decode
+    from envgs_tpu_torch.parallel.splat_sharding import (
+        _colors,
+        _slab_of,
+        compose_slabs,
+    )
+
+    slab = _slab_of(pool, cam, cfg, n_slabs)
+    parts = [rasterize(prepare_splats(
+        pool.params.xyz, pool.params.rotation, pool.get_scaling,
+        pool.get_opacity[:, 0], _colors(pool, cam, cfg), cam,
+        scale_modifier=cfg.scale_modifier,
+        active=pool.stats.active & (slab == k)),
+        cam, torch.zeros(3, device="cuda"), pair_cap=cap)
+        for k in range(n_slabs)]
+    stacked = type(parts[0])(*(
+        None if v[0] is None else torch.stack(v) for v in zip(*parts)))
+    C = 3 + (cfg.specular_channels + 1 if cfg.render_reflection else 0)
+    return render_decode(
+        compose_slabs(stacked, torch.full((3,), cfg.bg_brightness,
+                                          device="cuda"), C), cam,
+        specular_channels=cfg.specular_channels if cfg.render_reflection
+        else 0, depth_ratio=cfg.depth_ratio)
+
+
+def slab_tasks(rank, world):
+    """Phase 21c on 2 ranks: the splat-slab base pass on the train scene
+    against the single render, the env pass's deviation, and a small slab
+    step on the card against the same on the CPU."""
+    import functools
+
+    from envgs_tpu_torch import bench, kernels
+    from envgs_tpu_torch.models.envgs import forward_envgs, render_base
+    from envgs_tpu_torch.parallel.sharding import make_mesh
+    from envgs_tpu_torch.parallel.splat_sharding import (
+        _slab_base_pass,
+        _slab_env_pass,
+        make_splat_sharded_render_base,
+        make_splat_sharded_train_step,
+    )
+
+    mesh = make_mesh(world, "splat")
+    axis = mesh.axes["splat"]
+    base, env, cam, cfg, _ = bench.make_train_scene("cuda", Ht=BAND_H)
+    rcfg = cfg._replace(render_mode=True)
+    # a slab's caps are the whole image's: the depth-rank slabs are uneven
+    # in pairs (near surfels cover more tiles), pair_cap / 2 would drop
+    render = make_splat_sharded_render_base(mesh, cam, rcfg,
+                                            slab_pair_cap=cfg.pair_cap)
+    res = {}
+    with torch.no_grad():
+        _zero_counts(kernels)
+        out = render(base)
+        torch.cuda.synchronize()
+        res["render_counts"] = _counts(kernels)
+        single = render_base(base, cam, rcfg)
+        loop = slab_loop_render(base, cam, rcfg, world, cfg.pair_cap)
+        maps = ("rgb", "alpha", "depth_expected", "normal_world",
+                "surf_depth")
+        res["render_err"] = {k: float((getattr(out, k) - getattr(loop, k))
+                                      .abs().max()) for k in maps}
+        res["single_err"] = {k: float((getattr(out, k) - getattr(single, k))
+                                      .abs().max()) for k in maps}
+        res["single_max"] = {k: float(getattr(single, k).abs().max())
+                             for k in maps}
+        _zero_counts(kernels)
+        slab = forward_envgs(base, env, cam, bench.TRAIN_IT, rcfg,
+                             base_pass=_slab_base_pass(axis, cfg.pair_cap),
+                             env_pass=_slab_env_pass(axis,
+                                                     cfg.env_pair_cap))
+        torch.cuda.synchronize()
+        res["forward_counts"] = _counts(kernels)
+        one = forward_envgs(base, env, cam, bench.TRAIN_IT, rcfg)
+        res["env_dev"] = {k: float((getattr(slab, k) - getattr(one, k))
+                                   .abs().max())
+                          for k in ("env_rgb_map", "env_acc_map", "rgb_map")}
+    del base, env, out, single, slab, one, loop
+    # phase 7's small step through the slabs, card against CPU (the same
+    # gloo group), at phase 7's bounds
+    make = functools.partial(make_splat_sharded_train_step, mesh)
+    _zero_counts(kernels)
+    got = small_train("cuda", make_step=make)
+    torch.cuda.synchronize()
+    res["small_counts"] = _counts(kernels)
+    worst = compare_small_train(got, small_train("cpu", make_step=make))
+    res["small_worst"] = {k: v for k, v in worst.items()
+                          if k.startswith(("stat", "grad", "flips"))}
+    res["small_caps"] = {k: int(got[2][k]) for k in ("pair_overflow",
+                                                     "trace_dropped")}
+    return res
+
+
+def runner_test_task(rank, world, out_root):
+    """Phase 21d on one rank: Runner.test of phase 14's checkpoint, the eval
+    views split over the ranks."""
+    from envgs_tpu_torch import bench, kernels
+
+    views, eval_views, base, env, cfg = bench.make_run_scene("cuda")
+    sched = run_schedule()
+    cfg = cfg._replace(reflection_start_iter=sched.reflection_start_iter)
+    runner = run_runner(views, eval_views, base, env, cfg, sched, out_root,
+                        True)
+    _zero_counts(kernels)
+    summary = runner.test(save_images=False, tag="ranks2")
+    torch.cuda.synchronize()
+    runner.recorder.close()
+    return dict(summary=summary["summary"], counts=_counts(kernels),
+                frames=[f["name"] for f in summary["frames"]])
+
+
+def ranks2_task(rank, world, out_root):
+    """The 2-rank phases: the band step, the slabs, the split test."""
+    band = band_step_task(rank, world)
+    torch.cuda.empty_cache()  # the card is shared by the ranks
+    slab = slab_tasks(rank, world)
+    torch.cuda.empty_cache()
+    return dict(band=band, slab=slab,
+                test=runner_test_task(rank, world, out_root))
+
+
+def ranks4_task(rank, world):
+    """The 4-rank phases: the band step in 4 bands, one 2 x 2 ('band',
+    'splat') step on the train scene."""
+    from envgs_tpu_torch import bench, kernels
+    from envgs_tpu_torch.parallel.sharding import make_mesh
+    from envgs_tpu_torch.parallel.splat_sharding import (
+        make_splat_sharded_train_step,
+    )
+    from envgs_tpu_torch.train.optimizer import LRConfig
+    from envgs_tpu_torch.train.supervisor import LossConfig
+    from envgs_tpu_torch.train.trainer import init_train_state
+
+    import datetime
+
+    res = dict(band=band_step_task(rank, world))
+    torch.cuda.empty_cache()
+    base, env, cam, cfg, batch = bench.make_train_scene("cuda", Ht=BAND_H)
+    mesh = make_mesh((2, 2), ("band", "splat"),
+                     timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    step = make_splat_sharded_train_step(
+        mesh, cam, cfg, LossConfig(perc_loss_weight=0.0), LRConfig(),
+        LRConfig(), has_norm=True, band_axis="band",
+        slab_pair_cap=cfg.pair_cap, slab_env_cap=cfg.env_pair_cap)
+    _zero_counts(kernels)
+    new, stats = step(init_train_state(base, env), batch, cam.K, cam.R,
+                      cam.T, bench.TRAIN_IT)
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(p).all())
+                 for pool in (new.base, new.env) for p in pool.params
+                 if p is not None)
+    res["slab2x2"] = dict(counts=_counts(kernels), finite=finite,
+                          stats={k: float(v) for k, v in stats.items()},
+                          digest=_digest((new.base, new.env)))
+    return res
+
+
+def _sum_counts(results, key):
+    """The ranks' launch counts of one path, summed."""
+    tot = {"launches": {}, "row_off": {}}
+    for r in results:
+        for kind in tot:
+            for k, v in key(r)[kind].items():
+                tot[kind][k] = tot[kind].get(k, 0) + v
+    return tot
+
+
+def parallel_runs(kernels, run_root, card):
+    """Phase 21: bands in one process (21a), then 2 and 4 ranks spawned on
+    the card (21b-d). -> (paths {name: counts}, K1 entry, K2 entry)."""
+    import functools
+    import tempfile
+
+    from envgs_tpu_torch import bench
+
+    t21 = time.perf_counter()
+    paths, k1b, k2b = band_renders(kernels)
+    torch.cuda.empty_cache()
+    env_caps = env_slab_caps()
+    torch.cuda.empty_cache()
+    print(f"[slabs] the env pass's 2 radial slabs (composed in one process) "
+          f"against the single trace on the train scene's reflected rays: "
+          + "; ".join(f"{name}: acc max abs {d['acc']:.3g}, rgb {d['rgb']:.3g}"
+                      f", {d['rays']:.4%} of the rays' acc moved by over 0.1, "
+                      f"dropped slots (single, slabs) {d['dropped']}"
+                      for name, d in env_caps.items()), flush=True)
+    single_loss, single_grads = single_step_reference()
+    torch.cuda.empty_cache()
+    # the 1-process evaluation the split one must equal
+    views, eval_views, base, env, cfg = bench.make_run_scene("cuda")
+    sched = run_schedule()
+    one = run_runner(views, eval_views, base, env,
+                     cfg._replace(reflection_start_iter=sched
+                                  .reflection_start_iter), sched, run_root,
+                     True).test(save_images=False, tag="ranks1")["summary"]
+    del views, eval_views, base, env
+    torch.cuda.empty_cache()
+    record = os.path.join(run_root, "record", "run")
+    events0 = [n for n in os.listdir(record) if "tfevents" in n]
+    with tempfile.TemporaryDirectory() as tmp:
+        two = run_ranks(functools.partial(ranks2_task, out_root=run_root), 2,
+                        tmp)
+        four = run_ranks(ranks4_task, 4, tmp)
+
+    # ---- b. the band step ----
+    for res in (two, four):
+        n = len(res)
+        band = [r["band"] for r in res]
+        if len({b["digest"] for b in band}) != 1:
+            raise AssertionError(f"{n}-band step: the ranks' states differ")
+        if len({json.dumps(b["stats"], sort_keys=True) for b in band}) != 1:
+            raise AssertionError(f"{n}-band step: the ranks' stats differ")
+        b0 = band[0]
+        errs = {k: rel_err(v, single_grads[k]) for k, v in b0["grads"].items()}
+        worst = max(errs, key=errs.get)
+        loss_err = abs(b0["stats"]["loss"] - single_loss) / abs(single_loss)
+        peaks = ", ".join(f"{b['peak_gib']:.2f}" for b in band)
+        print(f"[band-step] {n} ranks on one card (gloo): loss "
+              f"{b0['stats']['loss']:.6f} against the single-card step's "
+              f"{single_loss:.6f} (rel {loss_err:.3g}, bound {LOSS_RTOL:g}); "
+              f"gradients and hook gradients max|d|/max|ref| up to "
+              f"{errs[worst]:.3g} ({worst}; bound {STEP_RTOL:g}); Adam on "
+              f"the CPU against the card's {b0['adam']:.3g} of each array's "
+              f"largest change (bound {ADAM_RTOL:g}); new state and stats "
+              f"bit-equal on all ranks; "
+              f"{b0['reduced']['bytes'] / 2 ** 20:.1f} MiB all-reduced per "
+              f"step in {b0['reduced']['calls']} calls; peak {peaks} GiB per "
+              "rank", flush=True)
+        if not (loss_err <= LOSS_RTOL and errs[worst] <= STEP_RTOL
+                and b0["adam"] <= ADAM_RTOL):
+            raise AssertionError(f"{n}-band step: {errs}")
+        paths[f"band_step_{n}"] = _sum_counts(res, lambda r: r["band"]
+                                              ["counts"])
+    print(f"[band-step] 2 ranks: {two[0]['band']['steps_per_s']:.4f} steps/s "
+          f"over {BAND_STEPS} steps ({card}; two ranks share one card and "
+          "stage every collective through the host: no scaling number)",
+          flush=True)
+
+    # ---- c. slabs ----
+    s0 = two[0]["slab"]
+    cut = {k: s0["single_err"][k] / s0["single_max"][k]
+           for k in s0["single_err"]}
+    print(f"[slabs] 2-slab base pass (render mode, each slab at the "
+          f"image's caps) against the same slabs composed in one process: "
+          f"max abs {json.dumps(s0['render_err'])} (bound {SLAB_ATOL:g}); "
+          f"against the single render, of each map's largest value: "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in cut.items()})} "
+          f"(bound {SLAB_CUTOFF_RTOL:g}: a slab's own transmittance keeps "
+          f"pairs the single blend's 1e-4 test refuses); the slab forward "
+          f"(both passes on 2 ranks) deviates from the single by "
+          f"{json.dumps(s0['env_dev'])}", flush=True)
+    if not (max(s0["render_err"].values()) <= SLAB_ATOL
+            and max(cut.values()) <= SLAB_CUTOFF_RTOL):
+        raise AssertionError(f"slab render: {s0['render_err']} {cut}")
+    print("[slabs] phase 7's small step through 2 slabs, card against CPU "
+          + json.dumps({k: (v if isinstance(v, int) else float(f"{v:.3g}"))
+                        for k, v in s0["small_worst"].items()})
+          + f" (phase 7's bounds); caps {s0['small_caps']}", flush=True)
+    if any(s0["small_caps"].values()):
+        raise AssertionError(f"small slab step: {s0['small_caps']}")
+    for name, key in (("slab_render_2", "render_counts"),
+                      ("slab_forward_2", "forward_counts"),
+                      ("slab_small_step_2", "small_counts")):
+        paths[name] = _sum_counts(two, lambda r: r["slab"][key])
+    for r in four:
+        want = TRAIN_KERNELS
+        got = r["slab2x2"]["counts"]["launches"]
+        if (any(v != (k in want) for k, v in got.items())
+                or not r["slab2x2"]["finite"]
+                or r["slab2x2"]["stats"]["pair_overflow"]
+                or r["slab2x2"]["stats"]["trace_dropped"]):
+            raise AssertionError(f"2x2 step: {r['slab2x2']}")
+    if len({r["slab2x2"]["digest"] for r in four}) != 1:
+        raise AssertionError("2x2 step: the ranks' states differ")
+    print(f"[slabs] 2 x 2 ('band', 'splat') step on 4 ranks: loss "
+          f"{four[0]['slab2x2']['stats']['loss']:.6f}, params finite, each "
+          "rank K1, K2, K3, K4, K5 once, nothing over a slab's cap, state "
+          "bit-equal on all ranks", flush=True)
+    paths["slab_step_2x2"] = _sum_counts(four, lambda r: r["slab2x2"]
+                                         ["counts"])
+
+    # ---- d. the split evaluation ----
+    t0, t1 = two[0]["test"], two[1]["test"]
+    got = t0["summary"]
+    errs = {k: abs(got[k] - one[k]) / abs(one[k])
+            for k in ("psnr_mean", "ssim_mean")}
+    events = [n for n in os.listdir(record) if "tfevents" in n]
+    merged = os.path.join(run_root, "result", "run", "ranks2")
+    print(f"[split-test] Runner.test of phase 14's checkpoint on 2 ranks: "
+          f"rank 0 views {t0['frames']}, rank 1 {t1['frames']}; merged "
+          f"psnr {got['psnr_mean']:.6f}, ssim {got['ssim_mean']:.6f} against "
+          f"one process's {one['psnr_mean']:.6f}, {one['ssim_mean']:.6f} "
+          f"(rel {json.dumps(errs)}, bound {RUNNER_EVAL_RTOL:g}); "
+          f"{len(events) - len(events0)} new event file(s); files "
+          f"{sorted(os.listdir(merged))}", flush=True)
+    with open(os.path.join(merged, "metrics.json")) as f:
+        on_disk = json.load(f)["summary"]
+    if not (max(errs.values()) <= RUNNER_EVAL_RTOL
+            and got["n_views_total"] == len(t0["frames"]) + len(t1["frames"])
+            and len(events) == len(events0) + 1
+            and on_disk["n_views_total"] == got["n_views_total"]
+            and os.path.exists(os.path.join(merged, "rank1",
+                                            "metrics.json"))):
+        raise AssertionError(f"split test: {got} against {one}")
+    paths["split_test_2"] = _sum_counts(two, lambda r: r["test"]["counts"])
+    print(f"[phase 21] {time.perf_counter() - t21:.1f} s", flush=True)
+    return paths, k1b, k2b
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4340,6 +5065,10 @@ def main():
             keep.enter_context(tempfile.TemporaryDirectory()), card))
         family_launches.update(serve_run(kernels, make_serve_runner, card))
         print(f"[phase 20] {time.perf_counter() - t20:.1f} s", flush=True)
+        del make_serve_runner
+
+        # ---- 21. bands, the band and slab steps, the split evaluation ----
+        par_paths, k1_band, k2_band = parallel_runs(kernels, run_tmp, card)
 
     paths = {"render": render_launches, "train": train_launches,
              "gaussiant": gaussiant_launches, "run": run_launches,
@@ -4347,7 +5076,9 @@ def main():
              "render_path": path_launches, "cli": cli_launches,
              **capture_launches, **traced_paths, "aux_train": aux_launches,
              "mesh": mesh_launches, "mesh_cli": mesh_cli_launches,
-             **family_launches}
+             **family_launches,
+             **{p: c["launches"] for p, c in par_paths.items()}}
+    row_off_paths = {p: c["row_off"] for p, c in par_paths.items()}
 
     def entry(name, src, replaces, err, ms, plain_ms, bound, library_ms=None,
               keys=None, **extra):
@@ -4364,6 +5095,15 @@ def main():
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": library_ms, "launches_by_path": by_path,
                 **extra}
+
+    def row_off_entry(name, m):
+        """The kernel at a row offset (phase 21a: a band's layout at row
+        512) and its launches at a nonzero offset on each path."""
+        return {f"row_off_{k}": v for k, v in (
+            ("ms", m["ms"]), ("plain_ms", m["plain_ms"]),
+            ("bound_ms", m["bound"][0]), ("max_abs_err", m["err"]),
+            ("launches_by_path", {p: n[name]
+                                  for p, n in row_off_paths.items()}))}
 
     def gather_entry(name, replaces):
         g = gathers[(name, "bf16")]
@@ -4382,11 +5122,13 @@ def main():
               render_bound_ms=k1_bound[0], render_median_ms=k1_med_ms,
               render_median_plain_ms=k1_med_plain_ms,
               render_median_bound_ms=k1_med_bound[0],
+              **row_off_entry("raster_blend_fwd", k1_band),
               resources={cfg: k1_resources[cfg] for cfg in ("render",
                                                            "train")}),
         entry("raster_blend_bwd", "raster_blend_bwd.cu",
               "envgs_tpu/ops/raster_pallas.py:456", k2_err, k2_ms,
               k2_plain_ms, k2_bound, max_rel_err=k2_rel,
+              **row_off_entry("raster_blend_bwd", k2_band),
               resources=k2_resources["surfel"]),
         entry("trace_blend_fwd", "trace_blend_fwd.cu",
               "envgs_tpu/ops/tracer.py:645",

@@ -26,7 +26,7 @@ NeRF, NeuS and ENeRF, on the synthetic scene or a capture on disk).
 frames of a camera path under `<out_root>/result/<exp>/<kind>/`; `mesh`
 resumes it too and writes the TSDF-fused mesh of the training views' depths
 as `<out_root>/result/<exp>/mesh.ply` (Runner.extract_mesh); `dist` is
-`train` (one process, one card); `sig` sends SIGUSR1 (status line and a
+`train`, as in the JAX package; `sig` sends SIGUSR1 (status line and a
 checkpoint) or SIGUSR2 (checkpoint only) to the running python processes
 whose command line names envgs_tpu and `--name`; `--debug-nans` turns on
 autograd's anomaly detection (the backward raises at the operation that
@@ -52,6 +52,14 @@ VolumetricVideoNetwork` NeRF's, `NeusNetwork` NeuS's and with
 family, as the JAX package has only `train` for them.
 `model_cfg.supervisor_cfg.aux_cfg` enables the aux supervisors by weight
 (train/aux_supervisors.py::AuxLossConfig).
+
+Several processes: `torchrun --nproc_per_node N -m envgs_tpu_torch <mode>
+-c <config>` runs the program on every rank (WORLD_SIZE > 1), each rank on
+its card (cuda:LOCAL_RANK) in an NCCL default group (gloo when the caller
+asks for the CPU). Training is replicated; rank 0 alone records
+and saves; `test` splits the eval views over the ranks and merges their
+means (train/runner.py). The band- and splat-parallel train steps are
+library functions (parallel/), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -483,6 +491,15 @@ def main(argv=None, device="cuda"):
         return signal_runs(name, a.signal)
     if a.mode == "dist":
         a.mode = "train"
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # torchrun: every rank runs this program (rank 0 serves outputs);
+        # NCCL for ranks on cards (a card a rank), gloo for CPU ranks
+        from envgs_tpu_torch.parallel.multihost import init_from_env
+
+        dev = torch.device(device)
+        device = init_from_env(
+            "nccl" if dev.type == "cuda" else "gloo",
+            None if (dev.type, dev.index) == ("cuda", None) else dev)
 
     if a.mode == "smoke":
         from envgs_tpu_torch.engine import merge_dotted

@@ -11,7 +11,9 @@ blends (the surfel launches under the kernel's name, the gauss3d ones under
 `<name>_gauss3d`) and per configuration for the traced blend's forward (the
 render and training launches under its name, the geometry and forward-wet
 ones under `<name>_geo` and `<name>_wet`); each wrapper adds one where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else. `ROW_OFF_LAUNCHES` counts, under
+the same keys, the raster blends' launches at a row offset other than 0
+(a band of a larger image).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ LAUNCHES = {"raster_blend_fwd": 0, "raster_blend_fwd_gauss3d": 0,
             "trace_blend_fwd": 0, "trace_blend_fwd_geo": 0,
             "trace_blend_fwd_wet": 0, "trace_blend_bwd": 0, "fill_forward": 0,
             "segscan": 0, "gather_rows": 0, "gather_rows_win8": 0}
+ROW_OFF_LAUNCHES = {k: 0 for k in LAUNCHES if k.startswith("raster_blend")}
 MODES = {"surfel": 0, "gauss3d": 1}  # geometry of the raster blends
 # the traced blend's forward configurations counted apart (LAUNCHES keys
 # `trace_blend_fwd_<config>`)
@@ -217,6 +220,7 @@ def raster_blend_fwd(packed, gauss_idx, tile_bounds, C: int, tiles_x: int,
                 int(train), code, out.data_ptr(),
                 wet_pairs.data_ptr() if wet else None, _stream(packed),
                 count=key)
+        ROW_OFF_LAUNCHES[key] += bool(row_off)
     return (out, wet_pairs) if wet else out
 
 
@@ -254,6 +258,7 @@ def raster_blend_bwd(packed, gauss_idx, tile_bounds, fwd, g_out, C: int,
                 tile_bounds.data_ptr(), C, tiles_x, tiles_y, row_off, code,
                 fwd.data_ptr(), g_out.data_ptr(), g_packed.data_ptr(),
                 _stream(packed), count=key)
+        ROW_OFF_LAUNCHES[key] += bool(row_off)
     return g_packed
 
 

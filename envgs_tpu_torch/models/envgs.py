@@ -17,14 +17,22 @@ ray's exact depth order (evaluation), or with `max_trace_depth > 0`
 recursive specular bounces. The backends "ref" run the reference
 rasterizer and tracer instead of the kernels. The reflection gate is a
 Python `if` on the iteration.
+
+A call may render one horizontal band of the image (`band`, the row-crop
+of the band-parallel step, parallel/sharding.py), and the two passes may
+be replaced (`base_pass`, `env_pass`: the splat-slab passes of
+parallel/splat_sharding.py) while every composite, filter and gate stays
+this module's.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from envgs_tpu_torch.models.gaussians import GaussianPool, sh_degree_mask
+from envgs_tpu_torch.parallel.collectives import all_gather
 from envgs_tpu_torch.ops import tracer
 from envgs_tpu_torch.ops.common import check_backend, prepare_splats
 from envgs_tpu_torch.ops.raster import (
@@ -98,58 +106,84 @@ def _pool_colors(pool: GaussianPool, viewdir_origin: torch.Tensor) -> torch.Tens
     return eval_sh_color(pool.max_sh_degree, feats.transpose(1, 2), dirs)
 
 
-def _pool_colors_at(pool: GaussianPool, ref_o: torch.Tensor) -> torch.Tensor:
+def _pool_colors_at(pool: GaussianPool, ref_o: torch.Tensor,
+                    band_axis=None) -> torch.Tensor:
     """Env SH colors toward the mean ray origin, the mean taken over 16-row
-    blocks first (the JAX package's hierarchical order, which its band-
-    parallel path needs for a bit-identical image-global origin)."""
+    blocks first, so that a band-parallel run (band_axis, a
+    parallel.collectives.Axis: the block means all-gathered over the
+    bands) reduces the same values in the same shapes and gets the image's
+    origin to the bit."""
     Hb, W = ref_o.shape[0], ref_o.shape[1]
-    if Hb % 16 != 0:
+    if Hb % 16 != 0:  # bands are whole 16-row blocks: one image alone
+        assert band_axis is None, (Hb, band_axis)
         return _pool_colors(pool, torch.mean(ref_o.reshape(-1, 3), dim=0))
     bm = torch.mean(ref_o.reshape(Hb // 16, 16 * W, 3), dim=1)
+    if band_axis is not None:
+        bm = all_gather(bm, band_axis, tiled=True)
     return _pool_colors(pool, torch.mean(bm, dim=0))
+
+
+def _band_camera(cam: Camera, band: tuple | None) -> Camera:
+    """The full image's camera of a band's call: cam holds the full
+    image's K with H the band's height; band[1] is the image's height."""
+    if band is None:
+        return cam
+    return cam._replace(H=int(band[1]))
 
 
 def render_base(pool: GaussianPool, cam: Camera, cfg: EnvGSConfig,
                 means2d_zero: torch.Tensor | None = None,
-                wet_zero: torch.Tensor | None = None) -> RenderOutput:
+                wet_zero: torch.Tensor | None = None,
+                band: tuple | None = None) -> RenderOutput:
     """Rasterize the base (diffuse + specular-mask) surfel set. On the
     training path, per-splat wet is the gradient of the (P,) zeros hook
-    `wet_zero` and RenderOutput.wet is exact zeros."""
+    `wet_zero` and RenderOutput.wet is exact zeros.
+
+    band = (row0, H_full): render the rows [row0, row0 + cam.H) of the
+    H_full-row image whose intrinsics cam.K holds (the row-crop: equal to
+    the same rows of a full render to the bit, see rasterize's
+    row_window)."""
     colors = _pool_colors(pool, cam.center)
     if cfg.render_reflection:
         colors = torch.cat([colors, pool.get_specular, pool.get_roughness],
                            dim=-1)
+    cam_proj = _band_camera(cam, band)
     prep = prepare_splats(
         pool.params.xyz, pool.params.rotation, pool.get_scaling,
-        pool.get_opacity[:, 0], colors, cam,
+        pool.get_opacity[:, 0], colors, cam_proj,
         scale_modifier=cfg.scale_modifier, active=pool.stats.active,
     )
     bg = torch.full((3,), cfg.bg_brightness, dtype=torch.float32,
                     device=colors.device)
     train = not cfg.render_mode
     ref = cfg.raster_backend == "ref"
-    out = rasterize(prep, cam, bg, pair_cap=cfg.pair_cap,
+    out = rasterize(prep, cam_proj, bg, pair_cap=cfg.pair_cap,
                     means2d_zero=means2d_zero,
                     needs=(train, train or cfg.depth_ratio > 0, train),
                     wet_zero=None if ref else wet_zero,
-                    backend=cfg.raster_backend)
+                    backend=cfg.raster_backend,
+                    row_window=None if band is None else (band[0], cam.H))
     return render_decode(
         out, cam,
         specular_channels=cfg.specular_channels if cfg.render_reflection else 0,
         depth_ratio=cfg.depth_ratio,
+        i0=None if band is None else band[0],
     )
 
 
 def render_base_traced(pool: GaussianPool, cam: Camera, cfg: EnvGSConfig,
                        means3d_zero: torch.Tensor | None = None,
-                       wet_zero: torch.Tensor | None = None) -> RenderOutput:
+                       wet_zero: torch.Tensor | None = None,
+                       band: tuple | None = None) -> RenderOutput:
     """The base pass traced along the camera rays (`use_base_tracing`, the
     reference's start_from_first contract): specular and roughness ride
     the tracer's aux channels; visibility is traced weight > 0 or an
     in-frustum projection; the surface normal comes from the traced depth.
     means3d_zero (P, 3) zeros is added to the means, so its gradient is the
     world-space densification gradient. No pair count (num_pairs None): the
-    trace's dropped slots go unreported, as in the JAX package."""
+    trace's dropped slots go unreported, as in the JAX package. band: as
+    render_base's (the band's camera rays and projection)."""
+    i0 = None if band is None else band[0]
     xyz = pool.params.xyz
     if means3d_zero is not None:
         xyz = xyz + means3d_zero
@@ -161,7 +195,7 @@ def render_base_traced(pool: GaussianPool, cam: Camera, cfg: EnvGSConfig,
         xyz, pool.params.rotation, pool.get_scaling, pool.get_opacity[:, 0],
         colors, aux=aux, active=pool.stats.active,
         scale_modifier=cfg.scale_modifier)
-    o, d = get_rays(cam, z_depth=True)
+    o, d = get_rays(cam, z_depth=True, i0=i0)
     ray_o = o.expand(d.shape)
     bg = torch.full((3,), cfg.bg_brightness, dtype=torch.float32,
                     device=colors.device)
@@ -176,7 +210,7 @@ def render_base_traced(pool: GaussianPool, cam: Camera, cfg: EnvGSConfig,
     with torch.no_grad():  # the projection gives visibility alone
         prep = prepare_splats(
             xyz, pool.params.rotation, pool.get_scaling,
-            pool.get_opacity[:, 0], colors, cam,
+            pool.get_opacity[:, 0], colors, _band_camera(cam, band),
             scale_modifier=cfg.scale_modifier, active=pool.stats.active)
     S = cfg.specular_channels if cfg.render_reflection else 0
     alpha = t.acc[..., None]
@@ -190,7 +224,8 @@ def render_base_traced(pool: GaussianPool, cam: Camera, cfg: EnvGSConfig,
         depth_expected=depth,
         depth_median=depth.detach(),
         surf_depth=depth,
-        surf_normal=depth_to_normal(cam, depth[..., 0]) * alpha.detach(),
+        surf_normal=(depth_to_normal(cam, depth[..., 0], i0=i0)
+                     * alpha.detach()),
         distortion=t.dist[..., None],
         wet=t.wet,
         radii=prep.radius,
@@ -198,9 +233,10 @@ def render_base_traced(pool: GaussianPool, cam: Camera, cfg: EnvGSConfig,
     )
 
 
-def reflect_rays(cam: Camera, base: RenderOutput):
-    """Reflected ray grid from the base pass (envgs_sampler.py:420-455)."""
-    o, d = get_rays(cam, z_depth=True)  # d not normalized (z-depth)
+def reflect_rays(cam: Camera, base: RenderOutput, i0=None):
+    """Reflected ray grid from the base pass (envgs_sampler.py:420-455);
+    i0: a band's first global pixel row."""
+    o, d = get_rays(cam, z_depth=True, i0=i0)  # d not normalized (z-depth)
     n = normalize(base.normal_world)
     ref_d = reflect(d, n)
     ref_o = o[None, None, :] + d * base.surf_depth
@@ -211,17 +247,19 @@ def render_env(env: GaussianPool, ref_o: torch.Tensor, ref_d: torch.Tensor,
                cfg: EnvGSConfig,
                env_means3d_zero: torch.Tensor | None = None,
                ray_mask: torch.Tensor | None = None,
-               wet_zero: torch.Tensor | None = None) -> TraceOutput:
+               wet_zero: torch.Tensor | None = None,
+               band_axis=None) -> TraceOutput:
     """Trace the environment surfel set along the reflected rays (with
     `max_trace_depth > 0`, bouncing them on, the env set's specular and
     roughness on the aux channels); env_means3d_zero (Pe, 3) zeros is added
     to the env means, so its gradient is the world-space densification
-    gradient."""
+    gradient. band_axis: the bands' axis of a band-parallel call (the SH
+    view origin is the image's, `_pool_colors_at`)."""
     check_backend("tracer", cfg.tracer_backend)
     xyz = env.params.xyz
     if env_means3d_zero is not None:
         xyz = xyz + env_means3d_zero
-    colors = _pool_colors_at(env, ref_o)
+    colors = _pool_colors_at(env, ref_o, band_axis=band_axis)
     aux = None
     if cfg.max_trace_depth > 0:  # the bounces read the env set's own
         aux = torch.cat([env.get_specular, env.get_roughness], dim=-1)
@@ -282,7 +320,9 @@ def forward_envgs(base: GaussianPool, env: GaussianPool, cam: Camera,
                   means2d_zero: torch.Tensor | None = None,
                   env_means3d_zero: torch.Tensor | None = None,
                   wet_zero: torch.Tensor | None = None,
-                  env_wet_zero: torch.Tensor | None = None) -> EnvGSOutput:
+                  env_wet_zero: torch.Tensor | None = None,
+                  base_pass=None, env_pass=None,
+                  band: tuple | None = None) -> EnvGSOutput:
     """One EnvGS forward at iteration `it` (the reflection and filtering
     gates compare against it).
 
@@ -290,18 +330,31 @@ def forward_envgs(base: GaussianPool, env: GaussianPool, cam: Camera,
     screen-space and world-space densification gradients and the base and
     env per-splat wet (base_wet / env_wet are then exact zeros). The
     training configuration (`render_mode=False`) needs the two wet hooks;
-    with `use_base_tracing` means2d_zero is the (P, 3) world-space hook."""
+    with `use_base_tracing` means2d_zero is the (P, 3) world-space hook.
+
+    base_pass / env_pass: replacements of the two passes, called as
+    render_base / render_env are (the splat-slab passes). band = (row0,
+    H_full[, axis]): render the rows [row0, row0 + cam.H) of an
+    H_full-row image, cam holding the full image's intrinsics (the
+    row-crop: the band's base pass equals the same rows of a full render);
+    with the bands' axis (parallel.collectives.Axis) the env pass's SH
+    view origin is the image's. The specular filter's quantile stays the
+    band's own, as in the JAX package."""
     check_backend("raster", cfg.raster_backend)
     check_backend("tracer", cfg.tracer_backend)
-    if cfg.use_base_tracing:
-        b = render_base_traced(base, cam, cfg, means2d_zero, wet_zero)
+    i0 = None if band is None else band[0]
+    if base_pass is not None:
+        b = base_pass(base, cam, cfg, means2d_zero, wet_zero=wet_zero)
+    elif cfg.use_base_tracing:
+        b = render_base_traced(base, cam, cfg, means2d_zero, wet_zero,
+                               band=band)
     else:
-        b = render_base(base, cam, cfg, means2d_zero, wet_zero)
+        b = render_base(base, cam, cfg, means2d_zero, wet_zero, band=band)
     H, W = cam.H, cam.W
     dev = b.rgb.device
     spec = b.specular if b.specular is not None else b.rgb.new_zeros((H, W, 1))
     rough = b.roughness if b.roughness is not None else b.rgb.new_zeros((H, W, 1))
-    ref_o, ref_d = reflect_rays(cam, b)
+    ref_o, ref_d = reflect_rays(cam, b, i0=i0)
     if cfg.detach_reflection:
         ref_o, ref_d = ref_o.detach(), ref_d.detach()
 
@@ -320,8 +373,11 @@ def forward_envgs(base: GaussianPool, env: GaussianPool, cam: Camera,
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     active = cfg.render_reflection and it >= cfg.reflection_start_iter
     if active:
-        e = render_env(env, ref_o, ref_d, cfg, env_means3d_zero,
-                       ray_mask=ref_msk, wet_zero=env_wet_zero)
+        env_pass = env_pass or functools.partial(
+            render_env, band_axis=band[2] if band is not None
+            and len(band) > 2 else None)
+        e = env_pass(env, ref_o, ref_d, cfg, env_means3d_zero,
+                     ray_mask=ref_msk, wet_zero=env_wet_zero)
         env_rgb, env_dpt, env_acc = e.rgb, e.dpt[..., None], e.acc[..., None]
         # the reference tracer has no slot budget: nothing dropped
         env_wet = e.wet

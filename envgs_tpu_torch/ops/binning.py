@@ -70,15 +70,22 @@ def tile_stable_sort(tid: torch.Tensor, gid: torch.Tensor, P: int):
 def bin_splats(
     prep: PreparedSplats, H: int, W: int, tile: int, pair_cap: int,
     align: int = 64, lowpass_r: float = 0.0, aligned: bool = False,
+    row_window: tuple | None = None,
 ) -> BinnedPairs:
     """Expand splats into (splat, tile) pairs sorted by (tile, depth); with
     `aligned`, each tile's range is padded to a multiple of `align`.
 
     Pairs beyond `pair_cap` (rounded up to the JAX layout's granularity)
     drop deterministically, farthest splats first; `num_pairs` reports the
-    count before the cap."""
+    count before the cap.
+
+    row_window = (ty0, n_tile_rows): bin only the tiles of one horizontal
+    band of tile rows, with band-local tile ids (the band row-crop: `prep`
+    comes from the full camera, so every float is the full image's; the
+    band is integer tile arithmetic alone)."""
     dev = prep.depth.device
-    tx_n, ty_n = tile_dims(H, W, tile)
+    tx_n, ty_full = tile_dims(H, W, tile)
+    ty0, ty_n = (0, ty_full) if row_window is None else row_window
     num_tiles = tx_n * ty_n
     P = prep.depth.shape[0]
     pair_cap = _round_up(pair_cap, _ALIGN_N)
@@ -97,8 +104,11 @@ def bin_splats(
 
     x0 = tcoord(cx - rx, tx_n - 1)
     x1 = tcoord(cx + rx, tx_n - 1)
-    y0 = tcoord(cy - ry, ty_n - 1)
-    y1 = tcoord(cy + ry, ty_n - 1)
+    y0 = tcoord(cy - ry, ty_full - 1)
+    y1 = tcoord(cy + ry, ty_full - 1)
+    if row_window is not None:  # the tile-row span clipped to the band
+        y0 = torch.clamp(y0, min=ty0) - ty0
+        y1 = torch.clamp(y1, max=ty0 + ty_n - 1) - ty0
     zero = torch.zeros_like(x0)
     nx = torch.where(valid, x1 - x0 + 1, zero)
     ny = torch.where(valid & (y1 >= y0), y1 - y0 + 1, zero)
@@ -131,7 +141,7 @@ def bin_splats(
     tid = torch.where(in_range, ty_s * tx_n + xt_s, sentinel)
     # row-cull: retarget pairs outside the per-row footprint interval
     ctr = torch.stack([cx, cy], dim=-1)[gid]
-    yb0 = (ty_s * tile).to(torch.float32)
+    yb0 = ((ty_s + ty0) * tile).to(torch.float32)  # global pixel rows
     yb1 = yb0 + (tile - 1)
     x_lo, x_hi = snug_row_interval(ctr, rowcull[gid], yb0, yb1, lowpass_r)
     xt_f = xt_s.to(torch.float32) * tile

@@ -1,11 +1,14 @@
-"""Image losses and quality metrics (port of envgs_tpu/ops/losses.py
-without its band-parallel SSIM): l1 / l2 / mse / charbonnier / huber /
-l1_reg, psnr, cos_sim, SSIM with the 11-tap Gaussian window, MS-SSIM, and
-the host LPIPS through torchvision's VGG16 when that is installed.
+"""Image losses and quality metrics (port of envgs_tpu/ops/losses.py):
+l1 / l2 / mse / charbonnier / huber / l1_reg, psnr, cos_sim, SSIM with the
+11-tap Gaussian window, a band's share of an image's SSIM (`ssim_masked`),
+MS-SSIM, and the host LPIPS through torchvision's VGG16 when that is
+installed.
 
 SSIM filters separably with shifted adds, as the JAX package does, and
 differentiates with plain autograd. (The JAX package's closed-form SSIM
 backward is a measure against its TPU compiler, not a different gradient.)
+`ssim_masked` keeps the JAX package's closed-form backward, as a
+torch.autograd.Function.
 """
 from __future__ import annotations
 
@@ -75,21 +78,93 @@ def _filter2d_sep(img: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
     return out2
 
 
+def _ssim_fields(x, y, win):
+    """The five window-filtered moment maps SSIM is built from."""
+    return (_filter2d_sep(x, win), _filter2d_sep(y, win),
+            _filter2d_sep(x * x, win), _filter2d_sep(y * y, win),
+            _filter2d_sep(x * y, win))
+
+
+def _ssim_map(fields, C1, C2):
+    mu_x, mu_y, exx, eyy, exy = fields
+    mu_x2, mu_y2, mu_xy = mu_x * mu_x, mu_y * mu_y, mu_x * mu_y
+    sx, sy, sxy = exx - mu_x2, eyy - mu_y2, exy - mu_xy
+    num = (2 * mu_xy + C1) * (2 * sxy + C2)
+    den = (mu_x2 + mu_y2 + C1) * (sx + sy + C2)
+    return num / den
+
+
 def ssim(x, y, win_size: int = 11, sigma: float = 1.5, max_val: float = 1.0):
     """SSIM of (H, W, C) images, the mean over the valid windows."""
     win = _gaussian_window(win_size, sigma, x.device)
     C1 = (0.01 * max_val) ** 2
     C2 = (0.03 * max_val) ** 2
-    mu_x = _filter2d_sep(x, win)
-    mu_y = _filter2d_sep(y, win)
-    exx = _filter2d_sep(x * x, win)
-    eyy = _filter2d_sep(y * y, win)
-    exy = _filter2d_sep(x * y, win)
-    mu_x2, mu_y2, mu_xy = mu_x * mu_x, mu_y * mu_y, mu_x * mu_y
-    sx, sy, sxy = exx - mu_x2, eyy - mu_y2, exy - mu_xy
-    num = (2 * mu_xy + C1) * (2 * sxy + C2)
-    den = (mu_x2 + mu_y2 + C1) * (sx + sy + C2)
-    return torch.mean(num / den)
+    return torch.mean(_ssim_map(_ssim_fields(x, y, win), C1, C2))
+
+
+class _SSIMMasked(torch.autograd.Function):
+    """ssim_masked with the JAX package's closed-form backward: with
+    A = 2 mu_x mu_y + C1, B = 2 s_xy + C2, D = mu_x^2 + mu_y^2 + C1,
+    E = s_x + s_y + C2 and S = A B / (D E), the partials of S through
+    each moment map, weighted by the row mask / n_global, pass through one
+    stacked full correlation with the (symmetric) window."""
+
+    @staticmethod
+    def forward(ctx, x, y, row_mask, n_global, win_size, sigma, max_val):
+        win = _gaussian_window(win_size, sigma, x.device)
+        C1, C2 = (0.01 * max_val) ** 2, (0.03 * max_val) ** 2
+        ctx.save_for_backward(x, y, row_mask)
+        ctx.consts = (n_global, win_size, sigma, max_val)
+        S = _ssim_map(_ssim_fields(x, y, win), C1, C2)
+        return torch.sum(S * row_mask) / n_global
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, row_mask = ctx.saved_tensors
+        n_global, win_size, sigma, max_val = ctx.consts
+        win = _gaussian_window(win_size, sigma, x.device)
+        C1, C2 = (0.01 * max_val) ** 2, (0.03 * max_val) ** 2
+        mu_x, mu_y, exx, eyy, exy = _ssim_fields(x, y, win)
+        mu_x2, mu_y2, mu_xy = mu_x * mu_x, mu_y * mu_y, mu_x * mu_y
+        sx, sy, sxy = exx - mu_x2, eyy - mu_y2, exy - mu_xy
+        A = 2 * mu_xy + C1
+        B = 2 * sxy + C2
+        D = mu_x2 + mu_y2 + C1
+        E = sx + sy + C2
+        inv_DE = 1.0 / (D * E)
+        S = A * B * inv_DE
+        w = g * row_mask / n_global
+        d_exx = -S / E * w
+        d_eyy = -S / E * w
+        d_exy = 2 * A * inv_DE * w
+        d_mu_x = (2 * mu_y * (B - A) * inv_DE
+                  + 2 * mu_x * S * (1 / E - 1 / D)) * w
+        d_mu_y = (2 * mu_x * (B - A) * inv_DE
+                  + 2 * mu_y * S * (1 / E - 1 / D)) * w
+        k = win_size - 1
+        t = torch.cat([d_mu_x, d_mu_y, d_exx, d_eyy, d_exy], dim=-1)
+        t = torch.nn.functional.pad(t, (0, 0, k, k, k, k))
+        t = _filter2d_sep(t, win.flip(0))
+        C = x.shape[-1]
+        t_mu_x, t_mu_y, t_exx, t_eyy, t_exy = (
+            t[..., i * C:(i + 1) * C] for i in range(5))
+        dx = t_mu_x + 2 * x * t_exx + y * t_exy
+        dy = t_mu_y + 2 * y * t_eyy + x * t_exy
+        return dx, dy, None, None, None, None, None
+
+
+def ssim_masked(x, y, row_mask, n_global, win_size: int = 11,
+                sigma: float = 1.5, max_val: float = 1.0):
+    """This band's share of an image's SSIM mean (the band-parallel SSIM).
+
+    x, y: the band's rows extended by the halo rows of the neighbouring
+    bands (win_size // 2 a side), so that every window of the full image
+    is computed by exactly one band; row_mask (rows of valid windows, 1, 1)
+    keeps the windows this band owns; n_global: the full image's count of
+    valid-window elements. The shares of all bands sum to ssim() of the
+    image."""
+    return _SSIMMasked.apply(x, y, row_mask, n_global, win_size, sigma,
+                             max_val)
 
 
 def msssim(x, y, win_size: int = 11, levels: int = 5):

@@ -102,6 +102,7 @@ def rasterize(
     needs: tuple = (False, False, False),
     wet_zero: torch.Tensor | None = None,
     backend: str = "pallas",
+    row_window: tuple | None = None,
 ) -> RasterOutput:
     """Rasterize prepared splats into the raw output maps.
 
@@ -112,7 +113,14 @@ def rasterize(
     zeros; without it RasterOutput.wet is the forward wet (detached).
     backend: "pallas" (the kernels on a CUDA tensor, the plain versions on
     a CPU tensor) or "ref" (the reference rasterizer: every output, the
-    forward wet, gradients by autograd; `needs` and `wet_zero` not read)."""
+    forward wet, gradients by autograd; `needs` and `wet_zero` not read).
+
+    row_window = (row0, band_h): rasterize only the rows [row0, row0 +
+    band_h) of cam's full pixel grid (whole tile rows; H a multiple of the
+    tile). prep and the blend's floats are the full camera's, the band is
+    integer tile arithmetic and the blend's row offset, so the band's
+    output equals the same rows of a full render to the bit (the
+    band-parallel row-crop)."""
     check_backend("raster", backend)
     if backend == "ref":
         return rasterize_reference(_shift_tmat(prep, means2d_zero), cam,
@@ -127,8 +135,16 @@ def rasterize(
     C = prep.color.shape[-1]
     H, W = cam.H, cam.W
     P = prep.depth.shape[0]
+    H_out, row_off, bin_window = H, 0, None
+    if row_window is not None:
+        row0, H_out = map(int, row_window)
+        if H % TILE or H_out % TILE or row0 % TILE:
+            raise ValueError(f"row_window {row_window} of H={H}: whole "
+                             f"{TILE}-pixel tile rows only")
+        row_off, bin_window = row0, (row0 // TILE, H_out // TILE)
     bins = bin_splats(prep, H, W, TILE, pair_cap, align=CHUNK,
-                      lowpass_r=ROWCULL_LOWPASS_R, aligned=train)
+                      lowpass_r=ROWCULL_LOWPASS_R, aligned=train,
+                      row_window=bin_window)
     packed = _pack_table(prep, bins.order)
     wet = torch.zeros(P, dtype=torch.float32, device=packed.device)
     if train:
@@ -136,15 +152,16 @@ def rasterize(
               else torch.nn.functional.pad(wet_zero[bins.order], (0, 1)))
         img, wet_pairs = blend_tiles_train(
             packed, wz, bins.gauss_idx, bins.tile_bounds, C, bins.tiles_x,
-            bins.tiles_y, fwd_wet=wet_zero is None)
+            bins.tiles_y, fwd_wet=wet_zero is None, row_off=row_off)
         if wet_zero is None:
             wet = splat_wet(wet_pairs, bins.gauss_idx, bins.order)
         r = rows(C)
     else:
         img = blend_tiles(packed, bins.gauss_idx, bins.tile_bounds, C,
-                          bins.tiles_x, bins.tiles_y, train=med_only)
+                          bins.tiles_x, bins.tiles_y, row_off,
+                          train=med_only)
         r = rows(C) if med_only else out_rows(C)
-    img = img[:, :H, :W]
+    img = img[:, :H_out, :W]
     trans = img[r["trans"]]
     bg = torch.zeros(C, dtype=torch.float32, device=img.device)
     bg[: bg_color.shape[0]] = bg_color
@@ -186,12 +203,18 @@ class RenderOutput(NamedTuple):
     num_pairs: torch.Tensor | None = None  # () pre-clamp pair count
 
 
-def depth_to_normal(cam: Camera, depth: torch.Tensor) -> torch.Tensor:
+def depth_to_normal(cam: Camera, depth: torch.Tensor,
+                    i0=None) -> torch.Tensor:
     """Pseudo surface normal from a z-depth map: cross product of central
-    differences of the backprojected point map, zero on the 1px border."""
+    differences of the backprojected point map, zero on the 1px border.
+
+    i0: the global row of depth row 0 (a band's halo recompute: cam holds
+    the full image's K, so every pixel ray is the full image's)."""
     H, W = cam.H, cam.W
     dev = depth.device
     i = torch.arange(H, dtype=torch.float32, device=dev)
+    if i0 is not None:
+        i = i + i0
     j = torch.arange(W, dtype=torch.float32, device=dev)
     ii, jj = torch.meshgrid(i, j, indexing="ij")
     pix = torch.stack([jj, ii, torch.ones_like(ii)], -1)
@@ -212,8 +235,14 @@ def render_decode(
     cam: Camera,
     specular_channels: int = 0,
     depth_ratio: float = 0.0,
+    i0=None,
 ) -> RenderOutput:
-    """Decode raw maps into the reference's post-processed products."""
+    """Decode raw maps into the reference's post-processed products.
+
+    i0: the global pixel row of row 0 (a band of the row-crop: cam holds
+    the full image's K with H the band's height). The band's boundary rows
+    of the surface normal still read the local zero border; the band step
+    replaces them from a halo."""
     rgb = out.rgb[..., :3]
     spec = rough = None
     if specular_channels:
@@ -226,7 +255,8 @@ def render_decode(
     depth_e = torch.nan_to_num(out.depth_expected / safe_alpha)[..., None]
     depth_m = torch.nan_to_num(out.depth_median)[..., None]
     surf_depth = depth_e * (1.0 - depth_ratio) + depth_m * depth_ratio
-    surf_normal = depth_to_normal(cam, surf_depth[..., 0]) * alpha.detach()
+    surf_normal = (depth_to_normal(cam, surf_depth[..., 0], i0=i0)
+                   * alpha.detach())
     return RenderOutput(
         rgb=rgb,
         specular=spec,

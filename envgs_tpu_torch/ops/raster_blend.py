@@ -439,13 +439,14 @@ class _BlendTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, packed, wet_zero, gauss_idx, tile_bounds, C, tiles_x,
-                tiles_y, mode, fwd_wet):
+                tiles_y, row_off, mode, fwd_wet):
         out = blend_tiles(packed, gauss_idx, tile_bounds, C, tiles_x,
-                          tiles_y, train=True, mode=mode, wet=fwd_wet)
+                          tiles_y, row_off, train=True, mode=mode,
+                          wet=fwd_wet)
         out, wet = out if fwd_wet else (out, packed.new_zeros(0))
         ctx.mark_non_differentiable(wet)
         ctx.save_for_backward(packed, gauss_idx, tile_bounds, out)
-        ctx.dims = (C, tiles_x, tiles_y, 0, mode)
+        ctx.dims = (C, tiles_x, tiles_y, row_off, mode)
         return out, wet
 
     @staticmethod
@@ -454,17 +455,20 @@ class _BlendTrain(torch.autograd.Function):
         g = blend_tiles_bwd(packed, gauss_idx, tile_bounds, out,
                             g_out.contiguous(), *ctx.dims)
         g_wz = g[:, WET_COL] if ctx.needs_input_grad[1] else None
-        return g, g_wz, None, None, None, None, None, None, None
+        return g, g_wz, None, None, None, None, None, None, None, None
 
 
 def blend_tiles_train(packed: torch.Tensor, wet_zero: torch.Tensor | None,
                       gauss_idx: torch.Tensor, tile_bounds: torch.Tensor,
                       C: int, tiles_x: int, tiles_y: int, mode: str = "surfel",
-                      fwd_wet: bool = False):
+                      fwd_wet: bool = False, row_off: int = 0):
     """Training-mode tile blend (aligned layout) -> ((C + 11, H', W')
     planes in `rows(C)` order, differentiable in `packed` and (through the
     wet lane) in the `wet_zero` hook; the forward per-pair wet
-    (gauss_idx.numel(),) with `fwd_wet`, else None)."""
+    (gauss_idx.numel(),) with `fwd_wet`, else None). row_off: the pixel
+    row of the first tile row (a band of a larger image), for both the
+    forward and its backward."""
     out, wet = _BlendTrain.apply(packed, wet_zero, gauss_idx, tile_bounds, C,
-                                 tiles_x, tiles_y, mode, fwd_wet)
+                                 tiles_x, tiles_y, int(row_off), mode,
+                                 fwd_wet)
     return out, (wet if fwd_wet else None)

@@ -109,6 +109,7 @@ class FamilyLoop:
     """
 
     def __init__(self, cfg: Config, default_exp: str):
+        from envgs_tpu_torch.parallel.multihost import is_main_process
         from envgs_tpu_torch.train.recorder import Recorder
 
         rcfg, self.total = _runner_cfg(cfg)
@@ -121,9 +122,9 @@ class FamilyLoop:
         self.model_dir = os.path.join(root, "trained_model", exp)
         self.result_dir = os.path.join(root, "result", exp)
         os.makedirs(self.model_dir, exist_ok=True)
-        self.recorder = Recorder(
+        self.recorder = Recorder(  # rank 0's, as the checkpoints are
             os.path.join(root, "record", exp),
-            enabled=bool(rcfg.get("record", True)),
+            enabled=bool(rcfg.get("record", True)) and is_main_process(),
             resolved_config=cfg.to_dict() if hasattr(cfg, "to_dict")
             else dict(cfg))
         self._t0 = time.time()
@@ -134,7 +135,12 @@ class FamilyLoop:
         return os.path.join(self.model_dir, "latest.npz")
 
     def save(self, it: int, params, opt_state):
-        """latest.npz: the iteration and both trees' leaves."""
+        """latest.npz: the iteration and both trees' leaves (rank 0
+        alone)."""
+        from envgs_tpu_torch.parallel.multihost import is_main_process
+
+        if not is_main_process():
+            return
         np.savez_compressed(
             self.latest, iter=it,
             **{f"p{i}": _np(x) for i, x in enumerate(tree_flatten(params))},

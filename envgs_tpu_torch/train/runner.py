@@ -16,7 +16,10 @@ prior) and the perceptual loss when VGG16 weights exist (ops/lpips.py);
 `extract_mesh` fuses rendered depths into a TSDF and writes its
 isosurface (utils/fusion.py).
 
-Not ported, so not accepted as arguments: the multi-host hooks.
+Under several processes (torchrun, parallel/multihost.py) the services
+are rank 0's: the recorder and the checkpoints; `test` renders each
+rank's stride of the eval views, writes the other ranks' files under
+`rank{i}/` and merges the means over the ranks.
 """
 from __future__ import annotations
 
@@ -55,6 +58,13 @@ from envgs_tpu_torch.ops.tracer import (
     splat_radius3,
 )
 from envgs_tpu_torch.ops.tracer_ref import prepare_trace_scene
+from envgs_tpu_torch.parallel.multihost import (
+    allsum_hosts,
+    is_main_process,
+    process_count,
+    process_index,
+    shard_for_host,
+)
 from envgs_tpu_torch.train import checkpoints as ckpt
 from envgs_tpu_torch.train.evaluator import Evaluator, Visualizer
 from envgs_tpu_torch.train.moderators import (
@@ -233,9 +243,11 @@ class Runner:
         self.timer_record_to_file = timer_record_to_file
         self.profiler = ProfilerSession(profiler_trace_dir, profiler_start,
                                         profiler_steps)
+        # rank 0's, like every other output service
         self.recorder = Recorder(
             record_dir or os.path.join(out_root, "record", exp_name),
-            enabled=record, resolved_config=resolved_config)
+            enabled=record and is_main_process(),
+            resolved_config=resolved_config)
 
     def _step_fn(self, cam: Camera):
         key = (cam.H, cam.W)
@@ -429,6 +441,9 @@ class Runner:
         return self.state
 
     def save(self, it: int, latest_only: bool = False):
+        # the replicated state is the same on every rank: rank 0 saves it
+        if not is_main_process():
+            return
         os.makedirs(self.model_dir, exist_ok=True)
         cam_state = self.cam_state if self.cam_opt_cfg.enabled else None
         latest = os.path.join(self.model_dir, "latest.npz")
@@ -556,15 +571,27 @@ class Runner:
         The summary also carries `tracer_order` and `stage_ms`, the
         per-stage times of one radial-order render of the first view
         (`render_stage_ms`; None where the config leaves the kernels'
-        default path: a ref backend, base tracing, multi-bounce)."""
+        default path: a ref backend, base tracing, multi-bounce).
+
+        Under several processes each rank renders its stride of the views
+        (rank i the views i, i + world, ...), ranks other than 0 write
+        under `rank{i}/`, the means of psnr / ssim / lpips / time are
+        merged over the ranks (weighted by their views' counts; the
+        summary's `n_views_total`), and rank 0 alone rewrites its
+        metrics.json with them, records and prints."""
         result_dir = (os.path.join(self.result_dir, tag) if tag
                       else self.result_dir)
+        world = process_count()
+        if world > 1 and not is_main_process():
+            result_dir = os.path.join(result_dir, f"rank{process_index()}")
         ev = Evaluator(result_dir)
         vis = Visualizer(result_dir, types=types) if save_images else None
         views = self.eval_views or self.views
+        first_cam = views[0]["camera"]
+        views = shard_for_host(list(enumerate(views)))
         rgb = None
         try:
-            for i, view in enumerate(views):
+            for i, view in views:
                 cam = view["camera"]
                 _sync(self.device)
                 t0 = time.time()
@@ -586,13 +613,36 @@ class Runner:
             "pallas", "tiled") and not (mc.use_base_tracing
                                         or mc.max_trace_depth > 0)
         stage_ms = (render_stage_ms(self.state.base, self.state.env,
-                                    views[0]["camera"], mc)
+                                    first_cam, mc)
                     if default_path else None)
         exact = (exact_order and mc.tracer_backend == "tiled"
                  or mc.tracer_backend == "ref")
         summary = ev.summarize(extra={
             "tracer_order": "exact" if exact else "radial",
             "stage_ms": stage_ms})
+        if world > 1:
+            # a fixed key list and per-key counts of finite values: every
+            # rank sums a vector of one shape, an empty shard or NaN
+            # metrics (lpips without weights) included
+            keys = ("psnr_mean", "ssim_mean", "lpips_mean", "time_mean")
+            n = len(views)
+            vals, cnts = [], []
+            for k in keys:
+                v = summary["summary"].get(k, float("nan"))
+                ok = n > 0 and np.isfinite(v)
+                vals.append(float(v) * n if ok else 0.0)
+                cnts.append(float(n) if ok else 0.0)
+            tot = allsum_hosts(np.asarray([float(n)] + vals + cnts))
+            m = len(keys)
+            for j, k in enumerate(keys):
+                if tot[1 + m + j] > 0:
+                    summary["summary"][k] = float(tot[1 + j]
+                                                  / tot[1 + m + j])
+            summary["summary"]["n_views_total"] = int(tot[0])
+            if not is_main_process():
+                return summary
+            with open(os.path.join(result_dir, "metrics.json"), "w") as f:
+                json.dump(summary, f, indent=2)
         # VAL scalars and the last evaluated render
         self.recorder.record(
             "VAL", {k: v for k, v in summary["summary"].items()

@@ -6,8 +6,10 @@ SSIM, normal consistency (rendered against depth-derived), the monocular
 normal prior, distortion, env-opacity sparsity, the mask loss and the
 perceptual loss (LPIPS, ops/lpips.py, when VGG16 weights exist), each
 behind its weight and its start iteration, then the chained aux
-supervisors (train/aux_supervisors.py) of an AuxLossConfig. The JAX
-package's band-parallel SSIM is not ported.
+supervisors (train/aux_supervisors.py) of an AuxLossConfig. With `band`
+the inputs are one horizontal band of the image on one rank of the bands'
+axis, and the windowed and image-global terms are made band-exact, as the
+JAX package makes them.
 """
 from __future__ import annotations
 
@@ -16,7 +18,14 @@ from typing import NamedTuple
 import torch
 
 from envgs_tpu_torch.models.envgs import EnvGSOutput
-from envgs_tpu_torch.ops.losses import cos_sim, l1, psnr, ssim
+from envgs_tpu_torch.ops.losses import cos_sim, l1, psnr, ssim, ssim_masked
+from envgs_tpu_torch.parallel.collectives import (
+    axis_index,
+    pmax,
+    pmin,
+    ppermute,
+    psum,
+)
 from envgs_tpu_torch.train.aux_supervisors import compute_aux_losses
 from envgs_tpu_torch.utils.transforms import normalize
 
@@ -52,11 +61,19 @@ class LossConfig(NamedTuple):
     perc_loss_start_iter: int = 21000
 
 
-def _quantile_bisect(d: torch.Tensor, ps, iters: int = 30) -> torch.Tensor:
+def _quantile_bisect(d: torch.Tensor, ps, axis_name=None,
+                     iters: int = 30) -> torch.Tensor:
     """Quantiles of d at the levels ps by 30 halvings of [min, max] on the
-    empirical CDF (the JAX package's iterates)."""
+    empirical CDF (the JAX package's iterates). With `axis_name` (a
+    parallel.collectives.Axis) d is one band of an image and the bounds
+    and counts are the image's (pmin / pmax / psum over the axis): every
+    band runs the single image's iterates."""
+    d = d.detach()
     lo, hi = torch.min(d), torch.max(d)
-    n = float(d.numel())
+    n = torch.tensor(float(d.numel()), dtype=torch.float32, device=d.device)
+    if axis_name is not None:
+        lo, hi = pmin(lo, axis_name), pmax(hi, axis_name)
+        n = psum(n, axis_name)
     ps = torch.as_tensor(ps, dtype=torch.float32, device=d.device)
     los = lo.expand(ps.shape).clone()
     his = hi.expand(ps.shape).clone()
@@ -64,14 +81,18 @@ def _quantile_bisect(d: torch.Tensor, ps, iters: int = 30) -> torch.Tensor:
     for _ in range(iters):
         mid = 0.5 * (los + his)
         cnt = torch.sum(flat <= mid, dim=0).to(torch.float32)
+        if axis_name is not None:
+            cnt = psum(cnt, axis_name)
         go_hi = cnt / n < ps
         los, his = torch.where(go_hi, mid, los), torch.where(go_hi, his, mid)
     return 0.5 * (los + his)
 
 
-def normalize_depth_map(d: torch.Tensor, p: float = 0.01) -> torch.Tensor:
-    """Inverse-normalized depth in [0, 1] between the p and 1-p quantiles."""
-    q = _quantile_bisect(d, [p, 1.0 - p])
+def normalize_depth_map(d: torch.Tensor, p: float = 0.01,
+                        axis_name=None) -> torch.Tensor:
+    """Inverse-normalized depth in [0, 1] between the p and 1-p quantiles
+    (of the whole image with `axis_name`: d is then one band of it)."""
+    q = _quantile_bisect(d, [p, 1.0 - p], axis_name)
     near, far = q[0], q[1]
     span = torch.where(far - near == 0, torch.ones_like(far), far - near)
     return torch.clamp(1.0 - (d - near) / span, 0.0, 1.0)
@@ -89,8 +110,18 @@ def compute_losses(
     lpips_fn=None,
     aux_cfg=None,  # AuxLossConfig | None: the chained aux supervisors
     gt_dpt: torch.Tensor | None = None,  # (H, W, 1) metric depth prior
+    band: tuple | None = None,  # (axis, n_bands, H_global): band-exact
 ):
     """-> (total loss, stats dict of 0-d tensors).
+
+    With `band`, the inputs are one band of rows on one rank of the axis
+    (a parallel.collectives.Axis) and the windowed and global terms are
+    band-exact: SSIM exchanges win // 2-row halos with the neighbouring
+    bands (each window of the image computed by exactly one band, the
+    share scaled so that the caller's pmean equals the image's value) and
+    the depth normalization's quantiles are the image's. The pmean of
+    every term over the axis is then the single image's, the `psnr` stat
+    excepted: it stays a band's.
 
     `lpips_fn(rgb, gt)` is the perceptual loss (None: off), which enters
     the loss only past perc_loss_start_iter (strictly, as in the JAX
@@ -120,7 +151,24 @@ def compute_losses(
         loss = loss + cfg.img_loss_weight * img_loss
 
     if cfg.ssim_loss_weight > 0:
-        ssim_loss = 1.0 - ssim(rgb, gt)
+        if band is None:
+            ssim_loss = 1.0 - ssim(rgb, gt)
+        else:
+            axis, n_bands, H_g = band
+            k = 11 // 2
+            h = rgb.shape[0]
+            z = torch.cat([rgb, gt], dim=-1)
+            fwd = [(i, i + 1) for i in range(n_bands - 1)]
+            bwd = [(i + 1, i) for i in range(n_bands - 1)]
+            z_ext = torch.cat([ppermute(z[-k:], axis, fwd), z,
+                               ppermute(z[:k], axis, bwd)], dim=0)
+            grow = axis_index(axis) * h + torch.arange(h, device=z.device)
+            mask = ((grow >= k) & (grow <= H_g - 1 - k)).to(rgb.dtype)
+            n_g = (H_g - 2 * k) * (rgb.shape[1] - 2 * k) * rgb.shape[2]
+            share = ssim_masked(z_ext[..., :3], z_ext[..., 3:],
+                                mask[:, None, None], n_g)
+            # the caller pmeans the losses over the axis: pmean == psum
+            ssim_loss = 1.0 - share * n_bands
         stats["ssim_loss"] = ssim_loss
         loss = loss + cfg.ssim_loss_weight * ssim_loss
 
@@ -129,7 +177,9 @@ def compute_losses(
         if cfg.use_acc_scale_gs_norm_loss:
             gl = gl * out.acc_map[..., 0].detach()
         if cfg.use_dpt_scale_gs_norm_loss:
-            gl = gl * normalize_depth_map(out.dpt_map[..., 0].detach())
+            gl = gl * normalize_depth_map(
+                out.dpt_map[..., 0].detach(),
+                axis_name=None if band is None else band[0])
         gl = torch.mean(gl)
         stats["gs_norm_loss"] = gl
         if itf >= cfg.gs_norm_loss_start_iter:
@@ -142,7 +192,9 @@ def compute_losses(
         if cfg.use_acc_scale_norm_loss:
             nl = nl * out.acc_map[..., 0].detach()
         if cfg.use_dpt_scale_norm_loss:
-            nl = nl * normalize_depth_map(out.dpt_map[..., 0].detach())
+            nl = nl * normalize_depth_map(
+                out.dpt_map[..., 0].detach(),
+                axis_name=None if band is None else band[0])
         nl = torch.mean(nl)
         stats["norm_loss"] = nl
         if itf >= cfg.norm_loss_start_iter:

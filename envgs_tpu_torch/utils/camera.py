@@ -51,6 +51,13 @@ class Camera(NamedTuple):
         )
         return pix_from_view @ self.view
 
+    def crop_rows(self, row0: int, band_h: int) -> "Camera":
+        """Camera viewing rows [row0, row0 + band_h) of this camera's image
+        (the principal point shifted up by row0)."""
+        K = self.K.clone()
+        K[1, 2] = K[1, 2] - float(row0)
+        return self._replace(H=band_h, K=K)
+
 
 def make_camera(H, W, K, R, T, znear=0.01, zfar=100.0,
                 device: torch.device | str | None = None) -> Camera:
@@ -61,13 +68,20 @@ def make_camera(H, W, K, R, T, znear=0.01, zfar=100.0,
                   float(znear), float(zfar))
 
 
-def get_rays(cam: Camera, z_depth: bool = True, correct_pix: bool = True):
+def get_rays(cam: Camera, z_depth: bool = True, correct_pix: bool = True,
+             i0=None):
     """Camera rays for every pixel: (ray_o (3,), ray_d (H, W, 3)).
 
     With z_depth=True, ray_d is scaled so that `o + t * d` has view depth t
-    (not normalized) — the contract the surfel tracer expects."""
+    (not normalized) — the contract the surfel tracer expects.
+
+    i0: the global pixel row of row 0 (the band row-crop: cam holds the
+    full image's K with H the band's height; adding the offset here keeps
+    every ray bit-identical to the full image's get_rays)."""
     dev = cam.K.device
     i = torch.arange(cam.H, dtype=torch.float32, device=dev)
+    if i0 is not None:
+        i = i + i0
     j = torch.arange(cam.W, dtype=torch.float32, device=dev)
     if correct_pix:
         i = i + 0.5

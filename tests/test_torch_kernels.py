@@ -961,3 +961,72 @@ def test_kernel_free_family_step_on_the_card(cuda, family):
     for p, w in zip(got["params"], want["params"]):
         assert np.isfinite(p).all()
         assert np.abs(p - w).max() <= 2.5 * got["lr"]
+
+
+def test_raster_kernels_at_a_row_offset_match_plain(cuda):
+    """K1 in training mode and K2 on a band's aligned layout (rows 48-79 of
+    the 80-row image: row_window (3, 2), row offset 48) against their plain
+    versions at the same offset; K1's planes equal the full image's rows,
+    and both launches count as row-offset launches."""
+    from envgs_tpu_torch.models.envgs import _pool_colors
+    from envgs_tpu_torch.ops.binning import bin_splats
+    from envgs_tpu_torch.ops.common import ROWCULL_LOWPASS_R, prepare_splats
+    from envgs_tpu_torch.ops.raster import _pack_table
+
+    base, _, cam, cfg = _scene(cuda)
+    colors = torch.cat([_pool_colors(base, cam.center), base.get_specular,
+                        base.get_roughness], dim=-1)
+    prep = prepare_splats(base.params.xyz, base.params.rotation,
+                          base.get_scaling, base.get_opacity[:, 0], colors,
+                          cam, active=base.stats.active)
+
+    def layout(window):
+        bins = bin_splats(prep, cam.H, cam.W, 16, cfg.pair_cap, align=64,
+                          lowpass_r=ROWCULL_LOWPASS_R, aligned=True,
+                          row_window=window)
+        return (_pack_table(prep, bins.order), bins.gauss_idx,
+                bins.tile_bounds, colors.shape[-1], bins.tiles_x,
+                bins.tiles_y)
+
+    args = layout((3, 2))
+    n = dict(kernels.ROW_OFF_LAUNCHES)
+    out = blend_tiles(*args, 48, train=True)
+    want = blend_tiles_torch(*args, 48, train=True)
+    assert float((out - want).abs().max()) <= ATOL
+    full = blend_tiles(*layout(None), 0, train=True)
+    assert torch.equal(out, full[:, 48:80, :out.shape[2]])
+    g_out = _cotangent(out, 3)
+    got = blend_tiles_bwd(*args[:3], out, g_out, *args[3:], 48)
+    torch.cuda.synchronize()
+    ref = blend_tiles_bwd_torch(*args[:3], out, g_out, *args[3:], 48)
+    cols = list(range(15 + args[3])) + [31]
+    _close_columns(got[:, cols], ref[:, cols])
+    assert kernels.ROW_OFF_LAUNCHES["raster_blend_fwd"] == (
+        n["raster_blend_fwd"] + 1)
+    assert kernels.ROW_OFF_LAUNCHES["raster_blend_bwd"] == (
+        n["raster_blend_bwd"] + 1)
+
+
+def test_band_render_equals_the_full_rows_on_the_card(cuda):
+    """forward_envgs(band=(16, 80)) in training mode on the card: the base
+    pass's maps equal rows 16-47 of the full render to the bit; K1, K3 and
+    K5 once."""
+    from envgs_tpu_torch.models.envgs import forward_envgs
+
+    base, env, cam, cfg = _scene(cuda)
+    cfg = cfg._replace(render_mode=False)
+    hooks = (torch.zeros((base.cap, 2), device=cuda),
+             torch.zeros((env.cap, 3), device=cuda),
+             torch.zeros(base.cap, device=cuda),
+             torch.zeros(env.cap, device=cuda))
+    with torch.no_grad():
+        full = forward_envgs(base, env, cam, 10, cfg, *hooks)
+        before = dict(kernels.LAUNCHES)
+        band = forward_envgs(base, env, cam._replace(H=32), 10, cfg, *hooks,
+                             band=(16, cam.H))
+        torch.cuda.synchronize()
+    assert _rose(before) == {"raster_blend_fwd": 1, "trace_blend_fwd": 1,
+                             "fill_forward": 1}
+    for k in ("acc_map", "dpt_map", "norm_map", "spec_map", "dist_map",
+              "dif_rgb_map"):
+        assert torch.equal(getattr(band, k), getattr(full, k)[16:48]), k
