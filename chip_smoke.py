@@ -7,29 +7,40 @@ Phases, one or more lines each:
      power limit as nvidia-smi reports them, torch and CUDA versions;
   2. build: compiles the CUDA kernels from the sources in this checkout;
      registers, shared bytes, spill bytes and resident blocks per SM of K1
-     (render, training, gauss3d with the wet), K2 (both modes), K3 (render,
+     (each compiled configuration: the surfel mode's 12 switch sets, gauss3d
+     with the wet), K2 (both modes), K3 (render,
      training, geometry with A = 2, the forward wet with A = 0 and 2), K4,
      K5 and K6 as compiled;
-  3. kernels: K1 (raster blend) and K3 (trace blend) against their plain
-     PyTorch versions on the bench scene's own inputs, max abs error per
-     output against a stated bound, median ms of each over repeated runs;
-     K1's training variant on the render layout, which a render with the
-     median depth (depth_ratio > 0) launches in the render kernel's place,
-     with its plain version's time and its bound;
+  3. kernels: K1 (raster blend) in each configuration of the render
+     layout (`needs` all off, the median depth alone, the distortion alone,
+     both) and K3 (trace blend) against their plain PyTorch versions on the
+     bench scene's own inputs, max abs error per output against a stated
+     bound (0 for the configurations held there since PR 7), each K1
+     configuration's written planes equal to the all-on one's to the bit
+     and its stripped planes as JAX leaves them, median ms of each over
+     repeated runs, plain ms, bound; (3b) rasterize through every `needs`
+     triple with and without the wet hook, under no_grad and (aligned)
+     under autograd, on the bench scene's base pass: K1 once a call in the
+     configuration JAX's switches pick, K2 once a backward;
      what K1's inputs ask (the blend probe's counts: windows walked,
      (pair, warp) combinations a pixel can take, within the footprint,
      evaluated, contributing);
   4. small render: the whole render path on a small scene, CUDA (kernels)
      against CPU (the plain versions the parity tests hold to the JAX
-     package), also with depth_ratio = 1 (the median depth);
+     package), also with depth_ratio = 1 (the median depth: K1's
+     median-only configuration, never the training one);
   5. the render slice: the bench scene (1584x1040, 300K base + 32K env
      surfels) rendered through forward_envgs for 3 camera poses — no
      truncation, finite non-degenerate rgb, each kernel launched exactly
-     once per render — then render fps and per-stage device ms;
-  6. training kernels: K5, K1 and K3 in training mode, K2 and K4 against
-     their plain versions on the train bench scene's own inputs (random
-     cotangents for the backward kernels), errors against stated bounds
-     (K2 and K4 also within each decade of row size), median ms of each
+     once per render — then one render with depth_ratio = 1 (K1's
+     median-only configuration and K3 once each), render fps and per-stage
+     device ms;
+  6. training kernels: K5, K1 in each configuration of the aligned layout
+     (as phase 3), K3 in training mode, K2 (also after a forward without
+     the median) and K4 against their plain versions on the train bench
+     scene's own inputs (random cotangents for the backward kernels),
+     errors against stated bounds (K2 and K4 also within each decade of row
+     size), median ms of each
      (K5 also queued behind a sleep of the card: its time without the
      host's); K1's counts; the spread of 64-slot chunks K4 walks per tile;
   7. small train step: one make_train_step on a small scene from one
@@ -275,18 +286,24 @@ GRAD_FLOOR = 2.0 ** -23 / (SMALL_RUN["Ht"] * SMALL_RUN["Wt"])
 # max|ref|; masks and slots exactly. Children are offsets R @ (eps * s):
 # a 3x3 product and an exp, rounded alike up to last bits
 DENSIFY_RTOL = 1e-6
-RENDER_KERNELS = ("raster_blend_fwd", "trace_blend_fwd")
-TRAIN_KERNELS = ("raster_blend_fwd", "raster_blend_bwd", "trace_blend_fwd",
+# K1's LAUNCHES keys of the paths' configurations (kernels.
+# raster_blend_fwd_key): a render (unaligned, `needs` all off), a render
+# with the median depth (depth_ratio > 0), a train step (aligned,
+# distortion and median, the wet through the hook)
+K1_RENDER, K1_MED = "raster_blend_fwd", "raster_blend_fwd_med"
+K1_TRAIN = "raster_blend_fwd_aligned_dist_med"
+TRAIN_NEEDS = (True, True, False)
+RENDER_KERNELS = (K1_RENDER, "trace_blend_fwd")
+TRAIN_KERNELS = (K1_TRAIN, "raster_blend_bwd", "trace_blend_fwd",
                  "trace_blend_bwd", "fill_forward")
 GAUSSIANT_RENDER_KERNELS = ("fill_forward", "raster_blend_fwd_gauss3d")
 GAUSSIANT_TRAIN_KERNELS = GAUSSIANT_RENDER_KERNELS + (
     "raster_blend_bwd_gauss3d",)
-# K1's compiled configurations (train, mode, wet): the render kernel, the
-# training kernel (also what a render with the median depth launches), and
-# the 3DGS kernel with the per-pair wet
-K1_CONFIGS = {"render": (False, "surfel", False),
-              "train": (True, "surfel", False),
-              "gauss3d": (True, "gauss3d", True)}
+# K1's configurations held at max abs 0 against their plain versions (the
+# others at KERNEL_ATOL): the render, the train step with and without the
+# forward wet, 3DGS
+K1_EXACT = (K1_RENDER, K1_TRAIN, "raster_blend_fwd_aligned_dist_med_wet",
+            "raster_blend_fwd_gauss3d")
 # the card's published peaks (H100 SXM, dense, at the 700 W limit): device
 # memory rate and float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -455,6 +472,178 @@ def chunk_spread(name, bounds, last_plane, tiles_x, tiles_y):
           f"{q[1]:g}, max {q[2]:g}, {int((walked_chunks == 0).sum())} empty "
           f"tiles, {total} in all ({total / sms:.0f} per SM; the largest "
           f"tile is {q[2] * sms / max(total, 1):.1%} of that)", flush=True)
+
+
+def k1_compiled(kernels) -> dict:
+    """{LAUNCHES key: (needs, aligned, mode)} of K1's compiled
+    configurations: the surfel mode's legal switch sets, gauss3d all on."""
+    out = {kernels.raster_blend_fwd_key(c[:3], c[3]): (c[:3], c[3], "surfel")
+           for c in kernels.K1_CONFIGS}
+    out["raster_blend_fwd_gauss3d"] = ((True, True, True), True, "gauss3d")
+    return out
+
+
+def k1_configurations(kernels, k1, aligned, label):
+    """K1 in each compiled surfel configuration of one layout on a bench
+    scene's inputs (phase 3: the render scene's unaligned layout; phase 6:
+    the train scene's aligned one): against its plain version (K1_EXACT at
+    max abs 0, the others at KERNEL_ATOL), every plane it writes and its
+    wet equal to the layout's all-on configuration's to the bit, the planes
+    it strips zero (`last` -1); median ms of 20 runs, the plain version's of
+    3, the bound (the all-on run's walked pairs). -> {key: dict(needs, err,
+    ms, plain_ms, bound)}, the all-on planes."""
+    from envgs_tpu_torch.ops.raster_blend import blend_tiles_torch, rows
+
+    packed, _, bounds, C, tiles_x, tiles_y = k1
+    r = rows(C)
+    full = kernels.raster_blend_fwd(*k1, 0, (True, True, aligned),
+                                    aligned=aligned)
+    full, full_wet = full if aligned else (full, None)
+    evals = walked(full[r["last"]])
+    npix = tiles_x * tiles_y * 256
+    render_groups = {"color": slice(0, C), "depth": C, "alpha": C + 1,
+                     "normal": slice(C + 2, C + 5), "T": C + 5}
+    res = {}
+    for *needs, a in kernels.K1_CONFIGS:
+        if a != aligned:
+            continue
+        key = kernels.raster_blend_fwd_key(needs, aligned)
+        run = lambda: kernels.raster_blend_fwd(  # noqa: E731
+            *k1, 0, needs, aligned=aligned)
+        plain = lambda: blend_tiles_torch(  # noqa: E731
+            *k1, 0, needs, aligned=aligned)
+        got, want = run(), plain()
+        bound = 0.0 if key in K1_EXACT else KERNEL_ATOL
+        planes = needs[0] or needs[1]
+        if needs[2]:
+            (got, wet), (want, want_wet) = got, want
+        err = compare(f"{key} ({label})", got, want,
+                      train_planes(C) if planes else render_groups, bound)
+        if needs[2]:
+            err = max(err, compare(f"{key} ({label}) per-pair", wet,
+                                   want_wet, {"wet": slice(None)}, bound))
+            if not torch.equal(wet, full_wet):
+                raise AssertionError(f"{key}: its wet differs from the "
+                                     "all-on configuration's")
+        if planes:
+            kept = [k for k in range(C + 11)
+                    if (needs[0] or k not in (r["dist"], r["d1"], r["d2"],
+                                              r["last"]))
+                    and (needs[1] or k != r["med"])]
+            same = torch.equal(got[kept], full[kept])
+            stripped = ((needs[0] or (not got[[r["dist"], r["d1"],
+                                                r["d2"]]].any()
+                                      and bool((got[r["last"]] == -1).all())))
+                        and (needs[1] or not got[r["med"]].any()))
+        else:
+            same = (torch.equal(got[:C + 5], full[:C + 5])
+                    and torch.equal(got[C + 5], full[r["trans"]]))
+            stripped = True
+        if not (same and stripped):
+            raise AssertionError(f"{key}: the planes it writes differ from "
+                                 f"the all-on configuration's ({same}) or "
+                                 f"a stripped plane is not JAX's ({stripped})")
+        ms, plain_ms = cuda_ms(run, 20), cuda_ms(plain, 3)
+        bnd = blend_bound(packed, int(bounds[-1]), 0,
+                          (C + 11 if planes else C + 6) * npix, evals,
+                          OPS_SURFEL_TERMS)
+        print(f"[kernels] {key} ({label}) {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {bnd[0]:.4f} ms by {bnd[1]} "
+              f"({evals:.4g} slot-pixel pairs walked); written planes equal "
+              "to the all-on configuration's, stripped ones as JAX leaves "
+              "them", flush=True)
+        res[key] = dict(needs=list(needs), aligned=aligned, err=err, ms=ms,
+                        plain_ms=plain_ms, bound=bnd)
+    return res, full
+
+
+def needs_matrix(kernels, base, cam, cfg) -> dict:
+    """Phase 3b, a path: rasterize (the entry point) on the render bench
+    scene's base pass in every `needs` triple, with and without the wet
+    hook, under no_grad and, where the layout is aligned, under autograd
+    with a backward. Each call launches K1 once in the configuration JAX's
+    switches pick (need_dist forced on under autograd), K5 once on the
+    aligned layout (its binning) and K2 once after a backward, nothing
+    else; what a call writes is equal to the bit across
+    the calls of one layout; what it strips is zero. -> the launches."""
+    import itertools
+
+    from envgs_tpu_torch.models.envgs import _pool_colors
+    from envgs_tpu_torch.ops.common import prepare_splats
+    from envgs_tpu_torch.ops.raster import rasterize
+
+    colors = torch.cat([_pool_colors(base, cam.center), base.get_specular,
+                        base.get_roughness], dim=-1)
+    prep = prepare_splats(base.params.xyz, base.params.rotation,
+                          base.get_scaling, base.get_opacity[:, 0], colors,
+                          cam, active=base.stats.active)
+    P, dev = prep.depth.shape[0], prep.depth.device
+    bg = torch.zeros(3, device=dev)
+    seen, calls = {}, 0
+    _zero_counts(kernels)
+    for needs in itertools.product((False, True), repeat=3):
+        for hook, grad in itertools.product((False, True), repeat=2):
+            aligned = needs[2] or hook
+            if grad and not aligned:  # not differentiable (JAX refuses)
+                continue
+            fwd = (needs[0], needs[1], needs[2] and not hook)
+            key = kernels.raster_blend_fwd_key(
+                (True, needs[1], fwd[2]) if grad else fwd, aligned)
+            m2z = torch.zeros((P, 2), device=dev, requires_grad=grad)
+            wz = (torch.zeros(P, device=dev, requires_grad=grad)
+                  if hook else None)
+            before = dict(kernels.LAUNCHES)
+            with contextlib.nullcontext() if grad else torch.no_grad():
+                out = rasterize(prep, cam, bg, pair_cap=cfg.pair_cap,
+                                means2d_zero=m2z, needs=needs, wet_zero=wz)
+                if grad:
+                    (out.rgb.sum() + out.distortion.sum()).backward()
+            torch.cuda.synchronize()
+            calls += 1
+            rose = {k: v for k, v in _launch_delta(kernels, before).items()
+                    if v}
+            want = {key: 1, **({"fill_forward": 1} if aligned else {}),
+                    **({"raster_blend_bwd": 1} if grad else {})}
+            what = f"rasterize needs={needs} hook={hook} grad={grad}"
+            if rose != want:
+                raise AssertionError(f"{what}: launches {rose}, not {want}")
+            written = {"rgb", "alpha", "depth_expected", "normal", "trans"}
+            if needs[0] or grad:
+                written |= {"distortion", "d1", "d2"}
+            if needs[1]:
+                written.add("depth_median")
+            if fwd[2]:
+                written.add("wet")
+            for k in ("rgb", "alpha", "depth_expected", "normal", "trans",
+                      "distortion", "d1", "d2", "depth_median", "wet"):
+                x = getattr(out, k).detach()
+                if k not in written:
+                    if x.any():
+                        raise AssertionError(f"{what}: {k} not zero")
+                    continue
+                ref = seen.setdefault((aligned, k), x)
+                # the per-splat wet sums pairs by atomics (index_add_), in
+                # another order from call to call
+                same = (torch.allclose(x, ref, rtol=1e-5, atol=0)
+                        if k == "wet" else torch.equal(x, ref))
+                if not (bool(torch.isfinite(x).all()) and same):
+                    raise AssertionError(f"{what}: {k} differs from the "
+                                         "other calls on its layout")
+            if grad and not (bool(torch.isfinite(m2z.grad).all())
+                             and bool(m2z.grad.any())
+                             and (wz is None or bool(wz.grad.any()))):
+                raise AssertionError(f"{what}: gradients {m2z.grad} {wz}")
+    launches = dict(kernels.LAUNCHES)
+    print(f"[needs] rasterize on the render bench scene's base pass "
+          f"({cam.W}x{cam.H}, {P} surfels), {calls} calls: every `needs` "
+          "triple with and without the wet hook under no_grad, the aligned "
+          "ones also under autograd with a backward: K1 once a call in the "
+          "configuration JAX's switches pick, K5 once an aligned call, K2 "
+          "once a backward, the "
+          "outputs written equal on each layout, those stripped zero; "
+          "launches " + json.dumps({k: v for k, v in launches.items() if v}),
+          flush=True)
+    return launches
 
 
 def ragged_gather(name, fn, table, idx, n):
@@ -1127,7 +1316,7 @@ def full_run(device, out_root, kernels, size=None):
         rose = {k: snaps[it + 1][1][k] - snaps[it][1][k]
                 for k in kernels.LAUNCHES}
         want = TRAIN_KERNELS if it >= sched.reflection_start_iter else (
-            "raster_blend_fwd", "raster_blend_bwd", "fill_forward")
+            K1_TRAIN, "raster_blend_bwd", "fill_forward")
         if cuda and any(v != (k in want) for k, v in rose.items()):
             raise AssertionError(f"run it {it}: launches off: {rose}")
     for pool in (state.base, state.env):
@@ -1566,7 +1755,7 @@ def check_capture_run(name, info, kernels, gate):
     for i in range(total):
         rose = {k: snaps[i + 1][2][k] - snaps[i][2][k] for k in snaps[i][2]}
         want = TRAIN_KERNELS if i >= gate else (
-            "raster_blend_fwd", "raster_blend_bwd", "fill_forward")
+            K1_TRAIN, "raster_blend_bwd", "fill_forward")
         if any(v != (k in want) for k, v in rose.items()):
             raise AssertionError(f"{name} it {i}: launches off: {rose}")
         if 0 < i < total - 1:
@@ -2200,8 +2389,8 @@ def traced_runs(kernels):
         del k3b, out, g, scene1, o1, d1, tmask1
     paths["bounce_render"], paths["bounce_train"], _ = traced_slice(
         "bounce", kernels, base, env, cam, mcfg, batch,
-        {"raster_blend_fwd": 1, "trace_blend_fwd_wet": 2},
-        {"fill_forward": 1, "raster_blend_fwd": 1, "raster_blend_bwd": 1,
+        {K1_RENDER: 1, "trace_blend_fwd_wet": 2},
+        {"fill_forward": 1, K1_TRAIN: 1, "raster_blend_bwd": 1,
          "trace_blend_fwd_wet": 2, "trace_blend_bwd": 2}, restart=True)
     del base, env, batch
 
@@ -3687,7 +3876,7 @@ def band_renders(kernels):
                                     bench.TRAIN_IT, cfg, *hooks,
                                     band=(b * h, BAND_H))
             rose = _launch_delta(kernels, before)
-            want = ("raster_blend_fwd", "trace_blend_fwd", "fill_forward")
+            want = (K1_TRAIN, "trace_blend_fwd", "fill_forward")
             if any(v != (k in want) for k, v in rose.items()):
                 raise AssertionError(f"band {b} of {n}: launches {rose}")
             for k in BAND_MAPS:
@@ -3697,8 +3886,8 @@ def band_renders(kernels):
         print(f"[bands] {n} bands of {h} rows of the train scene at "
               f"{cam.W}x{BAND_H} (training mode): the base pass's "
               f"{', '.join(BAND_MAPS)} against the full render's rows max "
-              f"abs {worst:g} (bound 0); K1 {kernels.LAUNCHES['raster_blend_fwd']}"
-              f" launches, {kernels.ROW_OFF_LAUNCHES['raster_blend_fwd']} of "
+              f"abs {worst:g} (bound 0); K1 {kernels.LAUNCHES[K1_TRAIN]}"
+              f" launches, {kernels.ROW_OFF_LAUNCHES[K1_TRAIN]} of "
               "them at a row offset", flush=True)
         if worst != 0.0:
             raise AssertionError(f"{n} bands differ from the full render")
@@ -3722,8 +3911,10 @@ def band_renders(kernels):
 
     k1 = layout((BAND_ROW_OFF // TILE, (BAND_H - BAND_ROW_OFF) // TILE))
     packed, gidx, bounds, _, tx, ty = k1
-    out1 = kernels.raster_blend_fwd(*k1, BAND_ROW_OFF, True)
-    whole = kernels.raster_blend_fwd(*layout(None), 0, True)
+    out1 = kernels.raster_blend_fwd(*k1, BAND_ROW_OFF, TRAIN_NEEDS,
+                                    aligned=True)
+    whole = kernels.raster_blend_fwd(*layout(None), 0, TRAIN_NEEDS,
+                                     aligned=True)
     rows_err = float((out1 - whole[:, BAND_ROW_OFF:]).abs().max())
     print(f"[bands] K1 train at row offset {BAND_ROW_OFF}: {tx * ty} tiles, "
           f"{int(bounds[-1])} aligned slots; its planes against the rows of "
@@ -3732,11 +3923,13 @@ def band_renders(kernels):
         raise AssertionError("K1 at a row offset differs from the full rows")
     del whole
     err1 = compare(f"raster_blend_fwd (train, row_off {BAND_ROW_OFF})", out1,
-                   blend_tiles_torch(*k1, BAND_ROW_OFF, True),
+                   blend_tiles_torch(*k1, BAND_ROW_OFF, TRAIN_NEEDS,
+                                     aligned=True),
                    train_planes(C), KERNEL_ATOL)
-    ms1 = cuda_ms(lambda: kernels.raster_blend_fwd(*k1, BAND_ROW_OFF, True),
-                  20)
-    plain1 = cuda_ms(lambda: blend_tiles_torch(*k1, BAND_ROW_OFF, True), 3)
+    ms1 = cuda_ms(lambda: kernels.raster_blend_fwd(
+        *k1, BAND_ROW_OFF, TRAIN_NEEDS, aligned=True), 20)
+    plain1 = cuda_ms(lambda: blend_tiles_torch(
+        *k1, BAND_ROW_OFF, TRAIN_NEEDS, aligned=True), 3)
     npix = tx * ty * 256
     ev = walked(out1[raster_rows(C)["last"]])
     bound1 = blend_bound(packed, int(bounds[-1]), 0, (C + 11) * npix, ev,
@@ -4317,7 +4510,6 @@ def main():
         blend_tiles_bwd_torch,
         blend_tiles_torch,
         gauss3d_slot_columns,
-        out_rows,
     )
     from envgs_tpu_torch.ops.raster_blend import rows as raster_rows
     from envgs_tpu_torch.ops.trace_blend import rows as trace_rows
@@ -4354,8 +4546,8 @@ def main():
               flush=True)
         if res["blocks_per_sm"] < 1:
             raise AssertionError(f"K2 ({mode}) fits no block on an SM")
-    k1_resources = {cfg: kernels.raster_blend_fwd_resources(*args)
-                    for cfg, args in K1_CONFIGS.items()}
+    k1_resources = {key: kernels.raster_blend_fwd_resources(*args)
+                    for key, args in k1_compiled(kernels).items()}
     k3_resources = {"render": kernels.trace_blend_fwd_resources(False),
                     "train": kernels.trace_blend_fwd_resources(True, 0),
                     "geo_a2": kernels.trace_blend_fwd_resources(
@@ -4368,8 +4560,7 @@ def main():
     k5_resources = kernels.fill_forward_resources()
     k6_resources = kernels.segscan_resources()
     for name, res, threads in (
-            *((f"raster_blend_fwd ({cfg})", res, 256)
-              for cfg, res in k1_resources.items()),
+            *((key, res, 256) for key, res in k1_resources.items()),
             *((f"trace_blend_fwd ({cfg})", res, 256)
               for cfg, res in k3_resources.items()),
             ("trace_blend_bwd", k4_resources, 32),
@@ -4389,40 +4580,8 @@ def main():
     print(f"[kernels] K1 inputs: {tiles_x * tiles_y} tiles, "
           f"{int(bounds[-1])} pairs kept after the row cull, "
           f"{gauss_idx.numel()} slots", flush=True)
-    r = out_rows(C)
-    k1_err = compare(
-        "raster_blend_fwd", kernels.raster_blend_fwd(*k1_args),
-        blend_tiles_torch(*k1_args),
-        {"color": slice(0, C), "depth": r["depth"], "alpha": r["alpha"],
-         "normal": slice(r["normal"], r["normal"] + 3), "T": r["trans"]},
-        KERNEL_ATOL)
-    k1_ms = cuda_ms(lambda: kernels.raster_blend_fwd(*k1_args), 20)
-    k1_plain_ms = cuda_ms(lambda: blend_tiles_torch(*k1_args), 10)
-    npix = tiles_x * tiles_y * 256
-    k1_bound = blend_bound(
-        packed, int(bounds[-1]), 0, (C + 6) * npix,
-        walked(kernels.raster_blend_fwd(*k1_args, 0, True)[
-            raster_rows(C)["last"]]), OPS_SURFEL_TERMS)
-    print(f"[kernels] raster_blend_fwd {k1_ms:.4f} ms, plain "
-          f"{k1_plain_ms:.2f} ms, bound {k1_bound[0]:.4f} ms by "
-          f"{k1_bound[1]}", flush=True)
-    k1_med_err = compare(
-        "raster_blend_fwd (render layout, median depth)",
-        kernels.raster_blend_fwd(*k1_args, 0, True),
-        blend_tiles_torch(*k1_args, 0, True), train_planes(C), KERNEL_ATOL)
-    k1_med_ms = cuda_ms(lambda: kernels.raster_blend_fwd(*k1_args, 0, True),
-                        20)
-    k1_med_plain_ms = cuda_ms(lambda: blend_tiles_torch(*k1_args, 0, True),
-                              10)
-    k1_med_bound = blend_bound(
-        packed, int(bounds[-1]), 0, (C + 11) * npix,
-        walked(kernels.raster_blend_fwd(*k1_args, 0, True)[
-            raster_rows(C)["last"]]), OPS_SURFEL_TERMS)
-    print(f"[kernels] raster_blend_fwd with the median depth (its training "
-          f"variant on the render layout, what depth_ratio > 0 launches in "
-          f"render mode): {k1_med_ms:.4f} ms, {k1_med_ms - k1_ms:+.4f} ms "
-          f"against the render kernel, plain {k1_med_plain_ms:.2f} ms, bound "
-          f"{k1_med_bound[0]:.4f} ms by {k1_med_bound[1]}", flush=True)
+    k1_runs = k1_configurations(kernels, k1_args, False, "render layout")[0]
+    needs_launches = needs_matrix(kernels, base, cam, cfg)
     raster_counts(k1_args, "surfel", "K1 render")
 
     packed, gauss_idx, rays, bounds, tiles_x, tiles_y = k3_args
@@ -4459,7 +4618,8 @@ def main():
           + f" (bound {SMALL_ATOL:g})", flush=True)
     if not max(errs.values()) <= SMALL_ATOL:
         raise AssertionError(f"small render: cuda vs cpu {errs}")
-    # render mode with the median depth (depth_ratio = 1): K1 once, as ever
+    # render mode with the median depth (depth_ratio = 1): K1 once, in its
+    # median-only configuration, and never the training one
     med = {}
     for dev in ("cuda", "cpu"):
         sb, se, sc, scfg = small_scene(dev)
@@ -4467,7 +4627,7 @@ def main():
         med[dev] = forward_envgs(sb, se, sc, 10,
                                  scfg._replace(depth_ratio=1.0))
         rose = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-        if dev == "cuda" and any(v != (k in RENDER_KERNELS)
+        if dev == "cuda" and any(v != (k in (K1_MED, "trace_blend_fwd"))
                                  for k, v in rose.items()):
             raise AssertionError(f"median-depth render launches off: {rose}")
     errs = {k: float((getattr(med["cuda"], k).cpu()
@@ -4503,6 +4663,21 @@ def main():
         if any(v != (k in RENDER_KERNELS) for k, v in rose.items()):
             raise AssertionError(f"render launches off: {rose}")
     render_launches = dict(kernels.LAUNCHES)
+    # a render with the median depth (depth_ratio = 1): K1's median-only
+    # configuration once, K3 once, never the training one
+    _zero_counts(kernels)
+    out = forward_envgs(base, env, cam, 10, cfg._replace(depth_ratio=1.0))
+    torch.cuda.synchronize()
+    median_launches = dict(kernels.LAUNCHES)
+    n_pairs, env_slots, std = bench.check_render(out, cfg)
+    print(f"[slice] depth_ratio = 1 (median depth): base pairs {n_pairs}, "
+          f"env slots {env_slots}, rgb std {std:.4f}, launches "
+          + json.dumps({k: v for k, v in median_launches.items() if v}),
+          flush=True)
+    if any(v != (k in (K1_MED, "trace_blend_fwd"))
+           for k, v in median_launches.items()):
+        raise AssertionError(f"median render launches off: "
+                             f"{median_launches}")
     fps = bench.render_fps(base, env, cam, cfg, n=10)
     print(f"[slice] render fps over 10 renders: {fps:.3f}", flush=True)
     stages = bench.stage_times(base, env, cam, cfg)
@@ -4551,19 +4726,11 @@ def main():
     print(f"[kernels] K1/K2 training inputs: {tiles_x * tiles_y} tiles, "
           f"{int(bounds[-1])} aligned pair slots of {gauss_idx.numel()}",
           flush=True)
-    out1 = kernels.raster_blend_fwd(*k1, 0, True)
-    k1t_err = compare(
-        "raster_blend_fwd (train)", out1, blend_tiles_torch(*k1, 0, True),
-        train_planes(C), KERNEL_ATOL)
-    k1t_ms = cuda_ms(lambda: kernels.raster_blend_fwd(*k1, 0, True), 20)
-    k1t_plain_ms = cuda_ms(lambda: blend_tiles_torch(*k1, 0, True), 3)
+    k1_runs.update(k1_configurations(kernels, k1, True,
+                                     "train layout")[0])
+    out1 = kernels.raster_blend_fwd(*k1, 0, TRAIN_NEEDS, aligned=True)
     npix = tiles_x * tiles_y * 256
     ev1 = walked(out1[raster_rows(C)["last"]])
-    k1t_bound = blend_bound(packed, int(bounds[-1]), 0, (C + 11) * npix, ev1,
-                            OPS_SURFEL_TERMS)
-    print(f"[kernels] raster_blend_fwd (train) {k1t_ms:.4f} ms, plain "
-          f"{k1t_plain_ms:.2f} ms, bound {k1t_bound[0]:.4f} ms by "
-          f"{k1t_bound[1]} ({ev1:.4g} slot-pixel pairs walked)", flush=True)
     raster_counts(k1, "surfel", "K1 train")
     g1 = torch.randn(out1.shape, generator=gen, device="cuda")
     k2_args = (packed, gauss_idx, bounds, out1, g1, C, tiles_x, tiles_y)
@@ -4582,7 +4749,20 @@ def main():
     print(f"[kernels] raster_blend_bwd {k2_ms:.4f} ms, plain "
           f"{k2_plain_ms:.2f} ms, bound {k2_bound[0]:.4f} ms by "
           f"{k2_bound[1]}", flush=True)
-    del k1, k2_args, out1, g1, got, want
+    # K2 reads D1, D2 and `last`, not the median: after the forward
+    # without it (what the differentiable blend runs for need_med off)
+    nomed = kernels.raster_blend_fwd(*k1, 0, (True, False, False),
+                                     aligned=True)
+    k2_args = (packed, gauss_idx, bounds, nomed, g1, C, tiles_x, tiles_y)
+    got = kernels.raster_blend_bwd(*k2_args)
+    want = blend_tiles_bwd_torch(*k2_args)
+    err, rel = compare_columns("raster_blend_bwd (after a forward without "
+                               "the median)", got, want, k2_cols, GRAD_RTOL)
+    rel = max(rel, compare_columns_by_size(
+        "raster_blend_bwd (after a forward without the median)", got, want,
+        k2_cols, GRAD_RTOL))
+    k2_err, k2_rel = max(k2_err, err), max(k2_rel, rel)
+    del k1, k2_args, out1, nomed, g1, got, want
 
     k3 = ins["k3"]
     packed, gauss_idx, rays, bounds, tiles_x, tiles_y = k3
@@ -4706,8 +4886,10 @@ def main():
           flush=True)
     if n_pairs > gcfg.pair_cap:
         raise AssertionError("the 3DGS bench scene overflows its pair cap")
-    out1, wet1 = kernels.raster_blend_fwd(*k1g, 0, True, "gauss3d", True)
-    want1, want_wet = blend_tiles_torch(*k1g, 0, True, "gauss3d", True)
+    out1, wet1 = kernels.raster_blend_fwd(*k1g, 0, (True, True, True),
+                                          "gauss3d", True)
+    want1, want_wet = blend_tiles_torch(*k1g, 0, (True, True, True),
+                                        "gauss3d", True)
     k1g_err = max(
         compare("raster_blend_fwd (gauss3d)", out1, want1, train_planes(C),
                 KERNEL_ATOL),
@@ -4717,9 +4899,11 @@ def main():
           f"{float(want_wet.max()):.4g}, {int((want_wet > 0).sum())} pairs "
           "with weight", flush=True)
     k1g_ms = cuda_ms(
-        lambda: kernels.raster_blend_fwd(*k1g, 0, True, "gauss3d", True), 20)
+        lambda: kernels.raster_blend_fwd(*k1g, 0, (True, True, True),
+                                         "gauss3d", True), 20)
     k1g_plain_ms = cuda_ms(
-        lambda: blend_tiles_torch(*k1g, 0, True, "gauss3d", True), 3)
+        lambda: blend_tiles_torch(*k1g, 0, (True, True, True), "gauss3d",
+                                  True), 3)
     npix = tiles_x * tiles_y * 256
     ev1g = walked(out1[raster_rows(C)["last"]])
     k1g_bound = blend_bound(packed, int(bounds[-1]), 0, (C + 11) * npix, ev1g,
@@ -5070,7 +5254,8 @@ def main():
         # ---- 21. bands, the band and slab steps, the split evaluation ----
         par_paths, k1_band, k2_band = parallel_runs(kernels, run_tmp, card)
 
-    paths = {"render": render_launches, "train": train_launches,
+    paths = {"render": render_launches, "needs_matrix": needs_launches,
+             "render_median": median_launches, "train": train_launches,
              "gaussiant": gaussiant_launches, "run": run_launches,
              "run_eval": eval_launches, "probe": probe_launches,
              "render_path": path_launches, "cli": cli_launches,
@@ -5115,16 +5300,13 @@ def main():
                      f32_library_ms=f["library_ms"])
 
     print(json.dumps({"kernels": [
-        entry("raster_blend_fwd", "raster_blend_fwd.cu",
-              "envgs_tpu/ops/raster_pallas.py:241",
-              max(k1_err, k1t_err, k1_med_err), k1t_ms, k1t_plain_ms,
-              k1t_bound, render_ms=k1_ms, render_plain_ms=k1_plain_ms,
-              render_bound_ms=k1_bound[0], render_median_ms=k1_med_ms,
-              render_median_plain_ms=k1_med_plain_ms,
-              render_median_bound_ms=k1_med_bound[0],
-              **row_off_entry("raster_blend_fwd", k1_band),
-              resources={cfg: k1_resources[cfg] for cfg in ("render",
-                                                           "train")}),
+        *(entry(key, "raster_blend_fwd.cu",
+                "envgs_tpu/ops/raster_pallas.py:241", run["err"], run["ms"],
+                run["plain_ms"], run["bound"], mode="surfel",
+                needs=run["needs"], aligned=run["aligned"],
+                resources=k1_resources[key],
+                **(row_off_entry(key, k1_band) if key == K1_TRAIN else {}))
+          for key, run in k1_runs.items()),
         entry("raster_blend_bwd", "raster_blend_bwd.cu",
               "envgs_tpu/ops/raster_pallas.py:456", k2_err, k2_ms,
               k2_plain_ms, k2_bound, max_rel_err=k2_rel,
@@ -5170,7 +5352,8 @@ def main():
         entry("raster_blend_fwd_gauss3d", "raster_blend_fwd.cu",
               "envgs_tpu/ops/raster_pallas.py:241", k1g_err, k1g_ms,
               k1g_plain_ms, k1g_bound, mode="gauss3d",
-              resources=k1_resources["gauss3d"]),
+              needs=[True, True, True], aligned=True,
+              resources=k1_resources["raster_blend_fwd_gauss3d"]),
         entry("raster_blend_bwd_gauss3d", "raster_blend_bwd.cu",
               "envgs_tpu/ops/raster_pallas.py:456", k2g_err, k2g_ms,
               k2g_plain_ms, k2g_bound, max_rel_err=k2g_rel, mode="gauss3d",

@@ -584,8 +584,8 @@ def gaussiant_stage_times(pool, cam, cfg: GaussianTConfig,
                 prep, cam, cfg.pair_cap))
             timed("raster_blend", lambda: blend_tiles(
                 packed, bins.gauss_idx, bins.tile_bounds, colors.shape[-1],
-                bins.tiles_x, bins.tiles_y, train=True, mode="gauss3d",
-                wet=True))
+                bins.tiles_x, bins.tiles_y, needs=(True, True, True),
+                mode="gauss3d", aligned=True))
     torch.cuda.synchronize()
     return {k: statistics.median(e0.elapsed_time(e1) for e0, e1 in v[1:])
             for k, v in events.items()}

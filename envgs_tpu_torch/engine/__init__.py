@@ -19,20 +19,21 @@ EMBEDDERS = Registry("embedders")
 REGRESSORS = Registry("regressors")
 RENDERERS = Registry("renderers")
 
-# the JAX package's other registries: nothing of the port registers there
-UNPORTED_REGISTRIES = (
-    "DATALOADERS", "MODELS", "CAMERAS", "SUPERVISORS", "RUNNERS",
-    "OPTIMIZERS", "RECORDERS", "EVALUATORS", "VISUALIZERS")
-
-
-def __getattr__(name):
-    if name in UNPORTED_REGISTRIES:
-        raise NotImplementedError(
-            f"registry {name}: nothing of the port registers there")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
+# the JAX package's other registries, declared as it declares them:
+# nothing registers into them in either package
+DATALOADERS = Registry("dataloaders")
+MODELS = Registry("models")
+CAMERAS = Registry("cameras")
+SUPERVISORS = Registry("supervisors")
+RUNNERS = Registry("runners")
+OPTIMIZERS = Registry("optimizers")
+RECORDERS = Registry("recorders")
+EVALUATORS = Registry("evaluators")
+VISUALIZERS = Registry("visualizers")
 
 __all__ = ["Config", "load_config", "merge_dotted", "Registry",
            "call_filtered", "DATASETS", "MODERATORS", "TRAINERS",
            "SCHEDULERS", "DATASAMPLERS", "SAMPLERS", "NETWORKS", "EMBEDDERS",
-           "REGRESSORS", "RENDERERS"]
+           "REGRESSORS", "RENDERERS", "DATALOADERS", "MODELS", "CAMERAS",
+           "SUPERVISORS", "RUNNERS", "OPTIMIZERS", "RECORDERS", "EVALUATORS",
+           "VISUALIZERS"]

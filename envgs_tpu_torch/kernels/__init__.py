@@ -8,12 +8,13 @@ touches neither nvcc nor the card.
 
 `LAUNCHES` counts launches per kernel, per geometry mode for the raster
 blends (the surfel launches under the kernel's name, the gauss3d ones under
-`<name>_gauss3d`) and per configuration for the traced blend's forward (the
-render and training launches under its name, the geometry and forward-wet
-ones under `<name>_geo` and `<name>_wet`); each wrapper adds one where it
-launches its kernel and nowhere else. `ROW_OFF_LAUNCHES` counts, under
-the same keys, the raster blends' launches at a row offset other than 0
-(a band of a larger image).
+`<name>_gauss3d`), per configuration for the raster blend's forward (K1's
+`needs` and layout: `raster_blend_fwd_key`) and for the traced blend's
+forward (the render and training launches under its name, the geometry and
+forward-wet ones under `<name>_geo` and `<name>_wet`); each wrapper adds
+one where it launches its kernel and nowhere else. `ROW_OFF_LAUNCHES`
+counts, under the same keys, the raster blends' launches at a row offset
+other than 0 (a band of a larger image).
 """
 from __future__ import annotations
 
@@ -26,7 +27,37 @@ from pathlib import Path
 
 import torch
 
-LAUNCHES = {"raster_blend_fwd": 0, "raster_blend_fwd_gauss3d": 0,
+# K1's compiled configurations in the surfel mode, (need_dist, need_med,
+# need_wet, aligned) as the JAX kernel's static switches: the wet only on
+# the aligned layout. The gauss3d mode is compiled all on and aligned.
+K1_CONFIGS = tuple((d, m, w, a) for a in (False, True) for d in (False, True)
+                   for m in (False, True)
+                   for w in ((False, True) if a else (False,)))
+
+
+def raster_blend_fwd_key(needs=(False, False, False), aligned: bool = False,
+                         mode: str = "surfel") -> str:
+    """K1's LAUNCHES key of a configuration: `raster_blend_fwd` for the
+    render (unaligned, `needs` all off), `raster_blend_fwd_gauss3d` for the
+    gauss3d mode, else `raster_blend_fwd` with `_aligned`, `_dist`, `_med`
+    and `_wet` for the switches that are on (the training step's:
+    `raster_blend_fwd_aligned_dist_med`). Raises for a configuration that
+    is not compiled."""
+    d, m, w = map(bool, needs)
+    if mode == "gauss3d" and (d, m, w, aligned) == (True,) * 4:
+        return "raster_blend_fwd_gauss3d"
+    if mode != "surfel" or (d, m, w, bool(aligned)) not in K1_CONFIGS:
+        raise ValueError(
+            f"K1 mode={mode!r} needs={tuple(needs)} aligned={aligned}: not "
+            "compiled (the wet needs the aligned layout; gauss3d runs all "
+            "on, aligned)")
+    return "raster_blend_fwd" + "".join(
+        f"_{k}" for k, on in (("aligned", aligned), ("dist", d), ("med", m),
+                              ("wet", w)) if on)
+
+
+LAUNCHES = {**{raster_blend_fwd_key(c[:3], c[3]): 0 for c in K1_CONFIGS},
+            "raster_blend_fwd_gauss3d": 0,
             "raster_blend_bwd": 0, "raster_blend_bwd_gauss3d": 0,
             "trace_blend_fwd": 0, "trace_blend_fwd_geo": 0,
             "trace_blend_fwd_wet": 0, "trace_blend_bwd": 0, "fill_forward": 0,
@@ -53,11 +84,11 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     # packed, n_rows, gauss_idx, n_idx, bounds, C, tiles_x, tiles_y,
-    # row_off, train, mode, out, wet, stream
-    "raster_blend_fwd": [_VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _I, _VP,
-                         _VP, _VP],
-    # train, mode, wet, out (4 ints)
-    "raster_blend_fwd_resources": [_I, _I, _I, _VP],
+    # row_off, dist, med, aligned, mode, out, wet, stream
+    "raster_blend_fwd": [_VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _VP, _VP, _VP],
+    # dist, med, wet, aligned, mode, out (4 ints)
+    "raster_blend_fwd_resources": [_I, _I, _I, _I, _I, _VP],
     # packed, n_rows, gauss_idx, n_idx, bounds, C, tiles_x, tiles_y,
     # row_off, mode, fwd, gout, gpacked, stream
     "raster_blend_bwd": [_VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _VP, _VP,
@@ -196,43 +227,48 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def raster_blend_fwd(packed, gauss_idx, tile_bounds, C: int, tiles_x: int,
-                     tiles_y: int, row_off: int = 0, train: bool = False,
-                     mode: str = "surfel", wet: bool = False):
-    """Kernel K1 (csrc/raster_blend_fwd.cu) -> (C + 6, tiles_y*16,
-    tiles_x*16) f32, or (C + 11, ...) with `train`; with `wet`, also the
-    per-pair wet (gauss_idx.numel(),) f32. See ops/raster_blend.py for the
-    contract."""
+                     tiles_y: int, row_off: int = 0,
+                     needs=(False, False, False), mode: str = "surfel",
+                     aligned: bool = False):
+    """Kernel K1 (csrc/raster_blend_fwd.cu) in the configuration `needs` =
+    (need_dist, need_med, need_wet) on the `aligned` or the unaligned pair
+    layout -> (C + 11, tiles_y*16, tiles_x*16) f32 with need_dist or
+    need_med, else (C + 6, ...); with need_wet, also the per-pair wet
+    (gauss_idx.numel(),) f32. See ops/raster_blend.py for the contract."""
     T = tiles_x * tiles_y
-    code, key = _mode("raster_blend_fwd", mode)
+    key = raster_blend_fwd_key(needs, aligned, mode)
+    dist, med, wet = map(bool, needs)
     _check_table(packed)
     _check("gauss_idx", gauss_idx, torch.int32, packed)
     _check("tile_bounds", tile_bounds, torch.int32, packed, (T + 1,))
     if not 1 <= C <= 7:
         raise ValueError(f"C={C}: the blend carries 1..7 color channels")
-    out = torch.empty((C + (11 if train else 6), tiles_y * 16, tiles_x * 16),
-                      dtype=torch.float32, device=packed.device)
+    out = torch.empty((C + (11 if dist or med else 6), tiles_y * 16,
+                       tiles_x * 16), dtype=torch.float32,
+                      device=packed.device)
     wet_pairs = (torch.zeros(gauss_idx.numel(), dtype=torch.float32,
                              device=packed.device) if wet else None)
     if T:
         _launch("raster_blend_fwd", packed.device, packed.data_ptr(),
                 packed.shape[0], gauss_idx.data_ptr(), gauss_idx.numel(),
                 tile_bounds.data_ptr(), C, tiles_x, tiles_y, row_off,
-                int(train), code, out.data_ptr(),
-                wet_pairs.data_ptr() if wet else None, _stream(packed),
-                count=key)
+                int(dist), int(med), int(aligned), MODES[mode],
+                out.data_ptr(), wet_pairs.data_ptr() if wet else None,
+                _stream(packed), count=key)
         ROW_OFF_LAUNCHES[key] += bool(row_off)
     return (out, wet_pairs) if wet else out
 
 
-def raster_blend_fwd_resources(train: bool = False, mode: str = "surfel",
-                               wet: bool = False) -> dict:
-    """What K1 was compiled to for (train, mode, wet): registers per
-    thread, static shared bytes per block, resident blocks per SM on the
-    current card, local (spill) bytes per thread. Launches nothing and
-    counts nothing."""
-    code, _ = _mode("raster_blend_fwd", mode)
-    return _resources("raster_blend_fwd_resources", int(train), code,
-                      int(wet))
+def raster_blend_fwd_resources(needs=(False, False, False),
+                               aligned: bool = False,
+                               mode: str = "surfel") -> dict:
+    """What K1 was compiled to in a configuration (as raster_blend_fwd
+    takes it): registers per thread, static shared bytes per block,
+    resident blocks per SM on the current card, local (spill) bytes per
+    thread. Launches nothing and counts nothing."""
+    raster_blend_fwd_key(needs, aligned, mode)
+    return _resources("raster_blend_fwd_resources", *map(int, needs),
+                      int(aligned), MODES[mode])
 
 
 def raster_blend_bwd(packed, gauss_idx, tile_bounds, fwd, g_out, C: int,

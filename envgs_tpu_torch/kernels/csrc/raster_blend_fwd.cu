@@ -5,15 +5,23 @@
 // both of its geometries, a compile-time MODE here: surfel (2DGS ray-plane
 // intersection) and gauss3d (3DGS EWA conic: rho = a dx^2 + c dy^2 +
 // 2 b dx dy from the table's columns 0-2, the splat's view depth in column
-// 3). Two configurations, a compile-time TRAIN: render (unaligned pair
-// layout; distortion, median depth and per-pair wet off; C + 6 planes) and
-// training (aligned layout; C + 11 planes in the JAX row order: colors,
-// depth*w, alpha, normal, median depth, distortion, T, D1, D2, last
-// contributing rank; a render that needs the median depth launches this
-// configuration on the unaligned layout, the window walk takes either).
-// With WET it also writes each pair's wet (its w summed over the tile's
-// pixels, the JAX kernel's need_wet rows); the per-splat sum stays outside
-// (index_add_, as the JAX package's segment_sum outside Pallas). It also
+// 3). The JAX kernel's static switches, compile-time here: DIST (its
+// need_dist: the map-depth moments, the distortion, D1, D2 and `last`, the
+// rank of the last contributing pair), MED (need_med: the median depth),
+// WET (need_wet: each pair's wet, its w summed over the tile's pixels; the
+// per-splat sum stays outside, index_add_, as the JAX package's
+// segment_sum outside Pallas) and ALIGNED (the pair layout: each tile's
+// range whole 64-pair windows from a multiple of 64, the training layout;
+// else raw ranges, each window from start - start % 8 with the pairs
+// outside [start, end) masked). WET needs ALIGNED, as in JAX. Planes: with
+// DIST or MED, C + 11 in the JAX row order (colors, depth*w, alpha,
+// normal, median depth, distortion, T, D1, D2, last), the planes a switch
+// strips as the JAX kernel leaves them (zero; `last` -1); with neither,
+// C + 6 (colors, depth*w, alpha, normal, T). A switch only strips work:
+// the planes a configuration writes are the all-on configuration's to the
+// bit. The surfel mode is compiled in each legal configuration (4 on the
+// unaligned layout, 8 on the aligned one), the gauss3d mode all on (the
+// only configuration the 3DGS families call). It also
 // absorbs the per-pair row gather of raster_pallas.py::gather_blend_tiles:
 // rows are read straight from the per-splat table, no (pairs, 128) array is
 // built.
@@ -54,10 +62,12 @@
 // the bit. The contribution rule is the JAX kernel's exactly: a pair
 // contributes iff its alpha passes the 1/255 floor and the near plane and
 // T*(1-a) >= 1e-4; within a window, the first pair that fails the
-// transmittance test ends the window for that pixel. The training outputs
-// are running sums in registers beside the render ones (distortion from
-// the running alpha and moments before each pair, as the JAX kernel's
-// exclusive prefix sums give them); the render kernel carries none of them.
+// transmittance test ends the window for that pixel. DIST's outputs are
+// running sums in registers beside the render ones (distortion from the
+// running alpha and moments before each pair, as the JAX kernel's
+// exclusive prefix sums give them); MED's is the depth of the last
+// contributor taken at T > 0.5, which the sequential walk keeps without
+// the rank the JAX kernel's closed form selects by.
 // The wet of a pair is summed within each warp by a shuffle tree, only
 // where a pixel of the warp takes the pair, into a (8 warps, 64 pairs)
 // shared block, and the 8 partial sums are added in a fixed order after the
@@ -231,14 +241,15 @@ __device__ __forceinline__ bool may_reach(const float* d, float xc, float yc,
   return !(lox * lox + loy * loy > level * (hiz * hiz));
 }
 
-template <int MODE, bool TRAIN, bool WET>
+template <int MODE, bool DIST, bool MED, bool WET, bool ALIGNED>
 __global__ void
-__launch_bounds__(NPIX, TRAIN ? MIN_BLOCKS_TRAIN : MIN_BLOCKS_RENDER)
+__launch_bounds__(NPIX, DIST || MED ? MIN_BLOCKS_TRAIN : MIN_BLOCKS_RENDER)
 raster_blend_fwd_kernel(const float* __restrict__ packed, int n_rows,
                         const int32_t* __restrict__ gauss_idx, int n_idx,
                         const int32_t* __restrict__ bounds, int C,
                         int tiles_x, int tiles_y, int row_off,
                         float* __restrict__ out, float* __restrict__ wet) {
+  static_assert(ALIGNED || !WET, "the wet needs the aligned layout");
   // a warp's patch: 8x4, or with WET the 16x2 strip the wet's order needs
   constexpr int WW = WET ? 16 : 8, WH = 32 / WW;
   constexpr float HX = 0.5f * (WW - 1), HY = 0.5f * (WH - 1);
@@ -257,19 +268,20 @@ raster_blend_fwd_kernel(const float* __restrict__ packed, int n_rows,
   const float xc = (float)(tx * TILE + wx0) + 0.5f * (WW - 1);
   const float yc = (float)(ty * TILE + row_off + wy0) + 0.5f * (WH - 1);
   const int start = bounds[t], end = bounds[t + 1];
-  const int wstart = start - start % 8;
+  const int wstart = ALIGNED ? start : start - start % 8;
   const int nwin = max(0, (end - wstart + CHUNK - 1) / CHUNK);
 
   // Staging: thread `tid` copies vectors tid and tid + 256 of a window's
-  // 512 (row e / 8, vector e % 8). A pair outside [start, end) or the index
-  // array, or naming a row outside the table, reads as the zero row.
+  // 512 (row e / 8, vector e % 8). A pair outside [start, end) (none on the
+  // aligned layout) or the index array, or naming a row outside the table,
+  // reads as the zero row.
   int g_next[2];
   auto load_idx = [&](int win) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int i = wstart + win * CHUNK + (tid + h * NPIX) / VPR;
       int g = -1;
-      if (i >= start && i < end && i < n_idx) {
+      if ((ALIGNED || (i >= start && i < end)) && i < n_idx) {
         g = gauss_idx[i];
         if (g < 0 || g >= n_rows) g = -1;
       }
@@ -294,7 +306,7 @@ raster_blend_fwd_kernel(const float* __restrict__ packed, int n_rows,
   auto flush = [&](int win) {
     if (tid < CHUNK) {
       const int i = wstart + win * CHUNK + tid;
-      if (i >= start && i < end && i < n_idx) {
+      if ((ALIGNED || (i >= start && i < end)) && i < n_idx) {
         float sum = 0.f;
 #pragma unroll
         for (int k = 0; k < NWARP; ++k) sum += wpart[win & 1][k][tid];
@@ -371,15 +383,15 @@ raster_blend_fwd_kernel(const float* __restrict__ packed, int n_rows,
         continue;
       }
       const float w = a * T;
-      if (TRAIN) {
+      if (DIST) {
         const float m = map_depth(z);
         const float wm = w * m;
         dist += w * (m * m * alp + d2 - 2.f * m * d1);
         d1 += wm;
         d2 += wm * m;
-        if (T > 0.5f) med = z;
         last = (float)(win * CHUNK + j);
       }
+      if (MED && T > 0.5f) med = z;
 #pragma unroll
       for (int c = 0; c < MAXC; ++c)
         if (c < C) col[c] += w * d[C_COLOR + c];
@@ -408,7 +420,7 @@ raster_blend_fwd_kernel(const float* __restrict__ packed, int n_rows,
   o[(C + 2) * plane] = n0;
   o[(C + 3) * plane] = n1;
   o[(C + 4) * plane] = n2;
-  if (TRAIN) {
+  if (DIST || MED) {  // a stripped register keeps its start: 0, last -1
     o[(C + 5) * plane] = med;
     o[(C + 6) * plane] = dist;
     o[(C + 7) * plane] = T;
@@ -420,86 +432,99 @@ raster_blend_fwd_kernel(const float* __restrict__ packed, int n_rows,
   }
 }
 
-template <int MODE, bool TRAIN, bool WET>
-void launch(const float* packed, int n_rows, const int32_t* gauss_idx,
-            int n_idx, const int32_t* bounds, int C, int tiles_x, int tiles_y,
-            int row_off, float* out, float* wet, cudaStream_t stream) {
-  raster_blend_fwd_kernel<MODE, TRAIN, WET>
-      <<<tiles_x * tiles_y, NPIX, 0, stream>>>(packed, n_rows, gauss_idx,
-                                               n_idx, bounds, C, tiles_x,
-                                               tiles_y, row_off, out, wet);
-}
-
-template <int MODE, bool TRAIN, bool WET>
-int resources(int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err =
-      cudaFuncGetAttributes(&attr, raster_blend_fwd_kernel<MODE, TRAIN, WET>);
-  if (err != cudaSuccess) return (int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, raster_blend_fwd_kernel<MODE, TRAIN, WET>, NPIX, 0);
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.sharedSizeBytes;
-  out[2] = blocks;
-  out[3] = (int)attr.localSizeBytes;
-  return (int)err;
-}
-
-// Calls F<MODE, TRAIN, WET>::run(args...) for the run-time configuration.
-template <template <int, bool, bool> class F, typename... Args>
-int dispatch(int mode, int train, bool wet, Args... args) {
-  if (mode == GAUSS3D) {
-    if (train)
-      return wet ? F<GAUSS3D, true, true>::run(args...)
-                 : F<GAUSS3D, true, false>::run(args...);
-    return wet ? F<GAUSS3D, false, true>::run(args...)
-               : F<GAUSS3D, false, false>::run(args...);
-  }
-  if (train)
-    return wet ? F<SURFEL, true, true>::run(args...)
-               : F<SURFEL, true, false>::run(args...);
-  return wet ? F<SURFEL, false, true>::run(args...)
-             : F<SURFEL, false, false>::run(args...);
-}
-
-template <int MODE, bool TRAIN, bool WET> struct Launch {
+template <int MODE, bool DIST, bool MED, bool WET, bool ALIGNED>
+struct Launch {
   static int run(const float* packed, int n_rows, const int32_t* gauss_idx,
                  int n_idx, const int32_t* bounds, int C, int tiles_x,
                  int tiles_y, int row_off, float* out, float* wet,
                  cudaStream_t stream) {
-    launch<MODE, TRAIN, WET>(packed, n_rows, gauss_idx, n_idx, bounds, C,
-                             tiles_x, tiles_y, row_off, out, wet, stream);
+    raster_blend_fwd_kernel<MODE, DIST, MED, WET, ALIGNED>
+        <<<tiles_x * tiles_y, NPIX, 0, stream>>>(packed, n_rows, gauss_idx,
+                                                 n_idx, bounds, C, tiles_x,
+                                                 tiles_y, row_off, out, wet);
     return (int)cudaGetLastError();
   }
 };
 
-template <int MODE, bool TRAIN, bool WET> struct Resources {
-  static int run(int* out) { return resources<MODE, TRAIN, WET>(out); }
+template <int MODE, bool DIST, bool MED, bool WET, bool ALIGNED>
+struct Resources {
+  static int run(int* out) {
+    const auto kernel = raster_blend_fwd_kernel<MODE, DIST, MED, WET, ALIGNED>;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, NPIX,
+                                                        0);
+    out[0] = attr.numRegs;
+    out[1] = (int)attr.sharedSizeBytes;
+    out[2] = blocks;
+    out[3] = (int)attr.localSizeBytes;
+    return (int)err;
+  }
 };
+
+constexpr int config_code(bool dist, bool med, bool wet, bool aligned) {
+  return (dist ? 1 : 0) | (med ? 2 : 0) | (wet ? 4 : 0) | (aligned ? 8 : 0);
+}
+
+// Calls F<MODE, DIST, MED, WET, ALIGNED>::run(args...) for a compiled
+// configuration; cudaErrorInvalidValue for any other.
+template <template <int, bool, bool, bool, bool> class F, typename... Args>
+int dispatch(int mode, int dist, int med, int wet, int aligned,
+             Args... args) {
+  const int bad = (int)cudaErrorInvalidValue;
+  if (mode == GAUSS3D)
+    return dist && med && wet && aligned
+               ? F<GAUSS3D, true, true, true, true>::run(args...)
+               : bad;
+  if (mode != SURFEL) return bad;
+  switch (config_code(dist, med, wet, aligned)) {
+#define K1_SURFEL(D, M, W, A)        \
+  case config_code(D, M, W, A):      \
+    return F<SURFEL, D, M, W, A>::run(args...);
+    K1_SURFEL(false, false, false, false)
+    K1_SURFEL(true, false, false, false)
+    K1_SURFEL(false, true, false, false)
+    K1_SURFEL(true, true, false, false)
+    K1_SURFEL(false, false, false, true)
+    K1_SURFEL(true, false, false, true)
+    K1_SURFEL(false, true, false, true)
+    K1_SURFEL(true, true, false, true)
+    K1_SURFEL(false, false, true, true)
+    K1_SURFEL(true, false, true, true)
+    K1_SURFEL(false, true, true, true)
+    K1_SURFEL(true, true, true, true)
+#undef K1_SURFEL
+  }
+  return bad;  // the wet on the unaligned layout
+}
 
 }  // namespace
 
-// Launches K1 on `stream`; returns cudaGetLastError() (0 = launched).
-// mode: 0 surfel, 1 gauss3d. out: (C + 6, tiles_y*16, tiles_x*16) f32
-// (train = 0) or (C + 11, ...) (train = 1), every element written. wet:
-// null, or (n_idx,) f32 zeroed by the caller, receiving each in-range
-// pair's wet.
+// Launches K1 on `stream`; returns cudaGetLastError() (0 = launched), or
+// cudaErrorInvalidValue for a configuration that is not compiled (the
+// wet without `aligned`; gauss3d other than all on). mode: 0 surfel, 1
+// gauss3d; dist, med, aligned: the switches above, the wet's by `wet`.
+// out: (C + 11, tiles_y*16, tiles_x*16) f32 with dist or med, else
+// (C + 6, ...), every element written. wet: null, or (n_idx,) f32 zeroed
+// by the caller, receiving each in-range pair's wet.
 extern "C" int raster_blend_fwd(const float* packed, int n_rows,
                                 const int32_t* gauss_idx, int n_idx,
                                 const int32_t* bounds, int C, int tiles_x,
-                                int tiles_y, int row_off, int train, int mode,
-                                float* out, float* wet, void* stream) {
-  return dispatch<Launch>(mode, train, wet != nullptr, packed, n_rows,
-                          gauss_idx, n_idx, bounds, C, tiles_x, tiles_y,
-                          row_off, out, wet, (cudaStream_t)stream);
+                                int tiles_y, int row_off, int dist, int med,
+                                int aligned, int mode, float* out, float* wet,
+                                void* stream) {
+  return dispatch<Launch>(mode, dist, med, wet != nullptr, aligned, packed,
+                          n_rows, gauss_idx, n_idx, bounds, C, tiles_x,
+                          tiles_y, row_off, out, wet, (cudaStream_t)stream);
 }
 
-// K1's resources as compiled for (train, mode, wet): out[0] registers per
-// thread, out[1] static shared bytes per block, out[2] resident blocks per
-// SM, out[3] local (spill) bytes per thread. Launches nothing; returns a
-// CUDA error code (0 = ok).
-extern "C" int raster_blend_fwd_resources(int train, int mode, int wet,
-                                          int* out) {
-  return dispatch<Resources>(mode, train, wet != 0, out);
+// K1's resources as compiled for (dist, med, wet, aligned, mode): out[0]
+// registers per thread, out[1] static shared bytes per block, out[2]
+// resident blocks per SM, out[3] local (spill) bytes per thread. Launches
+// nothing; returns a CUDA error code (0 = ok).
+extern "C" int raster_blend_fwd_resources(int dist, int med, int wet,
+                                          int aligned, int mode, int* out) {
+  return dispatch<Resources>(mode, dist, med, wet, aligned, out);
 }

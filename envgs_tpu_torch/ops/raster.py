@@ -2,22 +2,29 @@
 
 `rasterize` runs binning and the tile blend — kernel K1 (forward) and K2
 (backward) on CUDA tensors, their plain PyTorch versions on CPU tensors —
-and decodes to the JAX package's RasterOutput contract. Three paths:
+and decodes to the JAX package's RasterOutput contract, taking the JAX
+package's switches as it does (`envgs_tpu/ops/raster.py::rasterize`):
 
-- render (`needs` all False): the unaligned layout, no training outputs;
-- render with the median depth (`needs` = (False, True, False), what
-  `render_mode` with `depth_ratio > 0` asks for): the unaligned layout
-  through the blend's training variant, of whose extra planes only the
-  median depth is kept (detached); distortion and wet stay zeros;
-- training (`needs` all True): the chunk-aligned layout, distortion,
-  median depth (detached), the distortion moments d1/d2, and autodiff
-  through the blend's reverse walk. Screen-space densification gradients
-  arrive as the gradient of `means2d_zero`. Per-splat wet arrives as the
-  gradient of the `wet_zero` hook when one is given (RasterOutput.wet is
-  then zeros); without it, K1 writes each pair's wet and a per-splat sum
-  (`index_add_`) gives RasterOutput.wet, as the JAX package's segment sum.
+- `needs` = (need_dist, need_med, need_wet) picks K1's configuration:
+  need_dist the distortion and its moments d1 / d2, need_med the median
+  depth (detached), need_wet the forward per-splat wet (K1's per-pair wet
+  summed per splat by `index_add_`, as the JAX package's segment sum). A
+  stripped output is a zero plane (zero wet), as JAX leaves it. All off is
+  the render path; need_med alone what `render_mode` with `depth_ratio > 0`
+  asks for.
+- the layout: chunk-aligned where need_wet or the `wet_zero` hook asks for
+  it, else the unaligned render layout.
+- `wet_zero`, the (P,) zeros hook: the per-splat wet arrives as its
+  gradient (RasterOutput.wet is zeros; the forward's wet is stripped).
+- autograd: an aligned call whose inputs require gradients under
+  `torch.is_grad_enabled()` runs the blend's differentiable form, need_dist
+  forced on (its backward, K2, reads d1, d2 and `last`), the caller's
+  need_med and forward wet kept, as the JAX package's custom VJP does; the
+  distortion and d1 / d2 are then the blend's. Screen-space densification
+  gradients arrive as the gradient of `means2d_zero`. Elsewhere the blend
+  runs exactly `needs`, outside autograd (the JAX package refuses autodiff
+  on the unaligned layout).
 
-The JAX package's other partial `needs` are not ported: they raise.
 `backend="ref"` runs the reference rasterizer instead
 (`ops/raster_ref.py::rasterize_reference`), whatever the device.
 """
@@ -39,7 +46,7 @@ from envgs_tpu_torch.ops.raster_blend import (
     TILE,
     blend_tiles,
     blend_tiles_train,
-    out_rows,
+    plane_rows,
     rows,
 )
 from envgs_tpu_torch.ops.raster_ref import RasterOutput, rasterize_reference
@@ -106,11 +113,12 @@ def rasterize(
 ) -> RasterOutput:
     """Rasterize prepared splats into the raw output maps.
 
-    needs = (need_dist, need_med, need_wet): all False is the render path,
-    need_med alone the render path with the median depth, all True the
-    training path. With the (P,) zeros hook `wet_zero` the
+    needs = (need_dist, need_med, need_wet) strips the outputs not asked
+    for (zero planes, zero wet) from K1's work; an aligned call (need_wet,
+    or the hook) under autograd computes the distortion whatever need_dist
+    says (the module's docstring). With the (P,) zeros hook `wet_zero` the
     per-splat wet is the hook's gradient and RasterOutput.wet is exact
-    zeros; without it RasterOutput.wet is the forward wet (detached).
+    zeros; without it, need_wet gives the forward wet (detached).
     backend: "pallas" (the kernels on a CUDA tensor, the plain versions on
     a CPU tensor) or "ref" (the reference rasterizer: every output, the
     forward wet, gradients by autograd; `needs` and `wet_zero` not read).
@@ -125,12 +133,7 @@ def rasterize(
     if backend == "ref":
         return rasterize_reference(_shift_tmat(prep, means2d_zero), cam,
                                    bg_color)
-    train = all(needs)
-    med_only = tuple(map(bool, needs)) == (False, True, False)
-    if any(needs) and not (train or med_only):
-        raise NotImplementedError(
-            f"rasterize needs={needs}: only none, need_med alone or all "
-            "three training outputs")
+    need_dist, need_med, need_wet = map(bool, needs)
     prep = _shift_tmat(prep, means2d_zero)
     C = prep.color.shape[-1]
     H, W = cam.H, cam.W
@@ -142,45 +145,56 @@ def rasterize(
             raise ValueError(f"row_window {row_window} of H={H}: whole "
                              f"{TILE}-pixel tile rows only")
         row_off, bin_window = row0, (row0 // TILE, H_out // TILE)
+    # the per-pair wet needs the aligned layout; with the hook the gradient
+    # lane carries the wet, the forward's is stripped and the layout stays
+    # aligned (the backward walks whole windows)
+    grad_wet = wet_zero is not None
+    aligned = need_wet or grad_wet
+    fwd_needs = (need_dist, need_med, need_wet and not grad_wet)
     bins = bin_splats(prep, H, W, TILE, pair_cap, align=CHUNK,
-                      lowpass_r=ROWCULL_LOWPASS_R, aligned=train,
+                      lowpass_r=ROWCULL_LOWPASS_R, aligned=aligned,
                       row_window=bin_window)
     packed = _pack_table(prep, bins.order)
-    wet = torch.zeros(P, dtype=torch.float32, device=packed.device)
-    if train:
+    grad = aligned and torch.is_grad_enabled() and (
+        packed.requires_grad or (grad_wet and wet_zero.requires_grad))
+    if grad:
         wz = (None if wet_zero is None
               else torch.nn.functional.pad(wet_zero[bins.order], (0, 1)))
         img, wet_pairs = blend_tiles_train(
             packed, wz, bins.gauss_idx, bins.tile_bounds, C, bins.tiles_x,
-            bins.tiles_y, fwd_wet=wet_zero is None, row_off=row_off)
-        if wet_zero is None:
-            wet = splat_wet(wet_pairs, bins.gauss_idx, bins.order)
+            bins.tiles_y, fwd_wet=fwd_needs[2], row_off=row_off,
+            need_med=need_med)
         r = rows(C)
     else:
-        img = blend_tiles(packed, bins.gauss_idx, bins.tile_bounds, C,
-                          bins.tiles_x, bins.tiles_y, row_off,
-                          train=med_only)
-        r = rows(C) if med_only else out_rows(C)
+        with torch.no_grad():
+            img = blend_tiles(packed, bins.gauss_idx, bins.tile_bounds, C,
+                              bins.tiles_x, bins.tiles_y, row_off, fwd_needs,
+                              aligned=aligned)
+        img, wet_pairs = img if fwd_needs[2] else (img, None)
+        r = plane_rows(C, fwd_needs)
     img = img[:, :H_out, :W]
     trans = img[r["trans"]]
     bg = torch.zeros(C, dtype=torch.float32, device=img.device)
     bg[: bg_color.shape[0]] = bg_color
     rgb = img[:C].permute(1, 2, 0) + trans[..., None] * bg
     zeros = torch.zeros_like(trans)
+    plane = lambda k: img[r[k]] if k in r else zeros  # noqa: E731
+    wet = (splat_wet(wet_pairs, bins.gauss_idx, bins.order)
+           if fwd_needs[2] else torch.zeros(P, dtype=torch.float32,
+                                            device=packed.device))
     return RasterOutput(
         rgb=rgb,
         depth_expected=img[r["depth"]],
         alpha=img[r["alpha"]],
         normal=img[r["normal"]:r["normal"] + 3].permute(1, 2, 0),
-        depth_median=(img[r["med"]].detach() if train or med_only
-                      else zeros),
-        distortion=img[r["dist"]] if train else zeros,
+        depth_median=plane("med").detach(),
+        distortion=plane("dist"),
         wet=wet,
         radii=prep.radius,
         trans=trans,
         num_pairs=bins.num_pairs,
-        d1=img[r["d1"]] if train else None,
-        d2=img[r["d2"]] if train else None,
+        d1=plane("d1"),
+        d2=plane("d2"),
     )
 
 

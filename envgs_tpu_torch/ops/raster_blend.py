@@ -12,19 +12,25 @@ geometries (`mode`), as in the JAX kernels' `_splat_pixel_terms`:
   the splat's view depth in column 3 (columns 4-8 and the normal columns
   zero), rho = a dx^2 + c dy^2 + 2 b dx dy.
 
-Forward, image-layout planes (F, tiles_y*16, tiles_x*16):
-- render mode (`train=False`, unaligned layout): F = C + 6, planes C
-  colors, depth*w, alpha, view normal (3), final T (`out_rows`);
-- training mode (`train=True`, aligned layout): F = C + 11 in the JAX
-  kernel's row order (`rows`): C colors, depth*w, alpha, normal (3), median
-  depth, distortion, final T, the distortion moments D1 = sum w m and
-  D2 = sum w m^2 of m = map_depth(z), and `last`, the rank (pair offset
-  within the tile) of the last contributing pair, -1 if none. A render
-  that needs the median depth runs this mode on the unaligned layout and
-  keeps the median plane alone (`ops/raster.py`).
-With `wet`, the forward also returns the per-pair blend weight ("wet", the
-sum over the tile's pixels of the pair's w), one value per pair slot of
-`gauss_idx` (zero outside the tiles' ranges and past a tile's early stop).
+Forward: the JAX kernel's static switches, `needs` = (need_dist,
+need_med, need_wet), on either pair layout (`aligned`: each tile's range
+whole 64-pair windows, the training layout; else raw ranges, the render
+layout). need_dist: the distortion, its moments D1 = sum w m and
+D2 = sum w m^2 of m = map_depth(z), and `last`, the rank (pair offset
+within the tile) of the last contributing pair, -1 if none; need_med: the
+median depth; need_wet (aligned only): the per-pair blend weight ("wet",
+the sum over the tile's pixels of the pair's w), one value per pair slot of
+`gauss_idx` (zero outside the tiles' ranges and past a tile's early stop),
+returned beside the planes. Image-layout planes (F, tiles_y*16,
+tiles_x*16), `plane_rows(C, needs)`:
+- with need_dist or need_med, F = C + 11 in the JAX kernel's row order
+  (`rows`): C colors, depth*w, alpha, normal (3), median depth,
+  distortion, final T, D1, D2, last; a plane whose switch is off reads as
+  the JAX kernel leaves it: zero, `last` -1;
+- with neither, F = C + 6 (`out_rows`): C colors, depth*w, alpha, view
+  normal (3), final T.
+A switch only strips work: every plane a configuration writes equals the
+all-on configuration's to the bit.
 
 Blend rule (the JAX kernel's, kept exactly): each tile walks its pairs in
 64-pair windows that start at `start - start % 8` (in the aligned layout,
@@ -80,15 +86,23 @@ _C_COLOR = 15  # C floats, C <= 7
 
 
 def out_rows(C: int) -> dict:
-    """Plane index of each output of the render-mode (C + 6, H, W) result."""
+    """Plane index of each output of the (C + 6, H, W) result of a forward
+    with neither need_dist nor need_med."""
     return dict(color=0, depth=C, alpha=C + 1, normal=C + 2, trans=C + 5)
 
 
 def rows(C: int) -> dict:
-    """Plane index of each output of the training-mode (C + 11, H, W)
-    result (the JAX kernel's `_rows(C)`)."""
+    """Plane index of each output of the (C + 11, H, W) result of a forward
+    with need_dist or need_med (the JAX kernel's `_rows(C)`; the planes of
+    a switch that is off hold zeros, `last` -1)."""
     return dict(color=0, depth=C, alpha=C + 1, normal=C + 2, med=C + 5,
                 dist=C + 6, trans=C + 7, d1=C + 8, d2=C + 9, last=C + 10)
+
+
+def plane_rows(C: int, needs) -> dict:
+    """The plane layout of a forward in configuration `needs`: `rows(C)`
+    with need_dist or need_med, else `out_rows(C)`."""
+    return rows(C) if needs[0] or needs[1] else out_rows(C)
 
 
 def _map_depth(z):
@@ -200,14 +214,29 @@ def _pixel_sum(x: torch.Tensor) -> torch.Tensor:
     return s
 
 
+def _check_config(tile_bounds: torch.Tensor, needs, aligned: bool):
+    """Raise on a configuration K1 does not take: the wet on the unaligned
+    layout, or an `aligned` layout whose tile ranges are not whole windows
+    from multiples of CHUNK (reads the bounds: the plain version's check)."""
+    if needs[2] and not aligned:
+        raise ValueError("need_wet: the per-pair wet needs the aligned "
+                         "layout")
+    if aligned and bool(torch.any(tile_bounds % CHUNK != 0)):
+        raise ValueError(f"aligned: tile ranges must be whole {CHUNK}-pair "
+                         "windows")
+
+
 def blend_tiles_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
                       tile_bounds: torch.Tensor, C: int, tiles_x: int,
                       tiles_y: int, row_off: int = 0,
-                      train: bool = False, mode: str = "surfel",
-                      wet: bool = False):
+                      needs=(False, False, False), mode: str = "surfel",
+                      aligned: bool = False):
     """Plain PyTorch version of kernel K1, vectorized over tiles and pixels
-    with a loop over windows and the pairs of a window. -> planes, or
-    (planes, per-pair wet (gauss_idx.numel(),)) with `wet`."""
+    with a loop over windows and the pairs of a window. -> planes in
+    `plane_rows(C, needs)`, or (planes, per-pair wet (gauss_idx.numel(),))
+    with need_wet."""
+    need_dist, need_med, need_wet = map(bool, needs)
+    _check_config(tile_bounds, needs, aligned)
     terms = _terms(mode)
     dev = packed.device
     T = tiles_x * tiles_y
@@ -238,18 +267,19 @@ def blend_tiles_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
             contrib = s["amask"] & ~fail & passed
             fail = fail | (s["amask"] & ~passed)
             w = torch.where(contrib, a * trans, 0.0)
-            if wet:
+            if need_wet:
                 i = wstart + c * CHUNK + j
                 inb = (i >= start) & (i < end)
                 wet_pairs[i[inb]] = _pixel_sum(w)[inb]
-            if train:
+            if need_dist:
                 m = _map_depth(z)
                 wm = w * m
                 dist = dist + w * (m * m * alp + d2 - 2.0 * m * d1)
                 d1 = d1 + wm
                 d2 = d2 + wm * m
-                med = torch.where(contrib & (trans > 0.5), z, med)
                 last = torch.where(contrib, float(c * CHUNK + j), last)
+            if need_med:
+                med = torch.where(contrib & (trans > 0.5), z, med)
             for i in range(C):
                 color[i] = color[i] + w * col[_C_COLOR + i]
             dep = dep + w * z
@@ -257,26 +287,26 @@ def blend_tiles_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
             for i in range(3):
                 nrm[i] = nrm[i] + w * col[_C_NRM + i]
             trans = torch.where(contrib, test, trans)
-    if train:
+    if need_dist or need_med:
         planes = color + [dep, alp] + nrm + [med, dist, trans, d1, d2, last]
     else:
         planes = color + [dep, alp] + nrm + [trans]
     img = _to_image(torch.stack(planes), tiles_x, tiles_y)
-    return (img, wet_pairs) if wet else img
+    return (img, wet_pairs) if need_wet else img
 
 
 def blend_tiles(packed: torch.Tensor, gauss_idx: torch.Tensor,
                 tile_bounds: torch.Tensor, C: int, tiles_x: int, tiles_y: int,
-                row_off: int = 0, train: bool = False, mode: str = "surfel",
-                wet: bool = False):
+                row_off: int = 0, needs=(False, False, False),
+                mode: str = "surfel", aligned: bool = False):
     """The tile blend: kernel K1 on a CUDA tensor, the plain version on a
     CPU tensor."""
     if packed.device.type == "cpu":
         return blend_tiles_torch(packed, gauss_idx, tile_bounds, C, tiles_x,
-                                 tiles_y, row_off, train, mode, wet)
+                                 tiles_y, row_off, needs, mode, aligned)
     return kernels.raster_blend_fwd(packed, gauss_idx, tile_bounds, C,
-                                    tiles_x, tiles_y, row_off, train, mode,
-                                    wet)
+                                    tiles_x, tiles_y, row_off, needs, mode,
+                                    aligned)
 
 
 def blend_tiles_bwd_torch(packed: torch.Tensor, gauss_idx: torch.Tensor,
@@ -431,18 +461,21 @@ def blend_tiles_bwd(packed: torch.Tensor, gauss_idx: torch.Tensor,
 
 
 class _BlendTrain(torch.autograd.Function):
-    """Training-mode blend with its reverse-walk backward. wet_zero (P+1,),
-    when given, is a zeros hook: the forward ignores it, its gradient is the
-    per-splat wet (the table gradient's column WET_COL, which is a padding
-    column of the table and so dropped by the table's own construction).
-    The forward per-pair wet, when asked for, is not differentiable."""
+    """The blend with its reverse-walk backward, on the aligned layout. The
+    forward runs (need_dist, need_med, fwd_wet) with need_dist on, as the
+    JAX package's VJP forward does: the backward reads D1, D2 and `last`,
+    not the median. wet_zero (P+1,), when given, is a zeros hook: the
+    forward ignores it, its gradient is the per-splat wet (the table
+    gradient's column WET_COL, which is a padding column of the table and
+    so dropped by the table's own construction). The forward per-pair wet,
+    when asked for, is not differentiable."""
 
     @staticmethod
     def forward(ctx, packed, wet_zero, gauss_idx, tile_bounds, C, tiles_x,
-                tiles_y, row_off, mode, fwd_wet):
+                tiles_y, row_off, mode, need_med, fwd_wet):
         out = blend_tiles(packed, gauss_idx, tile_bounds, C, tiles_x,
-                          tiles_y, row_off, train=True, mode=mode,
-                          wet=fwd_wet)
+                          tiles_y, row_off, (True, need_med, fwd_wet), mode,
+                          aligned=True)
         out, wet = out if fwd_wet else (out, packed.new_zeros(0))
         ctx.mark_non_differentiable(wet)
         ctx.save_for_backward(packed, gauss_idx, tile_bounds, out)
@@ -455,20 +488,22 @@ class _BlendTrain(torch.autograd.Function):
         g = blend_tiles_bwd(packed, gauss_idx, tile_bounds, out,
                             g_out.contiguous(), *ctx.dims)
         g_wz = g[:, WET_COL] if ctx.needs_input_grad[1] else None
-        return g, g_wz, None, None, None, None, None, None, None, None
+        return (g, g_wz, None, None, None, None, None, None, None, None,
+                None)
 
 
 def blend_tiles_train(packed: torch.Tensor, wet_zero: torch.Tensor | None,
                       gauss_idx: torch.Tensor, tile_bounds: torch.Tensor,
                       C: int, tiles_x: int, tiles_y: int, mode: str = "surfel",
-                      fwd_wet: bool = False, row_off: int = 0):
-    """Training-mode tile blend (aligned layout) -> ((C + 11, H', W')
-    planes in `rows(C)` order, differentiable in `packed` and (through the
-    wet lane) in the `wet_zero` hook; the forward per-pair wet
-    (gauss_idx.numel(),) with `fwd_wet`, else None). row_off: the pixel
-    row of the first tile row (a band of a larger image), for both the
-    forward and its backward."""
+                      fwd_wet: bool = False, row_off: int = 0,
+                      need_med: bool = True):
+    """The differentiable tile blend (aligned layout) -> ((C + 11, H', W')
+    planes in `rows(C)` order, the median plane zero without `need_med`,
+    differentiable in `packed` and (through the wet lane) in the
+    `wet_zero` hook; the forward per-pair wet (gauss_idx.numel(),) with
+    `fwd_wet`, else None). row_off: the pixel row of the first tile row (a
+    band of a larger image), for both the forward and its backward."""
     out, wet = _BlendTrain.apply(packed, wet_zero, gauss_idx, tile_bounds, C,
                                  tiles_x, tiles_y, int(row_off), mode,
-                                 fwd_wet)
+                                 bool(need_med), bool(fwd_wet))
     return out, (wet if fwd_wet else None)

@@ -16,11 +16,11 @@ the geometry taken out, ...) and how the steps of a new design, or a
 kernel's earlier design, are measured beside each other. Each variant is
 built on its own with the library's flags and `-Xptxas -v` (registers,
 spills and shared memory are printed), loaded with ctypes and run on the
-inputs its kernel gets on the bench scenes: K1 in its four configurations
-(render: the render bench scene's unaligned layout; median: the training
-kernel on that layout, what a render with the median depth launches;
-train: the train bench scene's aligned layout; gauss3d: the 3DGS bench
-scene with the per-pair wet), K3 in render and training mode, K4 on the
+inputs its kernel gets on the bench scenes: K1 in four configurations
+(render: the render bench scene's unaligned layout; median: the median
+depth alone on that layout, what a render with depth_ratio > 0 launches;
+train: the train step's, the train bench scene's aligned layout; gauss3d:
+the 3DGS bench scene with the per-pair wet), K3 in render and training mode, K4 on the
 train scene's K3 planes, K5 on the train scene's markers, K6 on
 `chip_smoke.py` phase 12's rows (`segscan_inputs`). With
 `--split-launches`, each variant whose `extern "C"` function makes several
@@ -492,20 +492,21 @@ def _run(fn, *args):
         raise RuntimeError(f"CUDA launch failed with error {err}")
 
 
-def raster_runner(fn, k1, train: bool, mode: str = "surfel",
-                  wet: bool = False):
+def raster_runner(fn, k1, needs, mode: str = "surfel",
+                  aligned: bool = False):
     """As kernels.raster_blend_fwd: the wet's zeroing is in the time."""
     packed, gidx, bounds, C, tiles_x, tiles_y = k1
-    out = torch.empty((C + (11 if train else 6), tiles_y * 16, tiles_x * 16),
-                      device=packed.device)
+    dist, med, wet = needs
+    out = torch.empty((C + (11 if dist or med else 6), tiles_y * 16,
+                       tiles_x * 16), device=packed.device)
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
         w = torch.zeros(gidx.numel(), device=packed.device) if wet else None
         _run(fn, packed.data_ptr(), packed.shape[0], gidx.data_ptr(),
              gidx.numel(), bounds.data_ptr(), C, tiles_x, tiles_y, 0,
-             int(train), kernels.MODES[mode], out.data_ptr(),
-             w.data_ptr() if wet else None, stream)
+             int(dist), int(med), int(aligned), kernels.MODES[mode],
+             out.data_ptr(), w.data_ptr() if wet else None, stream)
         return torch.cat([out.reshape(-1), w]) if wet else out
     return run
 
@@ -621,10 +622,11 @@ def _worst_column(got, want) -> float:
 
 FAMILIES = {"raster_blend_fwd": "k1", "trace_blend_fwd": "k3",
             "trace_blend_bwd": "k3", "fill_forward": "k5", "segscan": "k6"}
-K1_CONFIGS = {"render": (False, "surfel", False),  # train, mode, wet
-              "median": (True, "surfel", False),
-              "train": (True, "surfel", False),
-              "gauss3d": (True, "gauss3d", True)}
+K1_CONFIGS = {  # needs, mode, aligned
+    "render": ((False, False, False), "surfel", False),
+    "median": ((False, True, False), "surfel", False),
+    "train": ((True, True, False), "surfel", True),
+    "gauss3d": ((True, True, True), "gauss3d", True)}
 
 
 def _family(src: Path) -> str:

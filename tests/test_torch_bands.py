@@ -1,7 +1,8 @@
 """Parity of the port's band arguments (the row-crop of the band-parallel
 step) with the JAX package, at 64 x 48 in bands of 16 or 32 rows:
 get_rays(i0), Camera.crop_rows, depth_to_normal(i0), bin_splats
-(row_window), rasterize(row_window) in render and training mode,
+(row_window), rasterize(row_window) in render and training mode and with the training
+outputs on the unaligned layout,
 render_decode(i0), forward_envgs(band=(row0, H)) with the rasterized and
 the traced base, and ssim_masked with its closed-form backward.
 
@@ -167,6 +168,35 @@ def test_rasterize_row_window_matches_jax(row0, band_h, mode):
         want = np.asarray(jout.wet)
         np.testing.assert_allclose(tout.wet.numpy(), want,
                                    atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("row0", [0, 16, 48])
+def test_rasterize_row_window_unaligned_training_needs(row0):
+    """needs = (True, True, False), the training outputs on the unaligned
+    layout (JAX's own band case, tests/test_raster_pallas.py): the band's
+    maps within ATOL of JAX's band, and within 2e-7 of the rows of the
+    port's full render, the bound JAX holds its band to (each tile's
+    windows start at its own start % 8 in either run)."""
+    jp, tp = _prep(seed=5)
+    jf, _, tf, _ = _cams(row0, 16)
+    needs = (True, True, False)
+    jout = jax.jit(lambda p: jraster.rasterize(
+        p, jf, jnp.asarray(BG), backend="pallas_interp", pair_cap=4096,
+        needs=needs, row_window=(row0, 16)))(jp)
+    tout = traster.rasterize(tp, tf, torch.tensor(BG), pair_cap=4096,
+                             needs=needs, row_window=(row0, 16))
+    full = traster.rasterize(tp, tf, torch.tensor(BG), pair_cap=4096,
+                             needs=needs)
+    rows = slice(row0, row0 + 16)
+    for k in OUTPUTS["train"]:
+        got = getattr(tout, k)
+        np.testing.assert_allclose(got.numpy(), np.asarray(getattr(jout, k)),
+                                   atol=ATOL, err_msg=k)
+        np.testing.assert_allclose(got.numpy(), getattr(full, k)[rows],
+                                   atol=2e-7, err_msg=k)
+    assert float(jout.distortion.max()) > 0
+    assert float(jout.depth_median.max()) > 1.5
+    assert not tout.wet.any()
 
 
 @pytest.mark.parametrize("row0", [16, 48])

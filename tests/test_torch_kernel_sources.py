@@ -99,9 +99,14 @@ def test_every_launch_count_is_reachable_from_a_wrapper(monkeypatch):
     idx = torch.zeros(64, dtype=torch.int32)
     bounds = torch.tensor([0, 64], dtype=torch.int32)
     rays = torch.zeros(1, 8, 256)
+    for *needs, aligned in kernels.K1_CONFIGS:
+        kernels.raster_blend_fwd(packed, idx, bounds, 3, 1, 1, needs=needs,
+                                 aligned=aligned)
+    kernels.raster_blend_fwd(packed, idx, bounds, 3, 1, 1,
+                             needs=(True, True, True), mode="gauss3d",
+                             aligned=True)
     for mode in kernels.MODES:
-        planes = kernels.raster_blend_fwd(packed, idx, bounds, 3, 1, 1,
-                                          train=True, mode=mode)
+        planes = torch.zeros(14, 16, 16)
         kernels.raster_blend_bwd(packed, idx, bounds, planes, planes, 3, 1,
                                  1, mode=mode)
     out = kernels.trace_blend_fwd(packed, idx, rays, bounds, 1, 1, train=True)
@@ -117,6 +122,28 @@ def test_every_launch_count_is_reachable_from_a_wrapper(monkeypatch):
     kernels.gather_rows(table, idx)
     kernels.gather_rows_win8(table, idx)
     assert sorted(seen) == sorted(kernels.LAUNCHES)
+
+
+@pytest.mark.parametrize("mode,needs,aligned", [
+    ("surfel", (False, False, True), False),
+    ("surfel", (True, True, True), False),
+    ("gauss3d", (True, True, False), True),
+    ("gauss3d", (False, False, False), False),
+    ("surfel3d", (False, False, False), False)])
+def test_k1_refuses_what_is_not_compiled(monkeypatch, mode, needs, aligned):
+    """K1 is compiled for the surfel mode's legal switch sets alone (the
+    wet only on the aligned layout) and the gauss3d mode all on: the
+    wrapper refuses the rest by name before it checks or launches."""
+    seen = _record_launches(monkeypatch)
+    with pytest.raises(ValueError, match="not compiled"):
+        kernels.raster_blend_fwd(torch.zeros(3, 32),
+                                 torch.zeros(64, dtype=torch.int32),
+                                 torch.tensor([0, 64], dtype=torch.int32),
+                                 3, 1, 1, needs=needs, mode=mode,
+                                 aligned=aligned)
+    with pytest.raises(ValueError, match="not compiled"):
+        kernels.raster_blend_fwd_resources(needs, aligned, mode)
+    assert not seen
 
 
 def test_launch_counts_once_and_only_when_launched(monkeypatch):
@@ -182,8 +209,10 @@ def test_trace_resource_queries_reject_a_bad_aux_count():
 @pytest.mark.parametrize("name", sorted(kernels.LAUNCHES))
 def test_launch_key_names_an_exported_kernel(name):
     """A key is a kernel's name, or its name and a geometry mode (the raster
-    blends) or a configuration (the traced blend's forward)."""
-    base = name
+    blends) or a configuration (the raster and traced blends' forwards)."""
+    k1 = {kernels.raster_blend_fwd_key(c[:3], c[3])
+          for c in kernels.K1_CONFIGS}
+    base = "raster_blend_fwd" if name in k1 else name
     for suffix in (*kernels.MODES, *kernels.TRACE_CONFIGS):
         base = base.removesuffix(f"_{suffix}")
     assert base in EXPORTED

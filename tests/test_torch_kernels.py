@@ -28,6 +28,8 @@ from envgs_tpu_torch.ops.raster_blend import (
     blend_tiles_bwd_torch,
     blend_tiles_torch,
     gauss3d_slot_columns,
+    out_rows,
+    rows,
 )
 from envgs_tpu_torch.ops.segsum import (
     segmented_inclusive_sum,
@@ -51,6 +53,9 @@ ATOL = 1e-4
 # pairs of a splat with atomics, in another order than the plain versions'
 # torch sums (and from run to run); the terms are the same
 GRAD_RTOL = 1e-4
+# K1's configuration in a train step (the wet through the hook)
+TRAIN_NEEDS = (True, True, False)
+TRAIN_KEY = "raster_blend_fwd_aligned_dist_med"
 
 
 @pytest.fixture
@@ -156,12 +161,97 @@ def test_fill_forward_kernel_matches_plain(cuda):
     assert not got.any()
 
 
+@pytest.mark.parametrize("aligned", [False, True],
+                         ids=["unaligned", "aligned"])
+def test_raster_fwd_switches_strip_only_work(cuda, aligned):
+    """K1 in each compiled configuration of a layout on the small scene:
+    within ATOL of its plain version, every plane it writes equal to the
+    layout's all-on configuration's to the bit, the planes a switch strips
+    zero (`last` -1), the wet equal where it is written."""
+    ins = bench.train_blend_inputs(*_scene(cuda)) if aligned else None
+    args = ins["k1"] if aligned else _inputs(cuda)[0]
+    C = args[3]
+    full_needs = (True, True, aligned)
+    full = blend_tiles(*args, needs=full_needs, aligned=aligned)
+    full, full_wet = full if aligned else (full, None)
+    r = rows(C)
+    for *needs, a in kernels.K1_CONFIGS:
+        if a != aligned:
+            continue
+        got = blend_tiles(*args, needs=needs, aligned=aligned)
+        want = blend_tiles_torch(*args, needs=needs, aligned=aligned)
+        if needs[2]:
+            (got, wet), (want, want_wet) = got, want
+            assert torch.equal(wet, full_wet)
+            assert float((wet - want_wet).abs().max()) <= ATOL
+        assert float((got - want).abs().max()) <= ATOL, needs
+        if not (needs[0] or needs[1]):  # the (C + 6)-plane layout
+            same = list(range(C + 5))
+            assert torch.equal(got[same], full[same]), needs
+            assert torch.equal(got[out_rows(C)["trans"]],
+                               full[r["trans"]]), needs
+            continue
+        kept = [k for k in range(C + 11)
+                if (k not in (r["dist"], r["d1"], r["d2"], r["last"])
+                    or needs[0]) and (k != r["med"] or needs[1])]
+        assert torch.equal(got[kept], full[kept]), needs
+        if not needs[0]:
+            assert not got[[r["dist"], r["d1"], r["d2"]]].any()
+            assert bool((got[r["last"]] == -1).all())
+        if not needs[1]:
+            assert not got[r["med"]].any()
+    assert float(full[r["dist"]].max()) > 0 and float(full[r["med"]].max()) > 0
+
+
+def test_raster_bwd_after_a_forward_without_the_median(cuda):
+    """K2 reads D1, D2 and `last`, not the median: on the planes of the
+    forward without it (need_med off, what the differentiable blend runs
+    for a caller that strips it) it gives the all-on forward's gradients,
+    against its plain version per column."""
+    args = bench.train_blend_inputs(*_scene(cuda))["k1"]
+    out = blend_tiles(*args, needs=(True, False, False), aligned=True)
+    full = blend_tiles(*args, needs=TRAIN_NEEDS, aligned=True)
+    C = args[3]
+    assert not out[rows(C)["med"]].any() and full[rows(C)["med"]].any()
+    g_out = _cotangent(out, 5)
+    got = blend_tiles_bwd(*args[:3], out, g_out, *args[3:])
+    torch.cuda.synchronize()
+    cols = list(range(15 + C)) + [WET_COL]
+    _close_columns(got[:, cols],
+                   blend_tiles_bwd_torch(*args[:3], out, g_out,
+                                         *args[3:])[:, cols])
+    _close_columns(got[:, cols],
+                   blend_tiles_bwd(*args[:3], full, g_out, *args[3:])[:, cols])
+
+
+def test_median_render_launches_the_med_configuration(cuda):
+    """forward_envgs in render mode with depth_ratio > 0 launches K1's
+    median-only configuration once and the training one never; its maps
+    are the CPU's."""
+    from envgs_tpu_torch.models.envgs import forward_envgs
+
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        base, env, cam, cfg = _scene(dev)
+        before = dict(kernels.LAUNCHES)
+        outs[dev.type] = forward_envgs(base, env, cam, 10,
+                                       cfg._replace(depth_ratio=1.0))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert _rose(before) == {"raster_blend_fwd_med": 1,
+                                     "trace_blend_fwd": 1}
+    for k in ("rgb_map", "dpt_map", "surf_norm_map"):
+        err = float((getattr(outs["cuda"], k).cpu()
+                     - getattr(outs["cpu"], k)).abs().max())
+        assert err <= 1e-4, (k, err)
+
+
 def test_train_raster_kernels_match_plain(cuda):
     """K1 in training mode (aligned layout) and K2 on the same inputs and a
     random cotangent of every plane."""
     args = bench.train_blend_inputs(*_scene(cuda))["k1"]
-    out = blend_tiles(*args, train=True)
-    want = blend_tiles_torch(*args, train=True)
+    out = blend_tiles(*args, needs=TRAIN_NEEDS, aligned=True)
+    want = blend_tiles_torch(*args, needs=TRAIN_NEEDS, aligned=True)
     assert float((out - want).abs().max()) <= ATOL
     g_out = _cotangent(out, 1)
     n = kernels.LAUNCHES["raster_blend_bwd"]
@@ -394,9 +484,10 @@ def test_gauss3d_raster_kernels_match_plain(cuda):
     normal columns 12-14 exactly zero."""
     args = _gaussiant_inputs(cuda)
     before = dict(kernels.LAUNCHES)
-    out, wet = blend_tiles(*args, train=True, mode="gauss3d", wet=True)
-    want, want_wet = blend_tiles_torch(*args, train=True, mode="gauss3d",
-                                       wet=True)
+    out, wet = blend_tiles(*args, needs=(True, True, True), mode="gauss3d",
+                           aligned=True)
+    want, want_wet = blend_tiles_torch(*args, needs=(True, True, True),
+                                       mode="gauss3d", aligned=True)
     assert float((out - want).abs().max()) <= ATOL
     assert float((wet - want_wet).abs().max()) <= ATOL
     assert float(want_wet.max()) > 1.0 and float(want[args[3] + 1].max()) > 0.9
@@ -583,7 +674,10 @@ def test_raster_bwd_kernel_on_lopsided_tiles(cuda, mode):
     plain version, per gradient column."""
     args = _lopsided_inputs(cuda, mode)
     packed, gauss_idx, bounds, C, tiles_x, tiles_y = args
-    out = blend_tiles(*args, train=True, mode=mode)
+    out = blend_tiles(*args, needs=(True, True, mode == "gauss3d"),
+                      mode=mode, aligned=True)
+    if mode == "gauss3d":  # compiled with the wet alone
+        out = out[0]
     last = out[-1].reshape(tiles_y, 16, tiles_x, 16).amax((1, 3)).reshape(-1)
     chunks = torch.minimum((bounds[1:] - bounds[:-1]) // 64,
                            ((last + 64) // 64).clamp(min=0).to(torch.int32))
@@ -603,13 +697,13 @@ def test_raster_bwd_kernel_on_lopsided_tiles(cuda, mode):
     assert float(ref[:, 31].max()) > 0
 
 
-def _ragged_k1_inputs(device, config):
+def _ragged_k1_inputs(device, mode, aligned):
     """K1 arguments for 8 tiles (a 32x64 view) of hand-picked pair lists:
     tile 0 empty, tile 1 one pair, tile 2 two opaque splats over the whole
     tile (every pixel saturates in the first window) and 300 more, tile 3
     2000 faint pairs (32 windows), tiles 4-7 100-300 random
-    pairs. Render configurations get the unaligned layout (tile starts off
-    the 8-pair grid), the others the aligned one (64-pair padding)."""
+    pairs; the unaligned layout (tile starts off the 8-pair grid) or the
+    aligned one (64-pair padding)."""
     from envgs_tpu_torch.ops.common import prepare_splats
     from envgs_tpu_torch.ops.raster import _pack_table
     from envgs_tpu_torch.ops.raster3d import _pack_table3d, prepare_gaussians3d
@@ -639,7 +733,7 @@ def _ragged_k1_inputs(device, config):
     t = lambda x: torch.tensor(np.asarray(x, np.float32),  # noqa: E731
                                device=device)
     colors = t(rng.random((P, 3)))
-    if config == "gauss3d":
+    if mode == "gauss3d":
         prep = prepare_gaussians3d(t(xyz), t(q), t(scales), t(opac), colors,
                                    cam)
         packed = _pack_table3d(prep)
@@ -651,7 +745,6 @@ def _ragged_k1_inputs(device, config):
              list(range(1000, 3000))]
     lists += [rng.choice(np.arange(310, 1000), rng.integers(100, 300),
                          replace=False).tolist() for _ in range(4)]
-    aligned = config in ("train", "gauss3d")
     idx, bounds = [], [0]
     for pairs in lists:
         pad = (-len(pairs)) % 64 if aligned else 0
@@ -662,33 +755,37 @@ def _ragged_k1_inputs(device, config):
             torch.tensor(bounds, dtype=torch.int32, device=device), 3, 4, 2)
 
 
-# render, render with the median depth, train, gauss3d with the wet
-K1_CONFIGS = {"render": (False, "surfel", False),
-              "median": (True, "surfel", False),
-              "train": (True, "surfel", False),
-              "gauss3d": (True, "gauss3d", True)}
+# K1's compiled configurations: (needs, mode, aligned)
+K1_CONFIGS = {kernels.raster_blend_fwd_key(c[:3], c[3]): (c[:3], "surfel",
+                                                          c[3])
+              for c in kernels.K1_CONFIGS}
+K1_CONFIGS["raster_blend_fwd_gauss3d"] = ((True, True, True), "gauss3d",
+                                          True)
 
 
 @pytest.mark.parametrize("config", sorted(K1_CONFIGS))
 def test_raster_fwd_kernel_on_ragged_tiles(cuda, config):
     """K1 in each configuration where tiles are empty, hold one pair,
     saturate in their first window (the block stops early) or walk 32
-    windows: every plane (and the wet) against the plain version."""
-    train, mode, wet = K1_CONFIGS[config]
-    args = _ragged_k1_inputs(cuda, config)
+    windows: every plane (and the wet) against the plain version, the
+    launch counted under the configuration's key."""
+    needs, mode, aligned = K1_CONFIGS[config]
+    args = _ragged_k1_inputs(cuda, mode, aligned)
     bounds = args[2].to(torch.int64)
     assert int(bounds[1] - bounds[0]) == 0
     assert (int(bounds[4] - bounds[3]) + 63) // 64 >= 30
-    got = kernels.raster_blend_fwd(*args, 0, train, mode, wet)
+    before = dict(kernels.LAUNCHES)
+    got = kernels.raster_blend_fwd(*args, 0, needs, mode, aligned)
     torch.cuda.synchronize()
-    want = blend_tiles_torch(*args, 0, train, mode, wet)
-    if wet:
+    assert _rose(before) == {config: 1}
+    want = blend_tiles_torch(*args, 0, needs, mode, aligned)
+    if needs[2]:
         (got, got_wet), (want, want_wet) = got, want
         assert float((got_wet - want_wet).abs().max()) <= ATOL
         assert float(want_wet.max()) > 1.0
     assert float((got - want).abs().max()) <= ATOL
     C = args[3]
-    trans = want[C + 7 if train else C + 5]
+    trans = want[C + 7 if needs[0] or needs[1] else C + 5]
     # tile 2 (columns 32-47 of the top row of tiles) saturates everywhere
     assert float(trans[:16, 32:48].max()) * (1 - 1 / 255) < 1e-4
     assert float(trans[:16, :16].min()) == 1.0  # tile 0: nothing
@@ -990,10 +1087,10 @@ def test_raster_kernels_at_a_row_offset_match_plain(cuda):
 
     args = layout((3, 2))
     n = dict(kernels.ROW_OFF_LAUNCHES)
-    out = blend_tiles(*args, 48, train=True)
-    want = blend_tiles_torch(*args, 48, train=True)
+    out = blend_tiles(*args, 48, TRAIN_NEEDS, aligned=True)
+    want = blend_tiles_torch(*args, 48, TRAIN_NEEDS, aligned=True)
     assert float((out - want).abs().max()) <= ATOL
-    full = blend_tiles(*layout(None), 0, train=True)
+    full = blend_tiles(*layout(None), 0, TRAIN_NEEDS, aligned=True)
     assert torch.equal(out, full[:, 48:80, :out.shape[2]])
     g_out = _cotangent(out, 3)
     got = blend_tiles_bwd(*args[:3], out, g_out, *args[3:], 48)
@@ -1001,8 +1098,7 @@ def test_raster_kernels_at_a_row_offset_match_plain(cuda):
     ref = blend_tiles_bwd_torch(*args[:3], out, g_out, *args[3:], 48)
     cols = list(range(15 + args[3])) + [31]
     _close_columns(got[:, cols], ref[:, cols])
-    assert kernels.ROW_OFF_LAUNCHES["raster_blend_fwd"] == (
-        n["raster_blend_fwd"] + 1)
+    assert kernels.ROW_OFF_LAUNCHES[TRAIN_KEY] == n[TRAIN_KEY] + 1
     assert kernels.ROW_OFF_LAUNCHES["raster_blend_bwd"] == (
         n["raster_blend_bwd"] + 1)
 
@@ -1025,7 +1121,7 @@ def test_band_render_equals_the_full_rows_on_the_card(cuda):
         band = forward_envgs(base, env, cam._replace(H=32), 10, cfg, *hooks,
                              band=(16, cam.H))
         torch.cuda.synchronize()
-    assert _rose(before) == {"raster_blend_fwd": 1, "trace_blend_fwd": 1,
+    assert _rose(before) == {TRAIN_KEY: 1, "trace_blend_fwd": 1,
                              "fill_forward": 1}
     for k in ("acc_map", "dpt_map", "norm_map", "spec_map", "dist_map",
               "dif_rgb_map"):

@@ -63,15 +63,19 @@ def test_moderators_registered_by_reference_name():
     assert MODERATORS.build({"type": None}) is None
     with pytest.raises(KeyError, match="DatasetRatioModerater"):
         MODERATORS.get("DatasetRatioModerater")
-    # the JAX package's other registries: nothing of the port is there
-    for name in engine.UNPORTED_REGISTRIES:
-        with pytest.raises(NotImplementedError, match=name):
-            getattr(engine, name)
-    assert set(engine.UNPORTED_REGISTRIES) | {
-        "DATASETS", "MODERATORS", "TRAINERS", "SCHEDULERS",
-        "DATASAMPLERS", "SAMPLERS", "NETWORKS", "EMBEDDERS", "REGRESSORS",
-        "RENDERERS"} == {
-        k for k, v in vars(jengine).items() if isinstance(v, jregistry)}
+    # every registry of the JAX package, under its name, in the port; the
+    # nine into which neither package registers anything are empty in both
+    jregs = {k: v for k, v in vars(jengine).items()
+             if isinstance(v, jregistry)}
+    assert {k for k, v in vars(engine).items()
+            if isinstance(v, engine.Registry)} == set(jregs)
+    assert {k: getattr(engine, k).name for k in jregs} == {
+        k: v.name for k, v in jregs.items()}
+    for k in ("DATALOADERS", "MODELS", "CAMERAS", "SUPERVISORS", "RUNNERS",
+              "OPTIMIZERS", "RECORDERS", "EVALUATORS", "VISUALIZERS"):
+        assert not jregs[k]._modules and not getattr(engine, k)._modules, k
+        with pytest.raises(KeyError, match=jregs[k].name):
+            getattr(engine, k).get("anything")
 
 
 def _views(n=3, seed=0):

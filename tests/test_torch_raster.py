@@ -180,17 +180,33 @@ def test_rasterize_median_only_matches_jax(depth_ratio):
     assert float(tout.depth_median.max()) > 1.5  # the median was written
     assert int(tout.num_pairs) == int(jout.num_pairs)
     assert not tout.distortion.any() and not tout.wet.any()
-    assert tout.d1 is None and not tout.depth_median.requires_grad
+    assert not tout.d1.any() and not tout.d2.any()
+    assert not tout.depth_median.requires_grad
 
 
-def test_training_outputs_raise():
-    """The training outputs come all together: a partial `needs` raises
-    (tests/test_torch_train_raster.py covers the training path)."""
+def test_distortion_only_matches_jax():
+    """needs = (True, False, False) on the unaligned layout, once refused:
+    the distortion and its moments within ATOL of JAX's, the median depth
+    and the wet exact zeros as JAX leaves them
+    (tests/test_torch_raster_needs.py holds every other `needs`)."""
     tc = tcam.make_camera(16, 16, _K(16, 16), np.eye(3, dtype=np.float32),
                           np.zeros(3, np.float32))
-    prep = tcommon.prepare_splats(*map(torch.tensor, _scene(P=8, C=3)), tc)
-    with pytest.raises(NotImplementedError, match="train"):
-        traster.rasterize(prep, tc, torch.zeros(3), needs=(True, False, False))
+    jc = make_camera(16, 16, _K(16, 16), np.eye(3, dtype=np.float32),
+                     np.zeros(3, np.float32))
+    jp = jax.jit(lambda *a: prepare_splats(*a, jc))(*_scene(P=40, C=3))
+    jout = jax.jit(lambda p: jraster.rasterize(
+        p, jc, jnp.zeros(3), backend="pallas_interp", pair_cap=4096,
+        needs=(True, False, False)))(jp)
+    tp = tcommon.PreparedSplats(*(torch.tensor(np.asarray(x)) for x in jp))
+    tout = traster.rasterize(tp, tc, torch.zeros(3), pair_cap=4096,
+                             needs=(True, False, False))
+    for name in ("rgb", "alpha", "distortion", "d1", "d2", "trans"):
+        np.testing.assert_allclose(getattr(tout, name).numpy(),
+                                   np.asarray(getattr(jout, name)),
+                                   atol=ATOL, err_msg=name)
+    assert float(jout.distortion.max()) > 0
+    assert not np.asarray(jout.depth_median).any()
+    assert not tout.depth_median.any() and not tout.wet.any()
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -213,8 +229,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.fill_forward(torch.zeros(3, 64, dtype=torch.int32), idx)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.raster_blend_fwd(packed, idx, bounds, 3, 1, 1, mode="gauss3d",
-                                 wet=True)
+        kernels.raster_blend_fwd(packed, idx, bounds, 3, 1, 1,
+                                 needs=(True, True, True), mode="gauss3d",
+                                 aligned=True)
+    for *needs, aligned in kernels.K1_CONFIGS:
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.raster_blend_fwd(packed, idx, bounds, 3, 1, 1, 0, needs,
+                                     aligned=aligned)
     rows = torch.zeros(1024, 128)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.segscan(rows, torch.zeros(1024, dtype=torch.int32))
@@ -223,7 +244,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.gather_rows_win8(rows.to(torch.bfloat16), idx)
     assert set(kernels.LAUNCHES) == {
-        "raster_blend_fwd", "raster_blend_fwd_gauss3d", "raster_blend_bwd",
+        "raster_blend_fwd", "raster_blend_fwd_dist", "raster_blend_fwd_med",
+        "raster_blend_fwd_dist_med", "raster_blend_fwd_aligned",
+        "raster_blend_fwd_aligned_dist", "raster_blend_fwd_aligned_med",
+        "raster_blend_fwd_aligned_dist_med", "raster_blend_fwd_aligned_wet",
+        "raster_blend_fwd_aligned_dist_wet",
+        "raster_blend_fwd_aligned_med_wet",
+        "raster_blend_fwd_aligned_dist_med_wet", "raster_blend_fwd_gauss3d",
+        "raster_blend_bwd",
         "raster_blend_bwd_gauss3d", "trace_blend_fwd", "trace_blend_fwd_geo",
         "trace_blend_fwd_wet", "trace_blend_bwd", "fill_forward", "segscan",
         "gather_rows", "gather_rows_win8"}

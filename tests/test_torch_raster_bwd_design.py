@@ -123,8 +123,8 @@ def test_gauss3d_slots_fit_the_packed_row_and_cover_the_plain_columns(C):
                                          .astype(np.float32))
     idx = torch.arange(P, dtype=torch.int32)
     bounds = torch.tensor([0, P], dtype=torch.int32)
-    out = blend_tiles_torch(packed, idx, bounds, C, 1, 1, train=True,
-                            mode="gauss3d")
+    out = blend_tiles_torch(packed, idx, bounds, C, 1, 1,
+                            needs=(True, True, False), mode="gauss3d")
     g_out = torch.tensor(rng.standard_normal(tuple(out.shape))
                          .astype(np.float32))
     grad = blend_tiles_bwd_torch(packed, idx, bounds, out, g_out, C, 1, 1,

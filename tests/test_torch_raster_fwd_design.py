@@ -11,8 +11,9 @@ a card, where they are held against their plain versions. These cases guard
 the designs' models: the footprint model refuses no pixel the exact terms
 admit (over random surfels from round to thin and edge-on, opacities up to
 0.99, and 3DGS conics with the 0.3 low-pass), the walk with every skip
-gives the plain forward's planes and wet to the bit in all four
-configurations, the wet's tree is the plain version's order, and the
+gives the plain forward's planes and wet to the bit in the render, the
+training and the 3DGS configurations and in the partial `needs` between
+them, the wet's tree is the plain version's order, and the
 look-back gives the plain fill-forward on ragged inputs. What ties them to
 the sources: the footprint test's constants, the warps' shapes, the skip's
 votes and K5's block size are parsed from the `.cu` files.
@@ -149,13 +150,14 @@ def _warp_of_pixel(shape):
 
 
 def raster_blend_skip_model(packed, gidx, bounds, C, tiles_x, tiles_y,
-                            train=False, mode="surfel", wet=False):
+                            needs=(False, False, False), mode="surfel"):
     """Model of the new K1's walk: blend_tiles_torch's loop in which a
     warp (8x4, or 16x2 with the wet) evaluates a pair only where the
     footprint model lets it reach the warp's patch and some pixel of the
     warp has neither failed in this window nor saturated, and a tile stops
     after the window in which all its pixels saturated. -> (planes, wet or
     None, (pair, warp) combinations evaluated)."""
+    need_dist, need_med, wet = needs
     terms = _terms(mode)
     shape = (16, 2) if wet else (8, 4)
     T = tiles_x * tiles_y
@@ -201,14 +203,15 @@ def raster_blend_skip_model(packed, gidx, bounds, C, tiles_x, tiles_y,
                 i = wstart + c * CHUNK + j
                 inb = (i >= start) & (i < end) & in_tile
                 wet_pairs[i[inb]] = _pixel_sum(w)[inb]
-            if train:
+            if need_dist:
                 m = _map_depth(z)
                 wm = w * m
                 dist = dist + w * (m * m * alp + d2 - 2.0 * m * d1)
                 d1 = d1 + wm
                 d2 = d2 + wm * m
-                med = torch.where(contrib & (trans > 0.5), z, med)
                 last = torch.where(contrib, float(c * CHUNK + j), last)
+            if need_med:
+                med = torch.where(contrib & (trans > 0.5), z, med)
             for k in range(C):
                 color[k] = color[k] + w * col[15 + k]
             dep = dep + w * z
@@ -218,7 +221,7 @@ def raster_blend_skip_model(packed, gidx, bounds, C, tiles_x, tiles_y,
             trans = torch.where(contrib, test, trans)
             dead = ~(trans * (1.0 - ALPHA_MIN) >= T_CUTOFF)
         walking = walking & ~dead.all(1)
-    if train:
+    if need_dist or need_med:
         planes = color + [dep, alp] + nrm + [med, dist, trans, d1, d2, last]
     else:
         planes = color + [dep, alp] + nrm + [trans]
@@ -226,11 +229,17 @@ def raster_blend_skip_model(packed, gidx, bounds, C, tiles_x, tiles_y,
             wet_pairs if wet else None, evaluated)
 
 
-# render, render with the median depth, train, gauss3d with the wet
-CONFIGS = {"render": (False, False, "surfel", False),  # aligned, train, ...
-           "median": (False, True, "surfel", False),
-           "train": (True, True, "surfel", False),
-           "gauss3d": (True, True, "gauss3d", True)}
+# (needs, aligned, mode): the render, the render with the median depth,
+# the training step (the wet hook's and the forward wet's), the 3DGS
+# configuration, and partial `needs` of either layout
+CONFIGS = {"render": ((False, False, False), False, "surfel"),
+           "median": ((False, True, False), False, "surfel"),
+           "dist": ((True, False, False), False, "surfel"),
+           "dist_med": ((True, True, False), False, "surfel"),
+           "train": ((True, True, False), True, "surfel"),
+           "train_wet": ((True, True, True), True, "surfel"),
+           "wet": ((False, False, True), True, "surfel"),
+           "gauss3d": ((True, True, True), True, "gauss3d")}
 
 
 @pytest.mark.parametrize("config", sorted(CONFIGS))
@@ -241,12 +250,11 @@ def test_walk_with_every_skip_changes_no_plane(config, seed):
     not have contributed: planes and wet are array-equal to the plain
     forward's, while a good part of the (pair, warp) combinations is not
     evaluated."""
-    aligned, train, mode, wet = CONFIGS[config]
+    needs, aligned, mode = CONFIGS[config]
     args = _k1_inputs(seed, aligned, mode)
-    want = blend_tiles_torch(*args, 0, train, mode, wet)
-    got, got_wet, evaluated = raster_blend_skip_model(*args, train, mode,
-                                                      wet)
-    if wet:
+    want = blend_tiles_torch(*args, 0, needs, mode, aligned)
+    got, got_wet, evaluated = raster_blend_skip_model(*args, needs, mode)
+    if needs[2]:
         want, want_wet = want
         assert torch.equal(got_wet, want_wet)
         assert float(want_wet.max()) > 1.0
@@ -255,7 +263,7 @@ def test_walk_with_every_skip_changes_no_plane(config, seed):
     start = bounds[:-1] - bounds[:-1] % 8
     walked = int(((bounds[1:] - start + CHUNK - 1) // CHUNK).sum())
     assert 0 < evaluated < 0.8 * walked * CHUNK * 8
-    trans = want[C + 7 if train else C + 5]
+    trans = want[C + 7 if needs[0] or needs[1] else C + 5]
     assert float(trans.min()) < 1e-3  # pixels saturate
 
 
@@ -263,11 +271,11 @@ def test_probe_counts_agree_with_the_skip_model():
     """The probe's count of the (pair, warp) combinations the new kernel
     evaluates is the skip model's."""
     for config in ("render", "gauss3d"):
-        aligned, train, mode, wet = CONFIGS[config]
+        needs, aligned, mode = CONFIGS[config]
         args = _k1_inputs(3, aligned, mode)
         counts = blend_variants.raster_counts(args, mode)
-        _, _, evaluated = raster_blend_skip_model(*args, train, mode, wet)
-        shape = "16x2" if wet else "8x4"
+        _, _, evaluated = raster_blend_skip_model(*args, needs, mode)
+        shape = "16x2" if needs[2] else "8x4"
         assert counts[f"slot_warps_evaluated_{shape}"] == evaluated
         assert (counts[f"slot_warps_contributing_{shape}"]
                 <= counts[f"slot_warps_foot_{shape}"]
@@ -502,10 +510,13 @@ def test_sources_keep_the_models_constants():
             in text)
     assert "ALPHA_MIN = (float)(1.0 / 255.0)" in text
     assert "T_CUTOFF = (float)1e-4" in text
-    for mode in ("SURFEL", "GAUSS3D"):
-        for train in ("true", "false"):
-            for wet in ("true", "false"):
-                assert f"F<{mode}, {train}, {wet}>::run(args...)" in text
+    # the configurations compiled are the wrapper's: the surfel mode's
+    # (need_dist, need_med, need_wet, aligned) sets, gauss3d all on
+    surfel = {tuple(v == "true" for v in m.split(", ")) for m in re.findall(
+        r"K1_SURFEL\((\w+, \w+, \w+, \w+)\)\n", text)}
+    assert surfel == set(kernels.K1_CONFIGS)
+    assert "F<SURFEL, D, M, W, A>::run(args...)" in text
+    assert "F<GAUSS3D, true, true, true, true>::run(args...)" in text
     # map_depth keeps its two divisions (fused or shared reciprocals move
     # the comparisons, see K2)
     assert ("return (FAR_PLANE * (zc - NEAR_PLANE)) / (FAR_M_NEAR * zc);"
