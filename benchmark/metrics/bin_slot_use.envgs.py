@@ -1,0 +1,8 @@
+"""The share of the EnvGS base pass's pair slots that hold a pair the
+blend reads: 100 * `bin.kept` / `bin.slots`, median over the traced steps
+(spans.py)."""
+from benchmark.spans import slot_use
+
+
+def read(ctx):
+    return slot_use(ctx, "train.step")

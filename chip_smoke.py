@@ -59,8 +59,10 @@ Phases, one or more lines each:
      one densify_and_prune (the same split draws) on a small scene, CUDA
      against CPU;
  11. the 3DGS slice: the 3DGS bench scene (1558x1038, 500K Gaussians in a
-     pool of 2^20) — renders that launch K5 and gauss3d K1 once each and
-     nothing else, render fps; 1 + 10 train steps, each launching K5 and
+     pool of 2^20) — the render's spans (render, render.project,
+     render.bin: device ms under the profiler) and the binning's counters;
+     renders that launch K5 and gauss3d K1 once each and nothing else,
+     render fps; 1 + 10 train steps, each launching K5 and
      gauss3d K1 and K2 once, train steps/s; gaussiant_maintenance at
      it=600 (densify) and it=3000 (SH one-up, densify, opacity reset) on
      the statistics those steps gathered, active counts and ms; 3 more
@@ -857,6 +859,24 @@ def small_gaussiant(device):
     cam = make_camera(H, W, K, np.eye(3, dtype=np.float32),
                       np.zeros(3, np.float32), device=device)
     return G.GaussianTState(pool, opt), cam, cfg, t(rng.random((H, W, 3)))
+
+
+def render_spans(render, reps: int = 5):
+    """({span: median device ms}, the last render's counters) of `reps`
+    renders under the profiler, after one more that warms up, read from
+    the program's spans (utils/timer.py)."""
+    from envgs_tpu_torch.utils import timer
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    timer.RECORD.clear()
+    with torch.no_grad(), torch.profiler.profile(activities=acts):
+        for _ in range(reps + 1):
+            render()
+    roots = timer.read_spans()[1:]
+    stages = {k: statistics.median(r["device_ms"][k] for r in roots)
+              for k in roots[-1]["device_ms"]}
+    return stages, roots[-1]["counts"]
 
 
 def run_small_gaussiant(device):
@@ -4962,10 +4982,12 @@ def main():
     # ---- 11. the 3DGS slice: renders, steps, maintenance ----
     from envgs_tpu_torch.models import gaussiant as G
 
-    stages = bench.gaussiant_stage_times(gstate.pool, gcam, gcfg)
-    print("[3dgs] render stage ms (median of 5, CUDA events): "
-          + json.dumps({k: round(v, 4) for k, v in stages.items()}),
-          flush=True)
+    stages, counters = render_spans(
+        lambda: G.render_gaussiant(gstate.pool, gcam, gcfg))
+    print("[3dgs] render span ms (median of 5 profiled renders, the spans' "
+          "CUDA events): "
+          + json.dumps({k: round(v, 4) for k, v in stages.items()})
+          + ", counters " + json.dumps(counters), flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.LAUNCHES:

@@ -1,25 +1,21 @@
-"""Benchmarks of the port on one CUDA card, the JAX package's bench scenes:
+"""The port's bench scenes on one CUDA card (the JAX package's bench
+scenes), and the helpers `chip_smoke.py` and the probes time them with:
 
-- render: bench.py::make_render_scene, 1584x1040, 300K base + 32K env
-  surfels, rendered through `forward_envgs` (render fps);
-- train: bench.py::main_train, 1558x1038, 500K base + 131K env surfels,
-  one EnvGS train step (`make_train_step`) at it=25000 (train steps/s);
+- render: `make_render_scene`, 1584x1040, 300K base + 32K env surfels,
+  rendered through `forward_envgs` (`render_fps`, `stage_times`);
+- train: `make_train_scene`, 1558x1038, 500K base + 131K env surfels, one
+  EnvGS train step (`make_bench_step`) at it=25000 (`train_stage_times`);
 - gaussiant: the train scene's base draws recast as 500K full 3D
   Gaussians (plain 3DGS, `models/gaussiant.py`) in a pool of 2^20 slots,
-  1558x1038, SH degree 3, the train scene's target image (render fps and
-  train steps/s).
+  1558x1038, SH degree 3, the train scene's target image
+  (`gaussiant_render_fps`).
 
-    python -m envgs_tpu_torch.bench             # one JSON line: render fps
-    python -m envgs_tpu_torch.bench train       # one JSON line: steps/s
-    python -m envgs_tpu_torch.bench gaussiant   # one JSON line: fps, steps/s
-
-Needs a CUDA card; without one it raises instead of timing the CPU.
+The timers need a CUDA card. The benchmark of the port is `benchmark/`
+(BENCHMARK.json at the repository's root).
 """
 from __future__ import annotations
 
-import json
 import statistics
-import sys
 import time
 
 import numpy as np
@@ -37,7 +33,6 @@ from envgs_tpu_torch.models.gaussians import DensifyConfig, create_pool, logit
 from envgs_tpu_torch.models.gaussiant import (
     GaussianTConfig,
     init_gaussiant_state,
-    make_gaussiant_train_step,
     pool_colors,
     prepare_gaussiant,
     render_gaussiant,
@@ -62,7 +57,6 @@ from envgs_tpu_torch.train.supervisor import LossConfig
 from envgs_tpu_torch.train.trainer import (
     Batch,
     ScheduleConfig,
-    init_train_state,
     make_train_step,
 )
 from envgs_tpu_torch.utils.camera import Camera, get_rays, make_camera
@@ -452,19 +446,6 @@ def make_bench_step(cam: Camera, cfg: EnvGSConfig):
                            LRConfig(), LRConfig(), has_norm=True)
 
 
-def train_steps_per_sec(step, state, batch, cam: Camera, n: int = 10,
-                        it: int = TRAIN_IT):
-    """(steps/s, state, stats of the last step) over n synchronized steps,
-    after one warm-up step. The state advances through all of them."""
-    state, stats = step(state, batch, cam.K, cam.R, cam.T, it)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        state, stats = step(state, batch, cam.K, cam.R, cam.T, it)
-    torch.cuda.synchronize()
-    return n / (time.perf_counter() - t0), state, stats
-
-
 def train_stage_times(step, state, batch, cam: Camera, reps: int = 5,
                       it: int = TRAIN_IT) -> dict:
     """Median device ms of the step's stages (forward with the losses,
@@ -556,97 +537,6 @@ def gaussiant_render_fps(pool, cam, cfg: GaussianTConfig, n: int = 10):
             render_gaussiant(pool, cam, cfg)
         torch.cuda.synchronize()
     return n / (time.perf_counter() - t0)
-
-
-def gaussiant_stage_times(pool, cam, cfg: GaussianTConfig,
-                          reps: int = 5) -> dict:
-    """Median device ms of each stage of a 3DGS render (no autograd), CUDA
-    events around the calls render_gaussiant makes, each fed the real
-    output of the one before it."""
-    events = {}
-
-    def timed(name, fn):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        res = fn()
-        e1.record()
-        events.setdefault(name, []).append((e0, e1))
-        return res
-
-    with torch.no_grad():
-        for _ in range(reps + 1):  # the first pass warms up
-            timed("total", lambda: render_gaussiant(pool, cam, cfg))
-            colors = timed("sh_colors", lambda: pool_colors(pool, cam.center))
-            prep = timed("prepare",
-                         lambda: prepare_gaussiant(pool, cam, cfg, colors))
-            packed, bins = timed("bin_pack", lambda: bin_and_pack(
-                prep, cam, cfg.pair_cap))
-            timed("raster_blend", lambda: blend_tiles(
-                packed, bins.gauss_idx, bins.tile_bounds, colors.shape[-1],
-                bins.tiles_x, bins.tiles_y, needs=(True, True, True),
-                mode="gauss3d", aligned=True))
-    torch.cuda.synchronize()
-    return {k: statistics.median(e0.elapsed_time(e1) for e0, e1 in v[1:])
-            for k, v in events.items()}
-
-
-def gaussiant_steps_per_sec(step, state, cam: Camera, target, n: int = 10):
-    """(steps/s, state, aux of the last step) over n synchronized steps,
-    after one warm-up step. The state advances through all of them."""
-    state, aux = step(state, cam.K, cam.R, cam.T, target)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        state, aux = step(state, cam.K, cam.R, cam.T, target)
-    torch.cuda.synchronize()
-    return n / (time.perf_counter() - t0), state, aux
-
-
-def main() -> dict:
-    if not torch.cuda.is_available():
-        raise RuntimeError("the render benchmark needs a CUDA card")
-    base, env, cam, cfg = make_render_scene("cuda")
-    check_render(forward_envgs(base, env, cam, 10, cfg), cfg)
-    fps = render_fps(base, env, cam, cfg)
-    return {"metric": "envgs_full_render_fps_1584x1040", "value": fps,
-            "unit": "fps", "device": torch.cuda.get_device_name(0)}
-
-
-def main_train() -> dict:
-    if not torch.cuda.is_available():
-        raise RuntimeError("the train benchmark needs a CUDA card")
-    base, env, cam, cfg, batch = make_train_scene("cuda")
-    sps, _, stats = train_steps_per_sec(make_bench_step(cam, cfg),
-                                        init_train_state(base, env), batch,
-                                        cam)
-    return {"metric": "envgs_train_steps_per_sec_1558x1038", "value": sps,
-            "unit": "steps/s", "loss": float(stats["loss"]),
-            "pair_overflow": int(stats["pair_overflow"]),
-            "trace_dropped": int(stats["trace_dropped"]),
-            "device": torch.cuda.get_device_name(0)}
-
-
-def main_gaussiant() -> dict:
-    if not torch.cuda.is_available():
-        raise RuntimeError("the 3DGS benchmark needs a CUDA card")
-    state, cam, cfg, _, target = make_gaussiant_scene("cuda")
-    with torch.no_grad():
-        n_pairs, _ = check_gaussiant(render_gaussiant(state.pool, cam, cfg),
-                                     cfg)
-    fps = gaussiant_render_fps(state.pool, cam, cfg)
-    sps, _, aux = gaussiant_steps_per_sec(
-        make_gaussiant_train_step(cfg, cam), state, cam, target)
-    return {"metric": "gaussiant_render_fps_1558x1038", "value": fps,
-            "unit": "fps", "train_steps_per_sec": sps,
-            "loss": float(aux["loss"]), "pairs": n_pairs,
-            "pair_overflow": int(aux["pair_overflow"]),
-            "device": torch.cuda.get_device_name(0)}
-
-
-if __name__ == "__main__":
-    mains = {"train": main_train, "gaussiant": main_gaussiant}
-    print(json.dumps(mains[sys.argv[1]]() if sys.argv[1:] else main()))
 
 
 # ---- the kernel-free families' small steps (CUDA against CPU) ----

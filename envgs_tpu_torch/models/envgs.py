@@ -48,6 +48,7 @@ from envgs_tpu_torch.ops.tracer_ref import (
 )
 from envgs_tpu_torch.utils.camera import Camera, get_rays
 from envgs_tpu_torch.utils.sh import eval_sh_color
+from envgs_tpu_torch.utils.timer import span
 from envgs_tpu_torch.utils.transforms import normalize, reflect
 
 
@@ -340,82 +341,85 @@ def forward_envgs(base: GaussianPool, env: GaussianPool, cam: Camera,
     with the bands' axis (parallel.collectives.Axis) the env pass's SH
     view origin is the image's. The specular filter's quantile stays the
     band's own, as in the JAX package."""
-    check_backend("raster", cfg.raster_backend)
-    check_backend("tracer", cfg.tracer_backend)
-    i0 = None if band is None else band[0]
-    if base_pass is not None:
-        b = base_pass(base, cam, cfg, means2d_zero, wet_zero=wet_zero)
-    elif cfg.use_base_tracing:
-        b = render_base_traced(base, cam, cfg, means2d_zero, wet_zero,
-                               band=band)
-    else:
-        b = render_base(base, cam, cfg, means2d_zero, wet_zero, band=band)
-    H, W = cam.H, cam.W
-    dev = b.rgb.device
-    spec = b.specular if b.specular is not None else b.rgb.new_zeros((H, W, 1))
-    rough = b.roughness if b.roughness is not None else b.rgb.new_zeros((H, W, 1))
-    ref_o, ref_d = reflect_rays(cam, b, i0=i0)
-    if cfg.detach_reflection:
-        ref_o, ref_d = ref_o.detach(), ref_d.detach()
-
-    ref_msk = None
-    if cfg.specular_filtering_start_iter > 0:
-        if it >= cfg.specular_filtering_start_iter:
-            thresh = _bisect_quantile01(spec[..., 0],
-                                        cfg.specular_filtering_percent)
-            ref_msk = spec[..., 0] > thresh
+    with span("render"):
+        check_backend("raster", cfg.raster_backend)
+        check_backend("tracer", cfg.tracer_backend)
+        i0 = None if band is None else band[0]
+        if base_pass is not None:
+            b = base_pass(base, cam, cfg, means2d_zero, wet_zero=wet_zero)
+        elif cfg.use_base_tracing:
+            b = render_base_traced(base, cam, cfg, means2d_zero, wet_zero,
+                                   band=band)
         else:
-            ref_msk = torch.ones((H, W), dtype=torch.bool, device=dev)
-    elif cfg.acc_filtering_start_iter > 0:
-        ref_msk = (b.alpha[..., 0] > 0.75 if it >= cfg.acc_filtering_start_iter
-                   else torch.ones((H, W), dtype=torch.bool, device=dev))
+            b = render_base(base, cam, cfg, means2d_zero, wet_zero, band=band)
+        H, W = cam.H, cam.W
+        dev = b.rgb.device
+        spec = b.specular if b.specular is not None else b.rgb.new_zeros((H, W, 1))
+        rough = b.roughness if b.roughness is not None else b.rgb.new_zeros((H, W, 1))
+        ref_o, ref_d = reflect_rays(cam, b, i0=i0)
+        if cfg.detach_reflection:
+            ref_o, ref_d = ref_o.detach(), ref_d.detach()
 
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    active = cfg.render_reflection and it >= cfg.reflection_start_iter
-    if active:
-        env_pass = env_pass or functools.partial(
-            render_env, band_axis=band[2] if band is not None
-            and len(band) > 2 else None)
-        e = env_pass(env, ref_o, ref_d, cfg, env_means3d_zero,
-                     ray_mask=ref_msk, wet_zero=env_wet_zero)
-        env_rgb, env_dpt, env_acc = e.rgb, e.dpt[..., None], e.acc[..., None]
-        # the reference tracer has no slot budget: nothing dropped
-        env_wet = e.wet
-        env_dropped = zero if e.dropped_pairs is None else e.dropped_pairs
-        env_num_pairs = zero if e.num_pairs is None else e.num_pairs
-        spec_eff = spec
-    else:
-        env_rgb = b.rgb.new_zeros((H, W, 3))
-        env_dpt = env_acc = b.rgb.new_zeros((H, W, 1))
-        env_wet = b.rgb.new_zeros((env.cap,))
-        env_dropped = env_num_pairs = zero
-        spec_eff = torch.zeros_like(spec)
-    if ref_msk is not None:
-        spec_eff = torch.where(ref_msk[..., None], spec_eff, 0.0)
-    rgb = (1.0 - spec_eff) * b.rgb + spec_eff * env_rgb
-    return EnvGSOutput(
-        rgb_map=rgb,
-        dif_rgb_map=b.rgb * (1.0 - spec),
-        ref_rgb_map=env_rgb * spec * 2.0,
-        env_rgb_map=env_rgb,
-        spec_map=spec,
-        rough_map=rough,
-        acc_map=b.alpha,
-        dpt_map=b.surf_depth,
-        norm_map=b.normal_world,
-        dist_map=b.distortion,
-        surf_norm_map=b.surf_normal,
-        env_dpt_map=env_dpt,
-        env_acc_map=env_acc,
-        ref_o=ref_o,
-        ref_d=ref_d,
-        base_wet=b.wet,
-        base_radii=b.radii,
-        base_visibility=b.visibility,
-        env_wet=env_wet,
-        env_visibility=env_wet > 0,
-        env_opacity=env.get_opacity,
-        base_num_pairs=b.num_pairs,
-        env_dropped_pairs=env_dropped,
-        env_num_pairs=env_num_pairs,
-    )
+        ref_msk = None
+        if cfg.specular_filtering_start_iter > 0:
+            if it >= cfg.specular_filtering_start_iter:
+                thresh = _bisect_quantile01(spec[..., 0],
+                                            cfg.specular_filtering_percent)
+                ref_msk = spec[..., 0] > thresh
+            else:
+                ref_msk = torch.ones((H, W), dtype=torch.bool, device=dev)
+        elif cfg.acc_filtering_start_iter > 0:
+            ref_msk = (b.alpha[..., 0] > 0.75
+                       if it >= cfg.acc_filtering_start_iter
+                       else torch.ones((H, W), dtype=torch.bool, device=dev))
+
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        active = cfg.render_reflection and it >= cfg.reflection_start_iter
+        if active:
+            env_pass = env_pass or functools.partial(
+                render_env, band_axis=band[2] if band is not None
+                and len(band) > 2 else None)
+            e = env_pass(env, ref_o, ref_d, cfg, env_means3d_zero,
+                         ray_mask=ref_msk, wet_zero=env_wet_zero)
+            env_rgb = e.rgb
+            env_dpt, env_acc = e.dpt[..., None], e.acc[..., None]
+            # the reference tracer has no slot budget: nothing dropped
+            env_wet = e.wet
+            env_dropped = zero if e.dropped_pairs is None else e.dropped_pairs
+            env_num_pairs = zero if e.num_pairs is None else e.num_pairs
+            spec_eff = spec
+        else:
+            env_rgb = b.rgb.new_zeros((H, W, 3))
+            env_dpt = env_acc = b.rgb.new_zeros((H, W, 1))
+            env_wet = b.rgb.new_zeros((env.cap,))
+            env_dropped = env_num_pairs = zero
+            spec_eff = torch.zeros_like(spec)
+        if ref_msk is not None:
+            spec_eff = torch.where(ref_msk[..., None], spec_eff, 0.0)
+        rgb = (1.0 - spec_eff) * b.rgb + spec_eff * env_rgb
+        return EnvGSOutput(
+            rgb_map=rgb,
+            dif_rgb_map=b.rgb * (1.0 - spec),
+            ref_rgb_map=env_rgb * spec * 2.0,
+            env_rgb_map=env_rgb,
+            spec_map=spec,
+            rough_map=rough,
+            acc_map=b.alpha,
+            dpt_map=b.surf_depth,
+            norm_map=b.normal_world,
+            dist_map=b.distortion,
+            surf_norm_map=b.surf_normal,
+            env_dpt_map=env_dpt,
+            env_acc_map=env_acc,
+            ref_o=ref_o,
+            ref_d=ref_d,
+            base_wet=b.wet,
+            base_radii=b.radii,
+            base_visibility=b.visibility,
+            env_wet=env_wet,
+            env_visibility=env_wet > 0,
+            env_opacity=env.get_opacity,
+            base_num_pairs=b.num_pairs,
+            env_dropped_pairs=env_dropped,
+            env_num_pairs=env_num_pairs,
+        )

@@ -51,6 +51,7 @@ from envgs_tpu_torch.train.trainer import (
 )
 from envgs_tpu_torch.utils.camera import Camera
 from envgs_tpu_torch.utils.sh import eval_sh_color
+from envgs_tpu_torch.utils.timer import span
 from envgs_tpu_torch.utils.transforms import normalize
 
 
@@ -107,11 +108,12 @@ def render_gaussiant(pool: GaussianPool, cam: Camera, cfg: GaussianTConfig,
                      ) -> Raster3DOutput:
     """Render one view of a 3DGS pool (diff_gauss output contract): the
     render_gaussians3d of the JAX package's render_gaussiant."""
-    colors = pool_colors(pool, cam.center)
-    bg = torch.full((colors.shape[-1],), cfg.bg_brightness,
-                    dtype=torch.float32, device=colors.device)
-    return rasterize3d(prepare_gaussiant(pool, cam, cfg, colors), cam, bg,
-                       cfg.pair_cap, means2d_zero, cfg.raster_backend)
+    with span("render"):
+        colors = pool_colors(pool, cam.center)
+        bg = torch.full((colors.shape[-1],), cfg.bg_brightness,
+                        dtype=torch.float32, device=colors.device)
+        return rasterize3d(prepare_gaussiant(pool, cam, cfg, colors), cam, bg,
+                           cfg.pair_cap, means2d_zero, cfg.raster_backend)
 
 
 class GaussianTState(NamedTuple):
@@ -136,36 +138,42 @@ def make_gaussiant_train_step(cfg: GaussianTConfig, cam_template: Camera,
     znear, zfar = cam_template.znear, cam_template.zfar
 
     def step(state: GaussianTState, K, R, T, target):
-        cam = Camera(H, W, K, R, T, znear, zfar)
-        pool = state.pool
-        params = map_params(lambda p: p.detach().requires_grad_(True),
-                            pool.params)
-        m2z = torch.zeros((pool.cap, 2), device=params.xyz.device,
-                          requires_grad=True)
-        out = render_gaussiant(pool._replace(params=params), cam, cfg,
-                               means2d_zero=m2z)
-        l1 = torch.mean(torch.abs(out.rgb - target))
-        s = ssim(out.rgb, target)
-        loss = (1.0 - cfg.ssim_weight) * l1 + cfg.ssim_weight * (1.0 - s)
-        leaves = [*present(params), m2z]
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for g, x in zip(grads, leaves)]
-        g_params, g_m2z = fill_params(params, grads[:-1]), grads[-1]
+        with span("train.step"):
+            cam = Camera(H, W, K, R, T, znear, zfar)
+            pool = state.pool
+            params = map_params(lambda p: p.detach().requires_grad_(True),
+                                pool.params)
+            m2z = torch.zeros((pool.cap, 2), device=params.xyz.device,
+                              requires_grad=True)
+            with span("train.forward"):
+                out = render_gaussiant(pool._replace(params=params), cam, cfg,
+                                       means2d_zero=m2z)
+                l1 = torch.mean(torch.abs(out.rgb - target))
+                s = ssim(out.rgb, target)
+                loss = ((1.0 - cfg.ssim_weight) * l1
+                        + cfg.ssim_weight * (1.0 - s))
+            leaves = [*present(params), m2z]
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                grads = [torch.zeros_like(x) if g is None else g
+                         for g, x in zip(grads, leaves)]
+            g_params, g_m2z = fill_params(params, grads[:-1]), grads[-1]
 
-        new_params, new_opt = sparse_adam_update(
-            pool.params, g_params, state.opt,
-            lr_tree_for(int(state.opt.step), lr))
-        stats = accumulate_stats(pool.stats, g_m2z, out.radii > 0,
-                                 weight=out.wet, radii=out.radii.detach())
-        new_pool = pool._replace(params=new_params, stats=stats)
-        rgb = out.rgb.detach()
-        psnr = -10.0 * torch.log10(torch.mean((rgb - target) ** 2) + 1e-10)
-        info = dict(loss=loss.detach(), psnr=psnr, n_pts=stats.active.sum())
-        if out.num_pairs is not None:  # the reference has no pair budget
-            info["pair_overflow"] = torch.clamp(out.num_pairs - cfg.pair_cap,
-                                                min=0)
-        return GaussianTState(new_pool, new_opt), info
+            new_params, new_opt = sparse_adam_update(
+                pool.params, g_params, state.opt,
+                lr_tree_for(int(state.opt.step), lr))
+            stats = accumulate_stats(pool.stats, g_m2z, out.radii > 0,
+                                     weight=out.wet, radii=out.radii.detach())
+            new_pool = pool._replace(params=new_params, stats=stats)
+            rgb = out.rgb.detach()
+            psnr = -10.0 * torch.log10(
+                torch.mean((rgb - target) ** 2) + 1e-10)
+            info = dict(loss=loss.detach(), psnr=psnr,
+                        n_pts=stats.active.sum())
+            if out.num_pairs is not None:  # the reference has no pair budget
+                info["pair_overflow"] = torch.clamp(
+                    out.num_pairs - cfg.pair_cap, min=0)
+            return GaussianTState(new_pool, new_opt), info
 
     return step
 

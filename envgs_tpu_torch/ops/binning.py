@@ -26,6 +26,7 @@ import torch
 
 from envgs_tpu_torch.ops.common import PreparedSplats, snug_row_interval
 from envgs_tpu_torch.ops.fill_forward import fill_forward
+from envgs_tpu_torch.utils.timer import count, span
 
 LANES = 128
 BROWS = 256
@@ -83,91 +84,97 @@ def bin_splats(
     band of tile rows, with band-local tile ids (the band row-crop: `prep`
     comes from the full camera, so every float is the full image's; the
     band is integer tile arithmetic alone)."""
-    dev = prep.depth.device
-    tx_n, ty_full = tile_dims(H, W, tile)
-    ty0, ty_n = (0, ty_full) if row_window is None else row_window
-    num_tiles = tx_n * ty_n
-    P = prep.depth.shape[0]
-    pair_cap = _round_up(pair_cap, _ALIGN_N)
+    with span("render.bin"):
+        dev = prep.depth.device
+        tx_n, ty_full = tile_dims(H, W, tile)
+        ty0, ty_n = (0, ty_full) if row_window is None else row_window
+        num_tiles = tx_n * ty_n
+        P = prep.depth.shape[0]
+        pair_cap = _round_up(pair_cap, _ALIGN_N)
 
-    # ---- depth-sort the splats (index order becomes blend order) ----
-    key = torch.where(prep.valid, prep.depth,
-                      torch.full_like(prep.depth, float("inf")))
-    order = torch.argsort(key, stable=True)
-    cx, cy = prep.center_pix[order, 0], prep.center_pix[order, 1]
-    rx, ry = prep.ext[order, 0], prep.ext[order, 1]
-    valid = prep.valid[order]
-    rowcull = prep.rowcull[order]
+        # ---- depth-sort the splats (index order becomes blend order) ----
+        key = torch.where(prep.valid, prep.depth,
+                          torch.full_like(prep.depth, float("inf")))
+        order = torch.argsort(key, stable=True)
+        cx, cy = prep.center_pix[order, 0], prep.center_pix[order, 1]
+        rx, ry = prep.ext[order, 0], prep.ext[order, 1]
+        valid = prep.valid[order]
+        rowcull = prep.rowcull[order]
 
-    def tcoord(v, hi):
-        return torch.clamp(torch.floor(v / tile), 0, hi).to(torch.int32)
+        def tcoord(v, hi):
+            return torch.clamp(torch.floor(v / tile), 0, hi).to(torch.int32)
 
-    x0 = tcoord(cx - rx, tx_n - 1)
-    x1 = tcoord(cx + rx, tx_n - 1)
-    y0 = tcoord(cy - ry, ty_full - 1)
-    y1 = tcoord(cy + ry, ty_full - 1)
-    if row_window is not None:  # the tile-row span clipped to the band
-        y0 = torch.clamp(y0, min=ty0) - ty0
-        y1 = torch.clamp(y1, max=ty0 + ty_n - 1) - ty0
-    zero = torch.zeros_like(x0)
-    nx = torch.where(valid, x1 - x0 + 1, zero)
-    ny = torch.where(valid & (y1 >= y0), y1 - y0 + 1, zero)
-    counts = nx * ny
-    ends = torch.cumsum(counts, 0, dtype=torch.int32)
-    starts = ends - counts
-    total = ends[-1] if P > 0 else torch.zeros((), dtype=torch.int32,
-                                                device=dev)
+        x0 = tcoord(cx - rx, tx_n - 1)
+        x1 = tcoord(cx + rx, tx_n - 1)
+        y0 = tcoord(cy - ry, ty_full - 1)
+        y1 = tcoord(cy + ry, ty_full - 1)
+        if row_window is not None:  # the tile-row span clipped to the band
+            y0 = torch.clamp(y0, min=ty0) - ty0
+            y1 = torch.clamp(y1, max=ty0 + ty_n - 1) - ty0
+        zero = torch.zeros_like(x0)
+        nx = torch.where(valid, x1 - x0 + 1, zero)
+        ny = torch.where(valid & (y1 >= y0), y1 - y0 + 1, zero)
+        counts = nx * ny
+        ends = torch.cumsum(counts, 0, dtype=torch.int32)
+        starts = ends - counts
+        total = ends[-1] if P > 0 else torch.zeros((), dtype=torch.int32,
+                                                    device=dev)
+        count("bin.pairs", total)
+        count("bin.slots", pair_cap)
 
-    # ---- broadcast per-splat values to pair slots: the splat id at each
-    # run start, a running max (ids ascend in depth order), one gather.
-    # Slot `pair_cap` is a spare that takes the starts beyond the cap. ----
-    sel = counts > 0
-    pos = torch.where(sel, starts, torch.full_like(starts, pair_cap))
-    pos = torch.clamp(pos, max=pair_cap).to(torch.int64)
-    ids = torch.arange(P, dtype=torch.int32, device=dev)
-    sid = torch.zeros(pair_cap + 1, dtype=torch.int32, device=dev)
-    sid[pos] = ids
-    gid = torch.cummax(sid[:pair_cap], 0).values.to(torch.int64)
-    start_s = starts[gid]
-    t0_s = (y0 * tx_n + x0)[gid]
-    nx_s = torch.clamp(nx, min=1)[gid]
+        # ---- broadcast per-splat values to pair slots: the splat id at each
+        # run start, a running max (ids ascend in depth order), one gather.
+        # Slot `pair_cap` is a spare that takes the starts beyond the cap. ----
+        sel = counts > 0
+        pos = torch.where(sel, starts, torch.full_like(starts, pair_cap))
+        pos = torch.clamp(pos, max=pair_cap).to(torch.int64)
+        ids = torch.arange(P, dtype=torch.int32, device=dev)
+        sid = torch.zeros(pair_cap + 1, dtype=torch.int32, device=dev)
+        sid[pos] = ids
+        gid = torch.cummax(sid[:pair_cap], 0).values.to(torch.int64)
+        start_s = starts[gid]
+        t0_s = (y0 * tx_n + x0)[gid]
+        nx_s = torch.clamp(nx, min=1)[gid]
 
-    slots = torch.arange(pair_cap, dtype=torch.int32, device=dev)
-    in_range = slots < torch.clamp(total, max=pair_cap)
-    k = slots - start_s  # >= 0: every slot lies at or past its run start
-    ty_s = t0_s // tx_n + k // nx_s
-    xt_s = t0_s % tx_n + k % nx_s
-    sentinel = torch.full_like(slots, num_tiles)
-    tid = torch.where(in_range, ty_s * tx_n + xt_s, sentinel)
-    # row-cull: retarget pairs outside the per-row footprint interval
-    ctr = torch.stack([cx, cy], dim=-1)[gid]
-    yb0 = ((ty_s + ty0) * tile).to(torch.float32)  # global pixel rows
-    yb1 = yb0 + (tile - 1)
-    x_lo, x_hi = snug_row_interval(ctr, rowcull[gid], yb0, yb1, lowpass_r)
-    xt_f = xt_s.to(torch.float32) * tile
-    keep = (xt_f + (tile - 1) >= x_lo) & (xt_f <= x_hi)
-    tid = torch.where(keep, tid, sentinel)
+        slots = torch.arange(pair_cap, dtype=torch.int32, device=dev)
+        in_range = slots < torch.clamp(total, max=pair_cap)
+        k = slots - start_s  # >= 0: every slot lies at or past its run start
+        ty_s = t0_s // tx_n + k // nx_s
+        xt_s = t0_s % tx_n + k % nx_s
+        sentinel = torch.full_like(slots, num_tiles)
+        tid = torch.where(in_range, ty_s * tx_n + xt_s, sentinel)
+        # row-cull: retarget pairs outside the per-row footprint interval
+        ctr = torch.stack([cx, cy], dim=-1)[gid]
+        yb0 = ((ty_s + ty0) * tile).to(torch.float32)  # global pixel rows
+        yb1 = yb0 + (tile - 1)
+        x_lo, x_hi = snug_row_interval(ctr, rowcull[gid], yb0, yb1, lowpass_r)
+        xt_f = xt_s.to(torch.float32) * tile
+        keep = (xt_f + (tile - 1) >= x_lo) & (xt_f <= x_hi)
+        tid = torch.where(keep, tid, sentinel)
 
-    tid_s, gauss_s = tile_stable_sort(tid, gid.to(torch.int32), P)
-    bounds = torch.searchsorted(
-        tid_s, torch.arange(num_tiles + 1, dtype=torch.int32, device=dev),
-        side="left").to(torch.int32)
-    if aligned:
-        gauss_idx, bounds = _align_tiles(gauss_s, bounds, P, pair_cap,
-                                         num_tiles, align)
-    else:
-        # one sentinel window of padding absorbs the last tile's overrun
-        gauss_idx = torch.cat(
-            [gauss_s, torch.full((align,), P, dtype=torch.int32, device=dev)])
-    return BinnedPairs(
-        gauss_idx=gauss_idx,
-        order=order,
-        tile_bounds=bounds,
-        num_pairs=total.to(torch.int32),
-        tiles_x=tx_n,
-        tiles_y=ty_n,
-        tile=tile,
-    )
+        tid_s, gauss_s = tile_stable_sort(tid, gid.to(torch.int32), P)
+        bounds = torch.searchsorted(
+            tid_s, torch.arange(num_tiles + 1, dtype=torch.int32, device=dev),
+            side="left").to(torch.int32)
+        # the pairs the blend reads: those the row cull and the cap left
+        count("bin.kept", bounds, at=-1)
+        if aligned:
+            gauss_idx, bounds = _align_tiles(gauss_s, bounds, P, pair_cap,
+                                             num_tiles, align)
+        else:
+            # one sentinel window of padding absorbs the last tile's overrun
+            gauss_idx = torch.cat(
+                [gauss_s, torch.full((align,), P, dtype=torch.int32,
+                                     device=dev)])
+        return BinnedPairs(
+            gauss_idx=gauss_idx,
+            order=order,
+            tile_bounds=bounds,
+            num_pairs=total.to(torch.int32),
+            tiles_x=tx_n,
+            tiles_y=ty_n,
+            tile=tile,
+        )
 
 
 def aligned_markers(bounds: torch.Tensor, pair_cap: int, num_tiles: int,

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from envgs_tpu_torch.utils.camera import Camera
+from envgs_tpu_torch.utils.timer import span
 from envgs_tpu_torch.utils.transforms import quat_to_rotmat
 
 ALPHA_MAX = 0.99
@@ -202,43 +203,44 @@ def prepare_splats(
     active: torch.Tensor | None = None,
 ) -> PreparedSplats:
     """Project surfels to screen space (see envgs_tpu.ops.common)."""
-    R = quat_to_rotmat(quats)
-    t_u, t_v, n_w = R[..., :, 0], R[..., :, 1], R[..., :, 2]
-    su = scales[:, 0] * scale_modifier
-    sv = scales[:, 1] * scale_modifier
+    with span("render.project"):
+        R = quat_to_rotmat(quats)
+        t_u, t_v, n_w = R[..., :, 0], R[..., :, 1], R[..., :, 2]
+        su = scales[:, 0] * scale_modifier
+        sv = scales[:, 1] * scale_modifier
 
-    M = cam.pix_from_world
-    A = M[:, :3]
-    b = M[:, 3]
-    col_u = (t_u * su[:, None]) @ A.T
-    col_v = (t_v * sv[:, None]) @ A.T
-    col_1 = means3d @ A.T + b
-    tmat = torch.stack([col_u, col_v, col_1], dim=-1)  # (P, 3, 3)
+        M = cam.pix_from_world
+        A = M[:, :3]
+        b = M[:, 3]
+        col_u = (t_u * su[:, None]) @ A.T
+        col_v = (t_v * sv[:, None]) @ A.T
+        col_1 = means3d @ A.T + b
+        tmat = torch.stack([col_u, col_v, col_1], dim=-1)  # (P, 3, 3)
 
-    center_pix, radius, valid, ext, rowcull = screen_footprint(tmat, cam)
-    if active is not None:
-        valid = valid & active
-        radius = torch.where(valid, radius, torch.zeros_like(radius))
-        ext = ext * valid[:, None]
+        center_pix, radius, valid, ext, rowcull = screen_footprint(tmat, cam)
+        if active is not None:
+            valid = valid & active
+            radius = torch.where(valid, radius, torch.zeros_like(radius))
+            ext = ext * valid[:, None]
 
-    p_view = means3d @ cam.R.T + cam.T[None, :]
-    n_view = n_w @ cam.R.T
-    flip = torch.where(torch.sum(p_view * n_view, -1, keepdim=True) > 0,
-                       -1.0, 1.0)
-    n_view = n_view * flip
+        p_view = means3d @ cam.R.T + cam.T[None, :]
+        n_view = n_w @ cam.R.T
+        flip = torch.where(torch.sum(p_view * n_view, -1, keepdim=True) > 0,
+                           -1.0, 1.0)
+        n_view = n_view * flip
 
-    return PreparedSplats(
-        tmat=tmat,
-        center_pix=center_pix,
-        depth=tmat[:, 2, 2],
-        radius=radius,
-        normal=n_view,
-        color=colors,
-        opacity=opacities,
-        valid=valid,
-        ext=ext,
-        rowcull=rowcull,
-    )
+        return PreparedSplats(
+            tmat=tmat,
+            center_pix=center_pix,
+            depth=tmat[:, 2, 2],
+            radius=radius,
+            normal=n_view,
+            color=colors,
+            opacity=opacities,
+            valid=valid,
+            ext=ext,
+            rowcull=rowcull,
+        )
 
 
 def splat_response(tmat, center_pix, px, py):

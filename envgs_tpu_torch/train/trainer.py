@@ -44,6 +44,7 @@ from envgs_tpu_torch.train.optimizer import (
 )
 from envgs_tpu_torch.train.supervisor import LossConfig, compute_losses
 from envgs_tpu_torch.utils.camera import Camera
+from envgs_tpu_torch.utils.timer import span
 
 
 class ScheduleConfig(NamedTuple):
@@ -157,93 +158,104 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
                   batch: Batch, K, R, T, view_idx: int, it: int,
                   mark: Callable[[str], None] | None = None,
                   grads_out: dict | None = None):
-        base, env = state.base, state.env
-        dev = base.params.xyz.device
-        leaf = lambda x: x.detach().requires_grad_(True)  # noqa: E731
-        bparams = G.map_params(leaf, base.params)
-        eparams = G.map_params(leaf, env.params)
-        zeros = lambda *s: torch.zeros(s, device=dev, requires_grad=True)  # noqa: E731
-        # screen-space (raster) or world-space (traced base) densification
-        # gradients
-        m2z = zeros(base.cap, 3 if model_cfg.use_base_tracing else 2)
-        e3z = zeros(env.cap, 3)
-        wz_b, wz_e = zeros(base.cap), zeros(env.cap)
+        with span("train.step"):
+            base, env = state.base, state.env
+            dev = base.params.xyz.device
+            leaf = lambda x: x.detach().requires_grad_(True)  # noqa: E731
+            bparams = G.map_params(leaf, base.params)
+            eparams = G.map_params(leaf, env.params)
+            zeros = lambda *s: torch.zeros(  # noqa: E731
+                s, device=dev, requires_grad=True)
+            # screen-space (raster) or world-space (traced base) densification
+            # gradients
+            m2z = zeros(base.cap, 3 if model_cfg.use_base_tracing else 2)
+            e3z = zeros(env.cap, 3)
+            wz_b, wz_e = zeros(base.cap), zeros(env.cap)
 
-        camera = Camera(H, W, K, R, T, znear, zfar)
-        cres = None
-        if cam_opt.enabled:
-            cres = CameraResiduals(*map(leaf, cam_state.res))
-            camera = apply_residual(camera, cres, int(view_idx))
-        out = forward_envgs(base._replace(params=bparams),
-                            env._replace(params=eparams), camera, it,
-                            model_cfg, m2z, e3z, wz_b, wz_e)
-        loss, stats = compute_losses(
-            out, batch.rgb, batch.msk, batch.norm if has_norm else None,
-            camera.R, it, loss_cfg, bg_brightness=model_cfg.bg_brightness,
-            lpips_fn=lpips_fn, aux_cfg=aux_cfg, gt_dpt=batch.dpt)
-        if mark:
-            mark("forward")
+            camera = Camera(H, W, K, R, T, znear, zfar)
+            cres = None
+            if cam_opt.enabled:
+                cres = CameraResiduals(*map(leaf, cam_state.res))
+                camera = apply_residual(camera, cres, int(view_idx))
+            # the forward and backward spans close where `mark` is called:
+            # both time one interval
+            with span("train.forward"):
+                out = forward_envgs(base._replace(params=bparams),
+                                    env._replace(params=eparams), camera, it,
+                                    model_cfg, m2z, e3z, wz_b, wz_e)
+                loss, stats = compute_losses(
+                    out, batch.rgb, batch.msk,
+                    batch.norm if has_norm else None, camera.R, it, loss_cfg,
+                    bg_brightness=model_cfg.bg_brightness, lpips_fn=lpips_fn,
+                    aux_cfg=aux_cfg, gt_dpt=batch.dpt)
+            if mark:
+                mark("forward")
 
-        bleaves, eleaves = G.present(bparams), G.present(eparams)
-        leaves = [*bleaves, *eleaves, m2z, e3z, wz_b, wz_e, *(cres or ())]
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for g, x in zip(grads, leaves)]
-        nb, ne = len(bleaves), len(eleaves)
-        g_base = G.fill_params(bparams, grads[:nb])
-        g_env = G.fill_params(eparams, grads[nb:nb + ne])
-        g_m2z, g_e3z, g_wet_b, g_wet_e = grads[nb + ne:nb + ne + 4]
-        if grads_out is not None:
-            grads_out.update(base=g_base, env=g_env, means2d=g_m2z,
-                             env_means3d=g_e3z, wet_base=g_wet_b,
-                             wet_env=g_wet_e)
-        if mark:
-            mark("backward")
+            with span("train.backward"):
+                bleaves, eleaves = G.present(bparams), G.present(eparams)
+                leaves = [*bleaves, *eleaves, m2z, e3z, wz_b, wz_e,
+                          *(cres or ())]
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                grads = [torch.zeros_like(x) if g is None else g
+                         for g, x in zip(grads, leaves)]
+                nb, ne = len(bleaves), len(eleaves)
+                g_base = G.fill_params(bparams, grads[:nb])
+                g_env = G.fill_params(eparams, grads[nb:nb + ne])
+                g_m2z, g_e3z, g_wet_b, g_wet_e = grads[nb + ne:nb + ne + 4]
+                if grads_out is not None:
+                    grads_out.update(base=g_base, env=g_env, means2d=g_m2z,
+                                     env_means3d=g_e3z, wet_base=g_wet_b,
+                                     wet_env=g_wet_e)
+            if mark:
+                mark("backward")
 
-        # one of {forward wet, gradient-lane wet} is exact zeros (the
-        # kernels' paths use the lane; the ref backends and multi-bounce
-        # tracing keep the forward wet)
-        wet_b = g_wet_b + out.base_wet.detach()
-        wet_e = g_wet_e + out.env_wet.detach()
-        new_bp, opt_base = sparse_adam_update(
-            base.params, g_base, state.opt_base, lr_tree_for(it, lr_base))
-        new_ep, opt_env = sparse_adam_update(
-            env.params, g_env, state.opt_env, lr_tree_for(it, lr_env))
-        if cam_opt.enabled:
-            g_cam = CameraResiduals(*grads[nb + ne + 4:])
-            if cam_opt.freeze_extri:
-                g_cam = g_cam._replace(se3=torch.zeros_like(g_cam.se3))
-            if cam_opt.freeze_intri:
-                g_cam = g_cam._replace(intr=torch.zeros_like(g_cam.intr))
-            if grads_out is not None:
-                grads_out["cam"] = g_cam
-            f32 = lambda v: float(torch.tensor(v, dtype=torch.float32))  # noqa: E731
-            new_res, new_copt = sparse_adam_update(
-                cam_state.res, g_cam, cam_state.opt,
-                CameraResiduals(f32(cam_opt.extri_lr), f32(cam_opt.intri_lr)),
-                eps=1e-15)
-            cam_state = CamOptState(new_res, new_copt)
-        b_stats = G.accumulate_stats(
-            base.stats, g_m2z, out.base_visibility | (wet_b > 0),
-            weight=wet_b, radii=out.base_radii.detach())
-        e_stats = G.accumulate_stats(
-            env.stats, g_e3z, out.env_visibility | (wet_e > 0), weight=wet_e)
-        new_state = TrainState(base._replace(params=new_bp, stats=b_stats),
-                               env._replace(params=new_ep, stats=e_stats),
-                               opt_base, opt_env, state.gen)
-        stats["num_pts"] = base.stats.active.sum()
-        stats["env_num_pts"] = env.stats.active.sum()
-        # capacity truncation counters: pairs past the raster budget (none
-        # for a traced base pass, whose dropped slots go unreported as in
-        # the JAX package), and tracer slots lost to the env budget (0 =
-        # nothing dropped)
-        if out.base_num_pairs is not None:
-            stats["pair_overflow"] = torch.clamp(
-                out.base_num_pairs - model_cfg.pair_cap, min=0)
-        stats["trace_dropped"] = out.env_dropped_pairs
-        if mark:
-            mark("optimizer")
-        return new_state, cam_state, stats
+            # one of {forward wet, gradient-lane wet} is exact zeros (the
+            # kernels' paths use the lane; the ref backends and multi-bounce
+            # tracing keep the forward wet)
+            wet_b = g_wet_b + out.base_wet.detach()
+            wet_e = g_wet_e + out.env_wet.detach()
+            new_bp, opt_base = sparse_adam_update(
+                base.params, g_base, state.opt_base, lr_tree_for(it, lr_base))
+            new_ep, opt_env = sparse_adam_update(
+                env.params, g_env, state.opt_env, lr_tree_for(it, lr_env))
+            if cam_opt.enabled:
+                g_cam = CameraResiduals(*grads[nb + ne + 4:])
+                if cam_opt.freeze_extri:
+                    g_cam = g_cam._replace(se3=torch.zeros_like(g_cam.se3))
+                if cam_opt.freeze_intri:
+                    g_cam = g_cam._replace(intr=torch.zeros_like(g_cam.intr))
+                if grads_out is not None:
+                    grads_out["cam"] = g_cam
+                f32 = lambda v: float(  # noqa: E731
+                    torch.tensor(v, dtype=torch.float32))
+                new_res, new_copt = sparse_adam_update(
+                    cam_state.res, g_cam, cam_state.opt,
+                    CameraResiduals(f32(cam_opt.extri_lr),
+                                    f32(cam_opt.intri_lr)),
+                    eps=1e-15)
+                cam_state = CamOptState(new_res, new_copt)
+            b_stats = G.accumulate_stats(
+                base.stats, g_m2z, out.base_visibility | (wet_b > 0),
+                weight=wet_b, radii=out.base_radii.detach())
+            e_stats = G.accumulate_stats(
+                env.stats, g_e3z, out.env_visibility | (wet_e > 0),
+                weight=wet_e)
+            new_state = TrainState(base._replace(params=new_bp, stats=b_stats),
+                                   env._replace(params=new_ep, stats=e_stats),
+                                   opt_base, opt_env, state.gen)
+            stats["num_pts"] = base.stats.active.sum()
+            stats["env_num_pts"] = env.stats.active.sum()
+            # capacity truncation counters: pairs past the raster budget (none
+            # for a traced base pass, whose dropped slots go unreported as in
+            # the JAX package), and tracer slots lost to the env budget (0 =
+            # nothing dropped)
+            if out.base_num_pairs is not None:
+                stats["pair_overflow"] = torch.clamp(
+                    out.base_num_pairs - model_cfg.pair_cap, min=0)
+            stats["trace_dropped"] = out.env_dropped_pairs
+            if mark:
+                mark("optimizer")
+            return new_state, cam_state, stats
 
     if cam_opt.enabled:
         return step_impl
