@@ -55,6 +55,11 @@ Phases, one or more lines each:
      forward wet) and K2 in gauss3d mode against their plain versions on
      the 3DGS bench scene's own inputs, errors (K2 per column and within
      each decade of row size), median ms; K1's counts;
+ 9b. the 3DGS projection's kernels at the gs3d pool's 2^22 slots
+     (anisotropic Gaussians) in the four filter settings against the
+     plain version: ms each way, the outputs within the card test's
+     tolerances, each leaf's gradient (quaternions and opacities too)
+     within 1e-5 in relative norm; the plain chain's ms, the byte bounds;
  10. small 3DGS run: render_gaussiant, one make_gaussiant_train_step and
      one densify_and_prune (the same split draws) on a small scene, CUDA
      against CPU;
@@ -298,9 +303,10 @@ TRAIN_NEEDS = (True, True, False)
 RENDER_KERNELS = (K1_RENDER, "trace_blend_fwd")
 TRAIN_KERNELS = (K1_TRAIN, "raster_blend_bwd", "trace_blend_fwd",
                  "trace_blend_bwd", "fill_forward")
-GAUSSIANT_RENDER_KERNELS = ("fill_forward", "raster_blend_fwd_gauss3d")
+GAUSSIANT_RENDER_KERNELS = ("fill_forward", "raster_blend_fwd_gauss3d",
+                            "project3d_fwd")
 GAUSSIANT_TRAIN_KERNELS = GAUSSIANT_RENDER_KERNELS + (
-    "raster_blend_bwd_gauss3d",)
+    "raster_blend_bwd_gauss3d", "project3d_bwd")
 # K1's configurations held at max abs 0 against their plain versions (the
 # others at KERNEL_ATOL): the render, the train step with and without the
 # forward wet, 3DGS
@@ -859,6 +865,163 @@ def small_gaussiant(device):
     cam = make_camera(H, W, K, np.eye(3, dtype=np.float32),
                       np.zeros(3, np.float32), device=device)
     return G.GaussianTState(pool, opt), cam, cfg, t(rng.random((H, W, 3)))
+
+
+# the 3DGS projection at the gs3d-mipnerf360 pool (benchmark/configs):
+# 3.0M Gaussians in 2^22 slots (the free slots zero, as a padded pool's),
+# 1558x1038, focal 0.9 W; each scale axis the configuration's 0.0049 times
+# exp(U(-0.7, 0.7)), as in the card test (tests/test_torch_project3d.py),
+# so that the rotation shapes the covariance
+PROJECT3D_SLOTS, PROJECT3D_GAUSSIANS = 2 ** 22, 3_000_000
+# (lowpass2d, compensate2d, with filter3d): classic 3DGS, mip-splatting, and
+# each of mip's two filters alone
+PROJECT3D_SETTINGS = {"classic": (0.3, False, False),
+                      "mip": (0.1, True, True),
+                      "filter3d": (0.3, False, True),
+                      "compensate2d": (0.1, True, False)}
+# the card test's tolerances: the float outputs within ATOL + RTOL |plain|;
+# each gradient's distance within GRAD_RTOL of the plain one's 2-norm
+PROJECT3D_RTOL, PROJECT3D_ATOL, PROJECT3D_GRAD_RTOL = 1e-5, 1e-6, 1e-5
+# bytes a slot: the forward reads mean, quaternion, scales, mask and writes
+# conic, center, depth, radius, validity, extents, row-cull parameters; the
+# backward reads the inputs and the conic, center and depth cotangents and
+# writes the three gradients
+PROJECT3D_FWD_BYTES = 12 + 16 + 12 + 1 + 12 + 8 + 4 + 4 + 1 + 8 + 24
+PROJECT3D_BWD_BYTES = 12 + 16 + 12 + 12 + 8 + 4 + 12 + 16 + 12
+
+
+def project3d_run(kernels) -> dict:
+    """The 3DGS projection's kernels against the plain version at
+    PROJECT3D_SLOTS slots in each of PROJECT3D_SETTINGS: the forward and
+    backward kernels' ms (median of 20); the layer's forward against the
+    plain version's on the same inputs (every float output, the opacity
+    too, within PROJECT3D_RTOL / PROJECT3D_ATOL; valid equal; radius and
+    ext off by at most 1 px on at most 0.01% of slots) and its VJP of
+    seeded random cotangents of conic, center, depth and (where a filter
+    changes it) opacity against autograd through the plain version: the
+    means', quaternions', scales' and (so) opacities' gradients each within
+    PROJECT3D_GRAD_RTOL in relative 2-norm, over the pool and over its
+    Gaussians. Classic also: the plain version's ms with and without its
+    backward, the layer's call with and without autograd's backward, the
+    byte bounds. Prints one line a setting; raises on a disagreement; ->
+    the fields of the kernels line."""
+    from envgs_tpu_torch.ops import project3d as p3
+    from envgs_tpu_torch.utils.camera import make_camera
+
+    P, n, dev = PROJECT3D_SLOTS, PROJECT3D_GAUSSIANS, "cuda"
+    g = torch.Generator(device=dev).manual_seed(19)
+    means = torch.zeros(P, 3, device=dev)
+    means[:n, :2] = torch.randn((n, 2), generator=g, device=dev) * 1.5
+    means[:n, 2] = 2.0 + 5.0 * torch.rand(n, generator=g, device=dev)
+    quats = torch.zeros(P, 4, device=dev)
+    quats[:n] = torch.randn((n, 4), generator=g, device=dev)
+    scales = torch.ones(P, 3, device=dev)
+    scales[:n] = 0.0049 * torch.exp(
+        1.4 * torch.rand((n, 3), generator=g, device=dev) - 0.7)
+    opac = torch.full((P,), 0.5, device=dev)
+    opac[:n] = 0.05 + 0.9 * torch.rand(n, generator=g, device=dev)
+    active = torch.arange(P, device=dev) < n
+    H, W = 1038, 1558
+    f = 0.9 * W
+    cam = make_camera(H, W, [[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]],
+                      np.eye(3), np.zeros(3), device=dev)
+    buf = p3.camera_buffer(cam)
+    filt = 1e-3 + 1e-2 * torch.rand(P, generator=g, device=dev)
+    cots = [torch.randn(s, generator=g, device=dev)
+            for s in ((P, 3), (P, 2), (P,), (P,))]
+    leaf_names = ("means", "quats", "scales", "opacities")
+    fields = ("conic", "center_pix", "depth", "opacity", "rowcull")
+
+    def vjp(fn, kw, changed):
+        """fn's outputs (detached) and the gradients of sum(cot * output)
+        over conic, center, depth and, where changed, opacity."""
+        leaves = [x.clone().requires_grad_(True)
+                  for x in (means, quats, scales, opac)]
+        out = fn(*leaves, None, cam, 1.0, active, **kw)
+        outs = [out.conic, out.center_pix, out.depth, out.opacity]
+        loss = sum((o * c).sum() for o, c in zip(outs[:3 + changed], cots))
+        grads = torch.autograd.grad(loss, leaves[:3 + changed])
+        return out._replace(**{k: getattr(out, k).detach()
+                               for k in out._fields if k != "color"}), grads
+
+    res, worst = {}, dict(err=0.0, over=0.0, grad_rel=0.0, grad_err=0.0)
+    for setting, (lp, comp, has_f) in PROJECT3D_SETTINGS.items():
+        flt, changed = (filt if has_f else None), has_f or comp
+        args, conf = (means, quats, scales, opac), (W, H, 1.0, lp, comp)
+        g_op = cots[3] if changed else None
+        res[f"{setting}_fwd_ms"] = cuda_ms(lambda: kernels.project3d_fwd(
+            *args, active, flt, buf, *conf), 20)
+        res[f"{setting}_bwd_ms"] = cuda_ms(lambda: kernels.project3d_bwd(
+            *args, flt, buf, *conf, *cots[:3], g_op), 20)
+        kw = dict(lowpass2d=lp, compensate2d=comp, filter3d=flt)
+        got, grads = vjp(p3.project3d, kw, changed)
+        want, want_g = vjp(p3.project3d_torch, kw, changed)
+        err, over = {}, {}
+        for k in fields:
+            a, b = getattr(got, k), getattr(want, k)
+            d = torch.where(a == b, 0.0, (a - b).abs())  # equal infinities
+            err[k] = float(d.max())
+            over[k] = float((d / (PROJECT3D_ATOL
+                                  + PROJECT3D_RTOL * b.abs())).max())
+        valid_eq = bool(torch.equal(got.valid, want.valid))
+        px = {k: (getattr(got, k) - getattr(want, k)).abs().reshape(P, -1)
+              for k in ("radius", "ext")}
+        off = {k: int((d > 0).any(1).sum()) for k, d in px.items()}
+        px_max = max(float(d.max()) for d in px.values())
+        grad_rel, grad_live, grad_err = {}, {}, {}
+        for k, a, b in zip(leaf_names, grads, want_g):
+            grad_rel[k] = float((a - b).norm() / b.norm())
+            grad_live[k] = float((a[:n] - b[:n]).norm() / b[:n].norm())
+            grad_err[k] = float((a - b).abs().max())
+        print(f"[kernels] project3d {setting} at {P} slots ({n} Gaussians, "
+              f"{int(want.valid.sum())} valid): forward "
+              f"{res[f'{setting}_fwd_ms']:.4f} ms, backward "
+              f"{res[f'{setting}_bwd_ms']:.4f} ms; max abs err "
+              + json.dumps({k: float(f"{v:.3g}") for k, v in err.items()})
+              + ", |err| / (atol + rtol |plain|) at most "
+              f"{max(over.values()):.3g}, valid equal {valid_eq}, radius / "
+              f"ext off on {off['radius']} / {off['ext']} slots (at most "
+              f"{px_max:g} px); gradients' relative norm over the pool "
+              + json.dumps({k: float(f"{v:.3g}") for k, v in
+                            grad_rel.items()})
+              + ", over the Gaussians "
+              + json.dumps({k: float(f"{v:.3g}") for k, v in
+                            grad_live.items()})
+              + ", max abs err "
+              + json.dumps({k: float(f"{v:.3g}") for k, v in
+                            grad_err.items()}), flush=True)
+        if (not valid_eq or max(over.values()) > 1.0 or px_max > 1.0
+                or max(off.values()) > max(1, int(1e-4 * P))
+                or not max(grad_rel.values()) <= PROJECT3D_GRAD_RTOL
+                or not max(grad_live.values()) <= PROJECT3D_GRAD_RTOL):
+            raise AssertionError(
+                f"project3d ({setting}) disagrees with its plain version")
+        worst = dict(err=max(worst["err"], *err.values()),
+                     over=max(worst["over"], *over.values()),
+                     grad_rel=max(worst["grad_rel"], *grad_rel.values(),
+                                  *grad_live.values()),
+                     grad_err=max(worst["grad_err"], *grad_err.values()))
+        del got, want, grads, want_g
+
+    kw = dict(lowpass2d=0.3, compensate2d=False, filter3d=None)
+    with torch.no_grad():
+        res["plain_ms"] = cuda_ms(lambda: p3.project3d_torch(
+            means, quats, scales, opac, None, cam, 1.0, active, **kw), 5)
+        res["layer_ms"] = cuda_ms(lambda: p3.project3d(
+            means, quats, scales, opac, None, cam, 1.0, active, **kw), 20)
+    res["plain_fwd_bwd_ms"] = cuda_ms(
+        lambda: vjp(p3.project3d_torch, kw, False), 3)
+    res["layer_fwd_bwd_ms"] = cuda_ms(lambda: vjp(p3.project3d, kw, False),
+                                      10)
+    fwd_bound = bound_ms(P * PROJECT3D_FWD_BYTES)
+    bwd_bound = bound_ms(P * PROJECT3D_BWD_BYTES)
+    print(f"[kernels] project3d classic: bound {fwd_bound[0]:.4f} ms by "
+          f"{fwd_bound[1]} forward, {bwd_bound[0]:.4f} backward; the "
+          f"layer's call {res['layer_ms']:.4f} ms, with autograd's backward "
+          f"{res['layer_fwd_bwd_ms']:.4f} ms; plain {res['plain_ms']:.2f} "
+          f"ms, with its backward {res['plain_fwd_bwd_ms']:.2f} ms",
+          flush=True)
+    return dict(worst, fwd_bound=fwd_bound, bwd_bound=bwd_bound, **res)
 
 
 def render_spans(render, reps: int = 5):
@@ -3260,9 +3423,10 @@ def family_step_probe(module, name, kernels, log, tuple_out=False,
 
 
 def check_family_run(what, log, n_steps, launches, n_eval):
-    """Every step of a family run launched K5, gauss3d K1 and K2 once, with
-    a finite loss and no pair over the cap; the run's launches are the
-    steps' plus K5 and gauss3d K1 once per held-out render."""
+    """Every step of a family run launched K5, gauss3d K1 and K2 and the
+    projection's two kernels once, with a finite loss and no pair over the
+    cap; the run's launches are the steps' plus K5, gauss3d K1 and the
+    projection's forward once per held-out render."""
     if len(log) != n_steps:
         raise AssertionError(f"{what}: {len(log)} steps, not {n_steps}")
     for i, s in enumerate(log):
@@ -3272,7 +3436,8 @@ def check_family_run(what, log, n_steps, launches, n_eval):
             raise AssertionError(f"{what} step {i}: {s}")
     want = {"fill_forward": n_steps + n_eval,
             "raster_blend_fwd_gauss3d": n_steps + n_eval,
-            "raster_blend_bwd_gauss3d": n_steps}
+            "raster_blend_bwd_gauss3d": n_steps,
+            "project3d_fwd": n_steps + n_eval, "project3d_bwd": n_steps}
     got = {k: v for k, v in launches.items() if v}
     if got != want:
         raise AssertionError(f"{what}: launches {got}, not {want}")
@@ -4579,13 +4744,17 @@ def main():
     k4_resources = kernels.trace_blend_bwd_resources(0)
     k5_resources = kernels.fill_forward_resources()
     k6_resources = kernels.segscan_resources()
+    p3d_resources = {"fwd": kernels.project3d_fwd_resources(),
+                     "bwd": kernels.project3d_bwd_resources()}
     for name, res, threads in (
             *((key, res, 256) for key, res in k1_resources.items()),
             *((f"trace_blend_fwd ({cfg})", res, 256)
               for cfg, res in k3_resources.items()),
             ("trace_blend_bwd", k4_resources, 32),
             ("fill_forward", k5_resources, 256),
-            ("segscan", k6_resources, 256)):
+            ("segscan", k6_resources, 256),
+            ("project3d_fwd", p3d_resources["fwd"], 256),
+            ("project3d_bwd", p3d_resources["bwd"], 256)):
         print(f"[build] {name}: {res['registers']} registers, "
               f"{res['shared_bytes']} B shared, {res['local_bytes']} B "
               f"spilled, {res['blocks_per_sm']} blocks of {threads} threads "
@@ -4960,6 +5129,9 @@ def main():
           f"{k2g_bound[1]}", flush=True)
     del k1g, k2g_args, out1, wet1, want1, want_wet, g1, got, want
     del packed, gauss_idx, bounds
+
+    # ---- 9b. the 3DGS projection's kernels against the plain version ----
+    p3d = project3d_run(kernels)
 
     # ---- 10. small 3DGS run: CUDA kernels against the CPU plain path ----
     g = torch.Generator().manual_seed(1)
@@ -5380,6 +5552,20 @@ def main():
               "envgs_tpu/ops/raster_pallas.py:456", k2g_err, k2g_ms,
               k2g_plain_ms, k2g_bound, max_rel_err=k2g_rel, mode="gauss3d",
               resources=k2_resources["gauss3d"]),
+        entry("project3d_fwd", "project3d.cu",
+              "none (envgs_tpu/ops/raster3d_ref.py::prepare_splats3d, jnp)",
+              p3d["err"], p3d["classic_fwd_ms"], p3d["plain_ms"],
+              p3d["fwd_bound"], max_tol_share=p3d["over"],
+              layer_ms=p3d["layer_ms"],
+              settings_ms={k: p3d[f"{k}_fwd_ms"] for k in PROJECT3D_SETTINGS},
+              resources=p3d_resources["fwd"]),
+        entry("project3d_bwd", "project3d.cu",
+              "none (autograd of the plain projection)", p3d["grad_err"],
+              p3d["classic_bwd_ms"], p3d["plain_fwd_bwd_ms"],
+              p3d["bwd_bound"], max_rel_norm_err=p3d["grad_rel"],
+              layer_fwd_bwd_ms=p3d["layer_fwd_bwd_ms"],
+              settings_ms={k: p3d[f"{k}_bwd_ms"] for k in PROJECT3D_SETTINGS},
+              resources=p3d_resources["bwd"]),
         entry("segscan", "segscan.cu", "envgs_tpu/ops/segsum.py:30", k6_err,
               k6_ms, k6_plain_ms, k6_bound, resources=k6_resources),
         gather_entry("gather_rows", "scripts/tpu_micro_dmagather.py:49"),

@@ -11,10 +11,11 @@ blends (the surfel launches under the kernel's name, the gauss3d ones under
 `<name>_gauss3d`), per configuration for the raster blend's forward (K1's
 `needs` and layout: `raster_blend_fwd_key`) and for the traced blend's
 forward (the render and training launches under its name, the geometry and
-forward-wet ones under `<name>_geo` and `<name>_wet`); each wrapper adds
-one where it launches its kernel and nowhere else. `ROW_OFF_LAUNCHES`
-counts, under the same keys, the raster blends' launches at a row offset
-other than 0 (a band of a larger image).
+forward-wet ones under `<name>_geo` and `<name>_wet`), and the 3DGS
+projection's forward and backward apart (`project3d_fwd`, `project3d_bwd`);
+each wrapper adds one where it launches its kernel and nowhere else.
+`ROW_OFF_LAUNCHES` counts, under the same keys, the raster blends' launches
+at a row offset other than 0 (a band of a larger image).
 """
 from __future__ import annotations
 
@@ -61,7 +62,8 @@ LAUNCHES = {**{raster_blend_fwd_key(c[:3], c[3]): 0 for c in K1_CONFIGS},
             "raster_blend_bwd": 0, "raster_blend_bwd_gauss3d": 0,
             "trace_blend_fwd": 0, "trace_blend_fwd_geo": 0,
             "trace_blend_fwd_wet": 0, "trace_blend_bwd": 0, "fill_forward": 0,
-            "segscan": 0, "gather_rows": 0, "gather_rows_win8": 0}
+            "segscan": 0, "gather_rows": 0, "gather_rows_win8": 0,
+            "project3d_fwd": 0, "project3d_bwd": 0}
 ROW_OFF_LAUNCHES = {k: 0 for k in LAUNCHES if k.startswith("raster_blend")}
 MODES = {"surfel": 0, "gauss3d": 1}  # geometry of the raster blends
 # the traced blend's forward configurations counted apart (LAUNCHES keys
@@ -72,12 +74,14 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[1] / "_build"
 _SOURCES = ("raster_blend_fwd.cu", "raster_blend_bwd.cu",
             "trace_blend_fwd.cu", "trace_blend_bwd.cu", "fill_forward.cu",
-            "segscan.cu", "gather_rows.cu")
-_HEADERS = ("trace_blend.cuh",)  # included by sources, hashed with them
+            "segscan.cu", "gather_rows.cu", "project3d.cu")
+# included by sources, hashed with them
+_HEADERS = ("trace_blend.cuh", "project3d.cuh")
 # -fmad=false: the kernels round every product and sum on its own, as the
 # plain PyTorch versions' elementwise ops do, so the two agree to the last
-# bits on the card instead of only to a tolerance. No fast math: expf, IEEE
-# division.
+# bits on the card instead of only to a tolerance (the projection's 3-term
+# products are explicit fused multiply-adds: cuBLAS sums the plain
+# version's so). No fast math: expf, IEEE division.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 _VP = ctypes.c_void_p
@@ -118,6 +122,19 @@ _ARGTYPES = {
     # table, idx, n, S, row_bytes, out, stream
     "gather_rows": [_VP, _VP, _I, _I, _I, _VP, _VP],
     "gather_rows_win8": [_VP, _VP, _I, _I, _I, _VP, _VP],
+    # means, quats, scales, opac, active, filter, cam, params, P, W, H,
+    # compensate, conic, center, depth, radius, valid, ext, rowcull,
+    # opac_out, stream
+    "project3d_fwd": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                      _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP],
+    # means, quats, scales, opac, filter, cam, params, P, W, H, compensate,
+    # g_conic, g_center, g_depth, g_opac, d_means, d_quats, d_scales,
+    # d_opac, stream
+    "project3d_bwd": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP,
+                      _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP],
+    # out (4 ints)
+    "project3d_fwd_resources": [_VP],
+    "project3d_bwd_resources": [_VP],
 }
 _lib = None
 
@@ -510,3 +527,110 @@ def gather_rows_win8(table, idx) -> torch.Tensor:
     is asked for only so that it takes the calls the TPU kernel, which
     copies 8-row windows, takes."""
     return _gather("gather_rows_win8", table, idx)
+
+
+PROJECT3D_CAM = 33  # the camera's floats: R, T, K, pix_from_world
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _project3d_inputs(means, quats, scales3, opacities, filter3d, cam,
+                      scale_modifier, lowpass2d):
+    """Check the projection's inputs; -> (P, the two floats the kernels take
+    by value, in host memory)."""
+    _check("means", means, torch.float32)
+    if means.dim() != 2 or means.shape[1] != 3:
+        raise ValueError(f"means: expected (P, 3), got {tuple(means.shape)}")
+    P = means.shape[0]
+    if P >= 2 ** 31 // 8:  # int32 offsets into the (P, 6) rows
+        raise ValueError(f"P={P}: too many splats")
+    _check("quats", quats, torch.float32, means, (P, 4))
+    if quats.data_ptr() % 16:
+        raise ValueError("quats: the kernels' 16-byte loads need 16-byte "
+                         "alignment")
+    _check("scales3", scales3, torch.float32, means, (P, 3))
+    _check("opacities", opacities, torch.float32, means, (P,))
+    if filter3d is not None:
+        _check("filter3d", filter3d, torch.float32, means, (P,))
+    _check("cam", cam, torch.float32, means, (PROJECT3D_CAM,))
+    return P, (ctypes.c_float * 2)(scale_modifier, lowpass2d)
+
+
+def project3d_fwd(means, quats, scales3, opacities, active, filter3d, cam,
+                  W: int, H: int, scale_modifier: float, lowpass2d: float,
+                  compensate2d: bool):
+    """The 3DGS EWA projection's forward (csrc/project3d.cu): means (P, 3),
+    quats (P, 4) wxyz, scales3 (P, 3) activated, opacities (P,), active
+    (P,) bool or None, filter3d (P,) or None, cam (33,) f32 -> (conic
+    (P, 3), center_pix (P, 2), depth, radius (P,), valid (P,) bool, ext
+    (P, 2), rowcull (P, 6), the opacity the filters change or None when
+    neither the 3D filter nor the compensation is on). See
+    ops/project3d.py for the contract."""
+    P, params = _project3d_inputs(means, quats, scales3, opacities,
+                                  filter3d, cam, scale_modifier, lowpass2d)
+    if active is not None:
+        _check("active", active, torch.bool, means, (P,))
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=means.device)
+
+    out = (empty(P, 3), empty(P, 2), empty(P), empty(P),
+           empty(P, dtype=torch.bool), empty(P, 2), empty(P, 6),
+           empty(P) if filter3d is not None or compensate2d else None)
+    if P:
+        _launch("project3d_fwd", means.device, means.data_ptr(),
+                quats.data_ptr(), scales3.data_ptr(), opacities.data_ptr(),
+                _ptr(active), _ptr(filter3d), cam.data_ptr(),
+                ctypes.addressof(params), P, W, H, int(compensate2d),
+                *map(_ptr, out), _stream(means))
+    return out
+
+
+def project3d_bwd(means, quats, scales3, opacities, filter3d, cam, W: int,
+                  H: int, scale_modifier: float, lowpass2d: float,
+                  compensate2d: bool, g_conic, g_center, g_depth, g_opacity):
+    """The projection's backward (csrc/project3d.cu): the forward's inputs
+    and the cotangents of conic (P, 3), center_pix (P, 2), depth (P,) and
+    the changed opacity (P,), each None for zero -> the gradients of means,
+    quats, scales3 and (where g_opacity is given) opacities."""
+    P, params = _project3d_inputs(means, quats, scales3, opacities,
+                                  filter3d, cam, scale_modifier, lowpass2d)
+    for name, g, shape in (("g_conic", g_conic, (P, 3)),
+                           ("g_center", g_center, (P, 2)),
+                           ("g_depth", g_depth, (P,)),
+                           ("g_opacity", g_opacity, (P,))):
+        if g is not None:
+            _check(name, g, torch.float32, means, shape)
+    if g_center is not None and g_center.data_ptr() % 8:
+        raise ValueError("g_center: the kernel's 8-byte loads need 8-byte "
+                         "alignment")
+    if g_opacity is not None and filter3d is None and not compensate2d:
+        raise ValueError("g_opacity: the opacity is changed only by the 3D "
+                         "filter or the compensation")
+    d_means = torch.empty_like(means)
+    d_quats = torch.empty_like(quats)
+    d_scales = torch.empty_like(scales3)
+    d_opac = torch.empty_like(opacities) if g_opacity is not None else None
+    if P:
+        _launch("project3d_bwd", means.device, means.data_ptr(),
+                quats.data_ptr(), scales3.data_ptr(), opacities.data_ptr(),
+                _ptr(filter3d), cam.data_ptr(), ctypes.addressof(params), P,
+                W, H, int(compensate2d), _ptr(g_conic), _ptr(g_center),
+                _ptr(g_depth), _ptr(g_opacity), d_means.data_ptr(),
+                d_quats.data_ptr(), d_scales.data_ptr(), _ptr(d_opac),
+                _stream(means))
+    return d_means, d_quats, d_scales, d_opac
+
+
+def project3d_fwd_resources() -> dict:
+    """What the projection's forward was compiled to, as
+    raster_blend_fwd_resources."""
+    return _resources("project3d_fwd_resources")
+
+
+def project3d_bwd_resources() -> dict:
+    """What the projection's backward was compiled to, as
+    raster_blend_fwd_resources."""
+    return _resources("project3d_bwd_resources")

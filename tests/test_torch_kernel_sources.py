@@ -121,6 +121,11 @@ def test_every_launch_count_is_reachable_from_a_wrapper(monkeypatch):
     table = torch.zeros(8, 128)
     kernels.gather_rows(table, idx)
     kernels.gather_rows_win8(table, idx)
+    means, quats, cam = torch.zeros(4, 3), torch.zeros(4, 4), torch.zeros(33)
+    kernels.project3d_fwd(means, quats, means, means[:, 0], None, None, cam,
+                          8, 8, 1.0, 0.3, False)
+    kernels.project3d_bwd(means, quats, means, means[:, 0], None, cam, 8, 8,
+                          1.0, 0.3, False, means, None, None, None)
     assert sorted(seen) == sorted(kernels.LAUNCHES)
 
 

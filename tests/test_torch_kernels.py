@@ -852,7 +852,8 @@ def test_fill_forward_kernel_on_the_aligned_layouts_markers(cuda):
 FAMILY_LOSS_RTOL = 1e-4
 FAMILY_GRAD_RTOL = 5e-4
 FAMILY_STEP = {"fill_forward": 1, "raster_blend_fwd_gauss3d": 1,
-               "raster_blend_bwd_gauss3d": 1}
+               "raster_blend_bwd_gauss3d": 1, "project3d_fwd": 1,
+               "project3d_bwd": 1}
 
 
 def _rose(before):
@@ -918,7 +919,8 @@ def test_stgs_render_and_step_on_the_card(cuda, sh_degree_t):
             torch.tensor(target, device=dev), 7, grads_out=grads)
         res[str(dev)] = (out, aux, grads["params"], rendered, _rose(before))
     (co, ca, cg, _, _), (go, ga, gg, r_rose, s_rose) = res["cpu"], res["cuda"]
-    assert r_rose == {"fill_forward": 1, "raster_blend_fwd_gauss3d": 1}
+    assert r_rose == {"fill_forward": 1, "raster_blend_fwd_gauss3d": 1,
+                      "project3d_fwd": 1}
     assert s_rose == FAMILY_STEP
     np.testing.assert_allclose(go.rgb.cpu().numpy(), co.rgb.numpy(),
                                atol=ATOL)
@@ -982,7 +984,9 @@ def test_family_config_on_the_card(cuda, tmp_path, config):
     assert n_eval == 1 and np.isfinite(summary["summary"]["psnr_mean"])
     assert _rose(before) == {"fill_forward": 3 + n_eval,
                              "raster_blend_fwd_gauss3d": 3 + n_eval,
-                             "raster_blend_bwd_gauss3d": 3}
+                             "raster_blend_bwd_gauss3d": 3,
+                             "project3d_fwd": 3 + n_eval,
+                             "project3d_bwd": 3}
 
 
 def test_served_frame_launches_k1_and_k3_once(cuda, tmp_path):

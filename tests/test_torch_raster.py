@@ -243,6 +243,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.gather_rows(rows, idx)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.gather_rows_win8(rows.to(torch.bfloat16), idx)
+    means, quats, cam = torch.zeros(4, 3), torch.zeros(4, 4), torch.zeros(33)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.project3d_fwd(means, quats, means, means[:, 0], None, None,
+                              cam, 8, 8, 1.0, 0.3, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.project3d_bwd(means, quats, means, means[:, 0], None, cam, 8,
+                              8, 1.0, 0.3, False, means, None, None, None)
     assert set(kernels.LAUNCHES) == {
         "raster_blend_fwd", "raster_blend_fwd_dist", "raster_blend_fwd_med",
         "raster_blend_fwd_dist_med", "raster_blend_fwd_aligned",
@@ -254,5 +261,5 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         "raster_blend_bwd",
         "raster_blend_bwd_gauss3d", "trace_blend_fwd", "trace_blend_fwd_geo",
         "trace_blend_fwd_wet", "trace_blend_bwd", "fill_forward", "segscan",
-        "gather_rows", "gather_rows_win8"}
+        "gather_rows", "gather_rows_win8", "project3d_fwd", "project3d_bwd"}
     assert not any(kernels.LAUNCHES.values())
