@@ -177,7 +177,7 @@ def blend_inputs(base, env, cam, cfg):
         env.get_opacity[:, 0], _pool_colors_at(env, ref_o),
         active=env.stats.active)
     tiles = build_ray_tiles(ref_o, ref_d)
-    gidx, bounds, _ = cull_and_sort(
+    gidx, bounds, *_ = cull_and_sort(
         tiles, scene, splat_radius3(scene),
         per_tile_cap=default_per_tile_cap(scene.mean.shape[0]),
         total_pair_cap=cfg.env_pair_cap)
@@ -214,7 +214,7 @@ def train_blend_inputs(base, env, cam, cfg) -> dict:
         env.get_opacity[:, 0], _pool_colors_at(env, ref_o),
         active=env.stats.active)
     tiles = build_ray_tiles(ref_o, ref_d)
-    gidx, bounds, _ = cull_and_sort(
+    gidx, bounds, *_ = cull_and_sort(
         tiles, scene, splat_radius3(scene),
         per_tile_cap=default_per_tile_cap(scene.mean.shape[0]),
         total_pair_cap=cfg.env_pair_cap)
@@ -229,7 +229,7 @@ def trace_inputs(scene, ray_o, ray_d, pair_cap: int, ray_mask=None):
     trace_rays makes them."""
     tiles = build_ray_tiles(ray_o, ray_d)
     H, W = ray_o.shape[:2]
-    gidx, bounds, dropped = cull_and_sort(
+    gidx, bounds, dropped, _ = cull_and_sort(
         tiles, scene, splat_radius3(scene),
         per_tile_cap=default_per_tile_cap(scene.mean.shape[0]),
         total_pair_cap=pair_cap,
@@ -304,7 +304,7 @@ def stage_times(base, env, cam, cfg, reps: int = 5) -> dict:
             env.get_opacity[:, 0], _pool_colors_at(env, ref_o),
             active=env.stats.active))
         tiles = timed("ray_tiles", lambda: build_ray_tiles(ref_o, ref_d))
-        gidx, bounds, _ = timed("cull", lambda: cull_and_sort(
+        gidx, bounds, *_ = timed("cull", lambda: cull_and_sort(
             tiles, scene, splat_radius3(scene),
             per_tile_cap=default_per_tile_cap(P_ENV),
             total_pair_cap=cfg.env_pair_cap))

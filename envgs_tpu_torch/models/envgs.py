@@ -82,6 +82,11 @@ class EnvGSConfig(NamedTuple):
     acc_filtering_start_iter: int = -1
     render_mode: bool = False
     tracer_exact_order: bool = False
+    # candidates the env pass's cull keeps per 16x16 ray tile (whole
+    # 64-splat chunks, the nearest first); None: the JAX package's
+    # tracer.default_per_tile_cap, 2048. The chunks it cuts are counted in
+    # EnvGSOutput.env_cut_chunks (the train step's `trace_cut`)
+    env_per_tile_cap: int | None = None
 
 
 def _bisect_quantile01(x: torch.Tensor, q: float, iters: int = 10) -> torch.Tensor:
@@ -276,12 +281,13 @@ def render_env(env: GaussianPool, ref_o: torch.Tensor, ref_d: torch.Tensor,
             scene, ref_o, ref_d, bg, max_trace_depth=cfg.max_trace_depth,
             specular_threshold=cfg.specular_threshold,
             backend=cfg.tracer_backend, total_pair_cap=cfg.env_pair_cap,
-            ray_mask=ray_mask)
+            ray_mask=ray_mask, per_tile_cap=cfg.env_per_tile_cap)
         return out
     if cfg.tracer_backend == "ref":
         return trace_rays_reference(scene, ref_o, ref_d, bg)
     train = not cfg.render_mode
     return tracer.trace_rays(scene, ref_o, ref_d, bg,
+                             per_tile_cap=cfg.env_per_tile_cap,
                              total_pair_cap=cfg.env_pair_cap,
                              ray_mask=ray_mask, needs=(train, train, train),
                              wet_zero=wet_zero,
@@ -314,6 +320,8 @@ class EnvGSOutput(NamedTuple):
     #   (None for a traced base pass)
     env_dropped_pairs: torch.Tensor  # () tracer slots dropped by the cap
     env_num_pairs: torch.Tensor  # () tracer chunk-aligned slots used
+    env_cut_chunks: torch.Tensor | None = None  # () chunks the env cull's
+    #   per-tile cap cut (0 = no ray tile lost a candidate to it)
 
 
 def forward_envgs(base: GaussianPool, env: GaussianPool, cam: Camera,
@@ -356,7 +364,8 @@ def forward_envgs(base: GaussianPool, env: GaussianPool, cam: Camera,
         dev = b.rgb.device
         spec = b.specular if b.specular is not None else b.rgb.new_zeros((H, W, 1))
         rough = b.roughness if b.roughness is not None else b.rgb.new_zeros((H, W, 1))
-        ref_o, ref_d = reflect_rays(cam, b, i0=i0)
+        with span("render.reflect"):
+            ref_o, ref_d = reflect_rays(cam, b, i0=i0)
         if cfg.detach_reflection:
             ref_o, ref_d = ref_o.detach(), ref_d.detach()
 
@@ -379,20 +388,22 @@ def forward_envgs(base: GaussianPool, env: GaussianPool, cam: Camera,
             env_pass = env_pass or functools.partial(
                 render_env, band_axis=band[2] if band is not None
                 and len(band) > 2 else None)
-            e = env_pass(env, ref_o, ref_d, cfg, env_means3d_zero,
-                         ray_mask=ref_msk, wet_zero=env_wet_zero)
+            with span("render.env"):
+                e = env_pass(env, ref_o, ref_d, cfg, env_means3d_zero,
+                             ray_mask=ref_msk, wet_zero=env_wet_zero)
             env_rgb = e.rgb
             env_dpt, env_acc = e.dpt[..., None], e.acc[..., None]
             # the reference tracer has no slot budget: nothing dropped
             env_wet = e.wet
             env_dropped = zero if e.dropped_pairs is None else e.dropped_pairs
             env_num_pairs = zero if e.num_pairs is None else e.num_pairs
+            env_cut = zero if e.cut_chunks is None else e.cut_chunks
             spec_eff = spec
         else:
             env_rgb = b.rgb.new_zeros((H, W, 3))
             env_dpt = env_acc = b.rgb.new_zeros((H, W, 1))
             env_wet = b.rgb.new_zeros((env.cap,))
-            env_dropped = env_num_pairs = zero
+            env_dropped = env_num_pairs = env_cut = zero
             spec_eff = torch.zeros_like(spec)
         if ref_msk is not None:
             spec_eff = torch.where(ref_msk[..., None], spec_eff, 0.0)
@@ -422,4 +433,5 @@ def forward_envgs(base: GaussianPool, env: GaussianPool, cam: Camera,
             base_num_pairs=b.num_pairs,
             env_dropped_pairs=env_dropped,
             env_num_pairs=env_num_pairs,
+            env_cut_chunks=env_cut,
         )

@@ -45,6 +45,7 @@ from envgs_tpu_torch.ops.tracer_ref import (
     _excl,
     trace_rays_reference,
 )
+from envgs_tpu_torch.utils.timer import count, span
 
 RTH = 16  # tile height in rays
 RTW = 16  # tile width in rays
@@ -205,14 +206,11 @@ def build_chunk_index(scene: TraceScene, radius3: torch.Tensor,
     return ChunkIndex(order, mean_s, rad_s, cmean, crad, aa.any(1))
 
 
-def _block_cull(idx: ChunkIndex, packed_cand, cand_idx, Kc: int, P: int,
-                apex, axis, tan_half, spread, tmask, pframe, pbox, pok):
-    """Cull and radially sort the candidates of a block of B tiles:
-    (cid_sorted (B, Kc*CHUNK) int64, keep (B, Kc*CHUNK) bool). pok None:
-    no direction-space footprint rejection."""
-    B = apex.shape[0]
-    C = Kc * CHUNK
-    # ---- coarse: cone vs chunk spheres ----
+def coarse_radial(idx: ChunkIndex, apex, axis, tan_half, spread,
+                  tmask) -> torch.Tensor:
+    """The coarse pass over a block of B tiles: (B, NC) distance from each
+    tile's apex to each chunk sphere's centre where the sphere meets the
+    tile's cone, inf elsewhere (inactive chunks, masked-out tiles)."""
     cmeanT = idx.cmean.T
     cm2 = torch.sum(idx.cmean * idx.cmean, dim=-1)
     proj = axis @ cmeanT - torch.sum(axis * apex, -1, keepdim=True)
@@ -225,11 +223,23 @@ def _block_cull(idx: ChunkIndex, packed_cand, cand_idx, Kc: int, P: int,
     near = d2 <= slack * slack
     keep = (hit | near) & (proj + idx.crad[None, :] > 0)
     keep = keep & idx.cact[None, :] & tmask[:, None]
-    radial = torch.where(keep, torch.sqrt(d2), float("inf"))
+    return torch.where(keep, torch.sqrt(d2), float("inf"))
+
+
+def _block_cull(idx: ChunkIndex, packed_cand, cand_idx, Kc: int, P: int,
+                apex, axis, tan_half, spread, tmask, pframe, pbox, pok):
+    """Cull and radially sort the candidates of a block of B tiles:
+    (cid_sorted (B, Kc*CHUNK) int64, keep (B, Kc*CHUNK) bool, cut (B,)
+    int32: the chunks whose sphere met the tile's cone past the Kc nearest
+    it keeps). pok None: no direction-space footprint rejection."""
+    B = apex.shape[0]
+    C = Kc * CHUNK
+    radial = coarse_radial(idx, apex, axis, tan_half, spread, tmask)
     # the Kc nearest chunks, ties to the lower chunk index (lax.top_k's rule)
     srt = torch.sort(radial, dim=-1, stable=True)
     idc = srt.indices[:, :Kc]
     cvalid = srt.values[:, :Kc] < float("inf")
+    cut = (srt.values[:, Kc:] < float("inf")).sum(-1, dtype=torch.int32)
     # ---- refine: exact per-splat cone test on the candidates ----
     pc = packed_cand[idc]  # (B, Kc, 8, CHUNK)
 
@@ -306,7 +316,7 @@ def _block_cull(idx: ChunkIndex, packed_cand, cand_idx, Kc: int, P: int,
     else:
         o = torch.sort(rad_key, dim=-1, stable=True).indices
         cid_sorted = torch.gather(cid, 1, o)
-    return cid_sorted, keep_s
+    return cid_sorted, keep_s, cut
 
 
 def cull_and_sort(
@@ -320,7 +330,10 @@ def cull_and_sort(
 
     Returns (gauss_idx (cap_aligned,) int32 pool indices with sentinel P,
     tile_bounds (T+1,) int32 64-aligned, dropped () int32 slots cut by
-    `total_pair_cap`). Tiles are culled `tile_block` at a time; each
+    `total_pair_cap`, cut () int32 chunks cut by `per_tile_cap`: summed
+    over the tiles, the chunks whose bounding sphere met a tile's cone
+    beyond the per_tile_cap // CHUNK nearest it keeps; 0 = no tile lost a
+    candidate to the cap). Tiles are culled `tile_block` at a time; each
     tile's result is independent of the blocking. The default takes as
     many tiles as keep each (tiles, candidates) plane within
     _CULL_BLOCK_ELEMS: each block is a long chain of small torch ops, so
@@ -350,18 +363,21 @@ def cull_and_sort(
         dim=0).reshape(8, NC, CHUNK).permute(1, 0, 2)  # (NC, 8, CHUNK)
     if tile_mask is None:
         tile_mask = torch.ones(T, dtype=torch.bool, device=dev)
-    ids, keeps = [], []
+    # each block's sorted slots written in place, as int32 (pool indices
+    # and the sentinel P): one (T, K) plane, 13 GB at K = 2^19
+    idmat = torch.empty((T, K), dtype=torch.int32, device=dev)
+    counts = torch.empty(T, dtype=torch.int32, device=dev)
+    cut = torch.zeros((), dtype=torch.int32, device=dev)
     for b0 in range(0, T, tile_block):
         sl = slice(b0, min(b0 + tile_block, T))
-        cs, ks = _block_cull(
+        cs, ks, ct = _block_cull(
             idx, packed_cand, cand_idx, Kc, P, tiles.apex[sl],
             tiles.axis[sl], tiles.tan_half[sl], tiles.spread[sl],
             tile_mask[sl], tiles.probe_frame[sl], tiles.probe_box[sl],
             tiles.probe_ok[sl] if probe else None)
-        ids.append(cs)
-        keeps.append(ks.sum(-1, dtype=torch.int32))
-    idmat = torch.cat(ids)  # (T, K)
-    counts = torch.cat(keeps)  # (T,)
+        idmat[sl] = cs
+        counts[sl] = ks.sum(-1, dtype=torch.int32)
+        cut += ct.sum(dtype=torch.int32)
     padded = -(-counts // CHUNK) * CHUNK
     poffs = torch.cat([counts.new_zeros(1),
                        torch.cumsum(padded, 0, dtype=torch.int32)])
@@ -384,7 +400,7 @@ def cull_and_sort(
     gathered = idmat.reshape(-1, CHUNK)[src]  # (NCH, CHUNK)
     valid = (i < coffs[-1])[:, None]
     gauss_aligned = torch.where(valid, gathered, P).reshape(-1)
-    return gauss_aligned.to(torch.int32), poffs, dropped
+    return gauss_aligned.to(torch.int32), poffs, dropped, cut
 
 
 def tile_mask_of(ray_mask: torch.Tensor) -> torch.Tensor:
@@ -543,7 +559,12 @@ def trace_rays(
     form two tracer outputs compose in). probe=False switches the cull's
     direction-space footprint rejection off. exact_order: the eval-time
     blend in each ray's own depth order (`_trace_tiles_exact`, plain
-    PyTorch, no kernel), every output filled, no gradient and no wet."""
+    PyTorch, no kernel), every output filled, no gradient and no wet.
+    per_tile_cap: candidates a ray tile keeps (default_per_tile_cap when
+    None); the chunks it cuts come back as TraceOutput.cut_chunks. Its
+    stages are the spans env.tiles, env.cull (counters env.pairs, the
+    slots used; env.slots, the slot budget; env.cut) and env.blend of
+    utils/timer.py, a traced base pass's too."""
     need_dist, need_wet = bool(needs[0]), bool(needs[1])
     need_geo = bool(needs[2]) if len(needs) > 2 else True
     if exact_order and (wet_zero is not None or compose_raw):
@@ -556,12 +577,18 @@ def trace_rays(
     K = per_tile_cap or default_per_tile_cap(P)
     ty, tx = -(-H // RTH), -(-W // RTW)
     with torch.no_grad():  # the cull is integer and carries no gradient
-        tiles = build_ray_tiles(ray_o, ray_d)
-        gauss_idx, bounds, dropped = cull_and_sort(
-            tiles, scene, splat_radius3(scene), per_tile_cap=K,
-            total_pair_cap=total_pair_cap,
-            tile_mask=None if ray_mask is None else tile_mask_of(ray_mask),
-            probe=probe)
+        with span("env.tiles"):
+            tiles = build_ray_tiles(ray_o, ray_d)
+        with span("env.cull"):
+            gauss_idx, bounds, dropped, cut = cull_and_sort(
+                tiles, scene, splat_radius3(scene), per_tile_cap=K,
+                total_pair_cap=total_pair_cap,
+                tile_mask=None if ray_mask is None else tile_mask_of(
+                    ray_mask),
+                probe=probe)
+            count("env.pairs", bounds, at=-1)
+            count("env.slots", gauss_idx.numel())
+            count("env.cut", cut)
     wet = torch.zeros(P, dtype=torch.float32, device=dev)
     if exact_order:
         # eval-time exact per-ray blend order over the same candidate
@@ -584,6 +611,7 @@ def trace_rays(
             trans=trans,
             dropped_pairs=dropped,
             num_pairs=bounds[-1],
+            cut_chunks=cut,
         )
     packed = _pack_scene_table(scene)
     fwd_wet = need_wet and wet_zero is None
@@ -591,22 +619,23 @@ def trace_rays(
         x is not None and x.requires_grad
         for x in (packed, ray_o, ray_d, wet_zero))
     wet_slots = None
-    if grad:
-        # the backward reads d1, d2 and last: the training configuration
-        res = trace_blend_train(
-            packed, ray_planes(ray_o, ray_d),
-            None if wet_zero is None
-            else torch.nn.functional.pad(wet_zero, (0, 1)),
-            gauss_idx, bounds, tx, ty, A, fwd_wet=fwd_wet)
-        img, wet_slots = res if fwd_wet else (res, None)
-        need_dist = True
-    elif need_dist or fwd_wet:
-        res = trace_blend(packed, gauss_idx, tiles.rays, bounds, tx, ty,
-                          train=True, A=A, wet=fwd_wet)
-        img, wet_slots = res if fwd_wet else (res, None)
-    else:
-        img = trace_blend(packed, gauss_idx, tiles.rays, bounds, tx, ty, A=A,
-                          geo=need_geo)
+    with span("env.blend"):
+        if grad:
+            # the backward reads d1, d2 and last: the training configuration
+            res = trace_blend_train(
+                packed, ray_planes(ray_o, ray_d),
+                None if wet_zero is None
+                else torch.nn.functional.pad(wet_zero, (0, 1)),
+                gauss_idx, bounds, tx, ty, A, fwd_wet=fwd_wet)
+            img, wet_slots = res if fwd_wet else (res, None)
+            need_dist = True
+        elif need_dist or fwd_wet:
+            res = trace_blend(packed, gauss_idx, tiles.rays, bounds, tx, ty,
+                              train=True, A=A, wet=fwd_wet)
+            img, wet_slots = res if fwd_wet else (res, None)
+        else:
+            img = trace_blend(packed, gauss_idx, tiles.rays, bounds, tx, ty,
+                              A=A, geo=need_geo)
     img = img[:, :H, :W]
     F = img.shape[0]
     r = rows(A)
@@ -657,6 +686,7 @@ def trace_rays(
         d1=plane.get("d1", zeros) if compose_raw else None,
         d2=plane.get("d2", zeros) if compose_raw else None,
         num_pairs=bounds[-1],
+        cut_chunks=cut,
     )
 
 
@@ -670,6 +700,7 @@ def trace_rays_multibounce(
     backend: str = "tiled",
     total_pair_cap: int | None = 2 ** 21,
     ray_mask: torch.Tensor | None = None,
+    per_tile_cap: int | None = None,
 ):
     """Recursive specular tracing (the JAX package's max_trace_depth > 0
     path). Each bounce b traces the current rays; rays whose blended
@@ -678,16 +709,17 @@ def trace_rays_multibounce(
     dpt d, direction reflected about the blended normal). Bounce colours
     composite back to front, rgb_b' = (1 - s_b) rgb_b + s_b rgb_{b+1}, on
     the reflected set. backend "tiled": trace_rays with JAX's default
-    needs and no hook (the training configuration with the forward wet),
-    "ref": the reference tracer. -> (bounce 0's TraceOutput with the
-    composited rgb, the per-bounce TraceOutput list)."""
+    needs and no hook (the training configuration with the forward wet)
+    and `per_tile_cap`, "ref": the reference tracer. -> (bounce 0's
+    TraceOutput with the composited rgb and the chunks cut summed over the
+    bounces, the per-bounce TraceOutput list)."""
     check_backend("tracer", backend)
     scene_has_spec = scene.aux.shape[-1] > 0
 
     def trace(o, d, m):
         if backend == "ref":
             return trace_rays_reference(scene, o, d, bg_color)
-        return trace_rays(scene, o, d, bg_color,
+        return trace_rays(scene, o, d, bg_color, per_tile_cap=per_tile_cap,
                           total_pair_cap=total_pair_cap, ray_mask=m,
                           needs=(True, True, True))
 
@@ -714,4 +746,8 @@ def trace_rays_multibounce(
              else torch.zeros_like(bounces[b].rgb[..., :1]))
         mixed = (1.0 - s) * bounces[b].rgb + s * rgb
         rgb = torch.where(masks[b][..., None], mixed, bounces[b].rgb)
-    return bounces[0]._replace(rgb=rgb), bounces
+    cut = None
+    if backend != "ref":
+        cut = torch.stack([b.cut_chunks for b in bounces]).sum(
+            dtype=torch.int32)
+    return bounces[0]._replace(rgb=rgb, cut_chunks=cut), bounces

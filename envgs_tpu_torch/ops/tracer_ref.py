@@ -40,6 +40,9 @@ class TraceOutput(NamedTuple):
     d1: torch.Tensor | None = None  # (...,)
     d2: torch.Tensor | None = None  # (...,)
     num_pairs: torch.Tensor | None = None  # () chunk-aligned slots used
+    cut_chunks: torch.Tensor | None = None  # () chunks the per-tile cap
+    #   cut, summed over the tiles (0 = no tile lost a candidate to it;
+    #   None on the reference tracer)
 
 
 class TraceScene(NamedTuple):

@@ -124,7 +124,7 @@ def compose_trace_slabs(parts: TraceOutput, bg_color: torch.Tensor
                         ) -> TraceOutput:
     """Fold (D, ...) stacked raw per-slab trace outputs (from
     trace_rays(compose_raw=True): premultiplied rgb / dpt, d1 / d2 filled)
-    in slab order; wet and dropped slots summed."""
+    in slab order; wet, dropped slots and cut chunks summed."""
     D = parts.trans.shape[0]
     rgb, dpt, acc = parts.rgb[0], parts.dpt[0], parts.acc[0]
     nrm, dist_, T = parts.norm[0], parts.dist[0], parts.trans[0]
@@ -149,7 +149,9 @@ def compose_trace_slabs(parts: TraceOutput, bg_color: torch.Tensor
         wet=torch.sum(parts.wet, dim=0), trans=T,
         dropped_pairs=(None if parts.dropped_pairs is None
                        else torch.sum(parts.dropped_pairs, dim=0)),
-        d1=d1, d2=d2)
+        d1=d1, d2=d2,
+        cut_chunks=(None if parts.cut_chunks is None
+                    else torch.sum(parts.cut_chunks, dim=0)))
 
 
 def _colors(pool: G.GaussianPool, cam: Camera, cfg: EnvGSConfig):
@@ -244,6 +246,7 @@ def _slab_env_pass(axis: Axis, slab_env_cap: int | None):
             scale_modifier=cfg.scale_modifier)
         out = tracer.trace_rays(
             scene, ref_o, ref_d, torch.zeros(3, device=xyz.device),
+            per_tile_cap=cfg.env_per_tile_cap,
             total_pair_cap=cap, ray_mask=ray_mask,
             needs=(train, train, train), wet_zero=wet_zero,
             compose_raw=True)

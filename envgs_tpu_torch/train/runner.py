@@ -139,7 +139,7 @@ def render_stage_ms(base: G.GaussianPool, env: G.GaussianPool, cam: Camera,
             env.get_opacity[:, 0], _pool_colors_at(env, ref_o),
             active=env.stats.active, scale_modifier=cfg.scale_modifier)
         tiles = build_ray_tiles(ref_o, ref_d)
-        gidx, bounds, _ = timed("cull", lambda: cull_and_sort(
+        gidx, bounds, *_ = timed("cull", lambda: cull_and_sort(
             tiles, scene, splat_radius3(scene),
             per_tile_cap=default_per_tile_cap(scene.mean.shape[0]),
             total_pair_cap=cfg.env_pair_cap))

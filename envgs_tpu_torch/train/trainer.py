@@ -247,12 +247,13 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
             stats["env_num_pts"] = env.stats.active.sum()
             # capacity truncation counters: pairs past the raster budget (none
             # for a traced base pass, whose dropped slots go unreported as in
-            # the JAX package), and tracer slots lost to the env budget (0 =
-            # nothing dropped)
+            # the JAX package), tracer slots lost to the env budget and env
+            # chunks cut by the cull's per-tile cap (0 = nothing dropped)
             if out.base_num_pairs is not None:
                 stats["pair_overflow"] = torch.clamp(
                     out.base_num_pairs - model_cfg.pair_cap, min=0)
             stats["trace_dropped"] = out.env_dropped_pairs
+            stats["trace_cut"] = out.env_cut_chunks
             if mark:
                 mark("optimizer")
             return new_state, cam_state, stats

@@ -4,7 +4,8 @@ config reader of the port's command line.
 Every NamedTuple of options the port has is held to the JAX tuple of the
 same name: the same field names, in the same order, with the same defaults.
 What the port leaves out is listed here, field by field, with its reason; a
-field missing from both lists fails the test.
+field missing from both lists fails the test. What the port adds comes
+after the JAX fields, listed in ADDED with its default and its reason.
 
     python -m pytest tests/test_torch_configs.py
 """
@@ -31,6 +32,13 @@ TUPLES = {
     ("models.neus", "NeusConfig"): {},
     ("models.enerf", "ENeRFConfig"): {},
 }
+# (module, tuple) -> {field the port adds: (default, why)}
+ADDED = {
+    ("models.envgs", "EnvGSConfig"): {
+        "env_per_tile_cap": (None, "the env cull's per-tile cap, counted "
+                             "when it cuts; None: the JAX package's 2048"),
+    },
+}
 
 
 @pytest.mark.parametrize("mod,name", sorted(TUPLES))
@@ -38,12 +46,15 @@ def test_config_tuple_has_the_jax_fields_and_defaults(mod, name):
     want = getattr(importlib.import_module(f"envgs_tpu.{mod}"), name)
     got = getattr(importlib.import_module(f"envgs_tpu_torch.{mod}"), name)
     omitted = TUPLES[(mod, name)]
+    added = ADDED.get((mod, name), {})
     assert set(omitted) <= set(want._fields), "an omission names no field"
     assert not set(omitted) & set(got._fields), "listed as omitted, but there"
-    assert list(got._fields) == [f for f in want._fields if f not in omitted]
-    assert got._field_defaults == {k: v for k, v in
-                                   want._field_defaults.items()
-                                   if k not in omitted}
+    assert not set(added) & set(want._fields), "listed as added, but JAX's"
+    assert list(got._fields) == [f for f in want._fields
+                                 if f not in omitted] + list(added)
+    assert got._field_defaults == {
+        **{k: v for k, v in want._field_defaults.items() if k not in omitted},
+        **{k: v[0] for k, v in added.items()}}
 
 
 def test_cli_omissions_are_the_listed_backend_names():

@@ -90,7 +90,7 @@ def test_exact_order_matches_jax():
     assert float(tout.acc.max()) > 0.5
 
     tiles = ttr.build_ray_tiles(args[1], args[2])
-    gidx, bounds, _ = ttr.cull_and_sort(
+    gidx, bounds, *_ = ttr.cull_and_sort(
         tiles, ts, ttr.splat_radius3(ts),
         per_tile_cap=ttr.default_per_tile_cap(1200), total_pair_cap=2 ** 14)
     K = ttr.default_per_tile_cap(1200)

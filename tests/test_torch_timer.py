@@ -1,10 +1,12 @@
 """The program's spans and counters (`utils/timer.py`) on tiny 3DGS and
 EnvGS train steps on the CPU: nothing is recorded without a profiler; under
 `torch.profiler.profile` a step records train.step > train.forward >
-render > {render.project, render.bin}, then train.backward, one root a
-step, with the binning's counters; each span is a user annotation of the
-profiler's own trace, the step's ops inside it; and the spans and counters
-add no aten op to the step."""
+render > {render.project, render.bin} (EnvGS: then render.reflect and,
+with the reflection on, render.env > {env.tiles, env.cull, env.blend}),
+then train.backward, one root a step, with the binning's counters (and the
+env cull's); each span is a user annotation of the profiler's own trace,
+the step's ops inside it; and the spans and counters add no aten op to the
+step."""
 import collections
 import json
 
@@ -26,13 +28,24 @@ from torch_threads import one_thread  # noqa: F401
 pytestmark = pytest.mark.usefixtures("one_thread")
 
 H, W = 32, 48
-STEP = ["train.step", "train.forward", "render", "render.project",
-        "render.bin", "train.backward"]
+# each family's render spans, in the order they open
+RENDER = {"gs3d": ["render", "render.project", "render.bin"]}
+RENDER["envgs"] = RENDER["gs3d"] + ["render.reflect"]
+RENDER["envgs_refl"] = RENDER["envgs"] + ["render.env", "env.tiles",
+                                          "env.cull", "env.blend"]
+STEP = {f: ["train.step", "train.forward", *r, "train.backward"]
+        for f, r in RENDER.items()}
 # each span's parent within a step
 PARENT = {"train.forward": "train.step", "render": "train.forward",
           "render.project": "render", "render.bin": "render",
-          "train.backward": "train.step"}
-FAMILIES = ("gs3d", "envgs")
+          "render.reflect": "render", "render.env": "render",
+          "env.tiles": "render.env", "env.cull": "render.env",
+          "env.blend": "render.env", "train.backward": "train.step"}
+COUNTS = {"gs3d": {"bin.pairs", "bin.kept", "bin.slots"}}
+COUNTS["envgs"] = COUNTS["gs3d"]
+COUNTS["envgs_refl"] = COUNTS["gs3d"] | {"env.pairs", "env.slots",
+                                         "env.cut"}
+FAMILIES = ("gs3d", "envgs", "envgs_refl")
 
 
 def _gs3d():
@@ -60,13 +73,14 @@ def _gs3d():
     return lambda: step(state, cam.K, cam.R, cam.T, target), render
 
 
-def _envgs():
-    """(step(), render()) of a tiny EnvGS scene at 48x32 before the
-    reflection starts (the base pass alone, as the train cell runs it)."""
+def _envgs(reflection_start_iter=10 ** 6):
+    """(step(), render()) of a tiny EnvGS scene at 48x32, by default before
+    the reflection starts (the base pass alone, as envgs-train-early runs
+    it)."""
     base, env, cam, cfg, batch = bench.make_train_scene(
         "cpu", P=200, Pe=64, Ht=H, Wt=W, base_scale=0.05)
     cfg = cfg._replace(pair_cap=2 ** 12, env_pair_cap=2 ** 12,
-                       reflection_start_iter=10 ** 6)
+                       reflection_start_iter=reflection_start_iter)
     state = init_train_state(base, env)
     step = bench.make_bench_step(cam, cfg)
 
@@ -79,7 +93,8 @@ def _envgs():
             render)
 
 
-MAKE = {"gs3d": _gs3d, "envgs": _envgs}
+MAKE = {"gs3d": _gs3d, "envgs": _envgs,
+        "envgs_refl": lambda: _envgs(reflection_start_iter=0)}
 
 
 @pytest.fixture(autouse=True)
@@ -121,7 +136,7 @@ def test_a_profiled_step_records_its_tree_and_counters(family):
     for spans in timer.RECORD:
         root = spans[0]
         assert root.name == "train.step" and root.parent is None
-        assert [s.name for s in spans] == STEP
+        assert [s.name for s in spans] == STEP[family]
         for s in spans[1:]:
             assert s.root == root.root and s.parent is not None
             assert s.parent.name == PARENT[s.name]
@@ -131,12 +146,16 @@ def test_a_profiled_step_records_its_tree_and_counters(family):
         roots.add(root.root)
     assert len(roots) == 2
     for r in timer.read_spans():
-        assert r["name"] == "train.step" and set(r["host_ms"]) == set(STEP)
+        assert r["name"] == "train.step"
+        assert set(r["host_ms"]) == set(STEP[family])
         assert r["device_ms"] == {}  # no CUDA event on the CPU
         c = r["counts"]
-        assert set(c) == {"bin.pairs", "bin.kept", "bin.slots"}
+        assert set(c) == COUNTS[family]
         assert 0 < c["bin.kept"] <= min(c["bin.pairs"], c["bin.slots"])
         assert c["bin.slots"] == 32768  # the cap rounded to the layout's
+        if "env.cut" in c:  # the 64-surfel env set is one chunk: none cut
+            assert 0 < c["env.pairs"] <= c["env.slots"]
+            assert c["env.cut"] == 0
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -144,10 +163,9 @@ def test_a_render_alone_is_a_root(family):
     _, render = MAKE[family]()
     _profiled(render)
     (spans,) = timer.RECORD
-    assert [s.name for s in spans] == ["render", "render.project",
-                                       "render.bin"]
+    assert [s.name for s in spans] == RENDER[family]
     assert spans[0].parent is None
-    assert all(s.parent is spans[0] for s in spans[1:])
+    assert all(s.parent.name == PARENT[s.name] for s in spans[1:])
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -161,7 +179,7 @@ def test_spans_are_annotations_of_the_profilers_trace(family, tmp_path):
         if e.get("cat") == "user_annotation" and e.get("ph") == "X":
             ann[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
     (spans,) = timer.RECORD
-    for name in STEP:
+    for name in STEP[family]:
         assert len(ann[name]) == sum(s.name == name for s in spans)
 
     def inside(a, b):
@@ -172,6 +190,9 @@ def test_spans_are_annotations_of_the_profilers_trace(family, tmp_path):
               if e.get("cat") == "cpu_op" and e["name"] == "aten::cummax"]
     assert cummax and all(inside(c, bin_) for c in cummax)
     assert inside(bin_, fwd)
+    if "render.env" in STEP[family]:
+        (env,), (cull,) = ann["render.env"], ann["env.cull"]
+        assert inside(cull, env) and inside(env, fwd)
     (bwd,) = ann["train.backward"]
     assert fwd[1] <= bwd[0]
 

@@ -124,8 +124,8 @@ def test_cull_and_sort_matches_jax(total_cap):
         assert int(jd) > 0
     tt = ttr.RayTiles(*(_t(x) if not isinstance(x, int) else x for x in jt))
     ts = TraceScene(*map(_t, js))
-    tg, tb, td = ttr.cull_and_sort(tt, ts, _t(r3), per_tile_cap=1024,
-                                   total_pair_cap=total_cap, tile_block=4)
+    tg, tb, td, _ = ttr.cull_and_sort(tt, ts, _t(r3), per_tile_cap=1024,
+                                      total_pair_cap=total_cap, tile_block=4)
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
     np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
     assert int(td) == int(jd)
