@@ -60,6 +60,10 @@ Phases, one or more lines each:
      plain version: ms each way, the outputs within the card test's
      tolerances, each leaf's gradient (quaternions and opacities too)
      within 1e-5 in relative norm; the plain chain's ms, the byte bounds;
+ 9c. the env cull's kernels: tests/test_torch_env_cull.py's card tests
+     once more, then the kernels and the plain version at envgs-train's
+     shapes and at the render default, integer-equal, ms, the (tile,
+     chunk) pairs met, the bound, peak memory;
  10. small 3DGS run: render_gaussiant, one make_gaussiant_train_step and
      one densify_and_prune (the same split draws) on a small scene, CUDA
      against CPU;
@@ -300,8 +304,8 @@ DENSIFY_RTOL = 1e-6
 K1_RENDER, K1_MED = "raster_blend_fwd", "raster_blend_fwd_med"
 K1_TRAIN = "raster_blend_fwd_aligned_dist_med"
 TRAIN_NEEDS = (True, True, False)
-RENDER_KERNELS = (K1_RENDER, "trace_blend_fwd")
-TRAIN_KERNELS = (K1_TRAIN, "raster_blend_bwd", "trace_blend_fwd",
+RENDER_KERNELS = (K1_RENDER, "env_cull", "trace_blend_fwd")
+TRAIN_KERNELS = (K1_TRAIN, "raster_blend_bwd", "env_cull", "trace_blend_fwd",
                  "trace_blend_bwd", "fill_forward")
 GAUSSIANT_RENDER_KERNELS = ("fill_forward", "raster_blend_fwd_gauss3d",
                             "project3d_fwd")
@@ -1024,6 +1028,97 @@ def project3d_run(kernels) -> dict:
     return dict(worst, fwd_bound=fwd_bound, bwd_bound=bwd_bound, **res)
 
 
+# the env cull (csrc/env_cull.cu): float32 operations per coarse (tile,
+# chunk) test, per refined candidate's sphere test and per probe of a
+# candidate the sphere test keeps, read off csrc/env_cull.cuh (a square root
+# or a division counted as one; the keys and the sort left out, so the
+# bound stays a bound); the bytes each chunk's rows and index take
+CULL_COARSE_OPS, CULL_SPHERE_OPS, CULL_PROBE_OPS = 35, 26, 140
+CULL_CHUNK_BYTES = 12 + 4 + 1 + (8 + 1) * 64 * 4
+
+
+def env_cull_run(kernels) -> dict:
+    """The env cull's kernels (ops/tracer.py::cull_and_sort on CUDA
+    tensors): the card tests of tests/test_torch_env_cull.py once more (the
+    kernels integer-equal to the plain version over probe, tile mask, slot
+    budget, per-tile cap and key regime and at envgs-train's full size; no
+    host synchronisation; a training step's launch), then the kernels and
+    the plain version timed on the same inputs (median of 20 and of 2) at
+    envgs-train's shapes (its scene, 2^19 a tile, 2^26 slots) and at the
+    render default (the bench scene, 2048 a tile), equal there too; the
+    (tile, chunk) pairs met against tiles x Kc, the bound (the chunk table
+    read and the slots written once; the coarse tests, the met chunks'
+    sphere tests and the kept candidates' probes), the peak memory of each.
+    -> the fields of the kernels line."""
+    from envgs_tpu_torch.ops import tracer
+    from envgs_tpu_torch.ops.raster_blend import CHUNK
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "-m", "cuda", "-q", "-p",
+         "no:cacheprovider", "tests/test_torch_env_cull.py"], cwd=root,
+        capture_output=True, text=True)
+    last = tests.stdout.strip().splitlines()[-1] if tests.stdout else ""
+    print(f"[kernels] env_cull card tests: {last}", flush=True)
+    if tests.returncode != 0:
+        raise AssertionError(f"env_cull card tests failed:\n"
+                             f"{tests.stdout[-4000:]}")
+    sys.path.insert(0, os.path.join(root, "tests"))
+    from test_torch_env_cull import bench_env_inputs, cell_env_inputs
+
+    scene, tiles, total = bench_env_inputs("cuda")
+    cases = {"cell": cell_env_inputs("cuda"),
+             "render": (scene, tiles, 2048, total)}
+    res = {}
+    for label, (scene, tiles, cap, total) in cases.items():
+        r3 = tracer.splat_radius3(scene)
+        kw = dict(per_tile_cap=cap, total_pair_cap=total)
+        T, P = tiles.n_tiles, scene.mean.shape[0]
+        NC = -(-P // CHUNK)
+        Kc = max(min(cap // CHUNK, NC), 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        got = tracer.cull_and_sort(tiles, scene, r3, **kw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        ms = cuda_ms(lambda: tracer.cull_and_sort(tiles, scene, r3, **kw), 20)
+        torch.cuda.reset_peak_memory_stats()
+        want = tracer.cull_and_sort_torch(tiles, scene, r3, **kw)
+        torch.cuda.synchronize()
+        plain_peak = torch.cuda.max_memory_allocated() - held
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        del want
+        plain_ms = cuda_ms(lambda: tracer.cull_and_sort_torch(
+            tiles, scene, r3, **kw), 2)
+        idx = tracer.build_chunk_index(scene, r3)
+        radial = tracer.coarse_radial(
+            idx, tiles.apex, tiles.axis, tiles.tan_half, tiles.spread,
+            torch.ones(T, dtype=torch.bool, device="cuda"))
+        met = int((radial < float("inf")).sum())
+        del radial
+        kept = int((got[0] != P).sum())
+        bound = bound_ms(NC * CULL_CHUNK_BYTES + got[0].numel() * 4
+                         + (T + 1) * 4,
+                         T * NC * CULL_COARSE_OPS
+                         + min(met, T * Kc) * CHUNK * CULL_SPHERE_OPS
+                         + kept * CULL_PROBE_OPS)
+        print(f"[kernels] env_cull {label}: {T} tiles, {NC} chunks, P {P}, "
+              f"Kc {Kc}: {met} (tile, chunk) pairs met against tiles x Kc "
+              f"{T * Kc}, {int(got[3])} cut, {kept} slots kept of "
+              f"{got[0].numel()}; kernels {ms:.4f} ms (peak "
+              f"{peak / 2 ** 30:.2f} GiB), plain {plain_ms:.2f} ms (peak "
+              f"{plain_peak / 2 ** 30:.2f} GiB), integer-equal {equal}; "
+              f"bound {bound[0]:.4f} ms by {bound[1]}", flush=True)
+        if not equal:
+            raise AssertionError(f"env_cull {label} disagrees with the "
+                                 "plain version")
+        res[label] = dict(ms=ms, plain_ms=plain_ms, bound=bound, met=met,
+                          tiles_x_kc=T * Kc, peak=peak, plain_peak=plain_peak)
+        del got, idx
+    return res
+
+
 def render_spans(render, reps: int = 5):
     """({span: median device ms}, the last render's counters) of `reps`
     renders under the profiler, after one more that warms up, read from
@@ -1566,7 +1661,7 @@ def full_run(device, out_root, kernels, size=None):
 
     # ---- evaluation: exact order (K1 alone), radial order (K1 and K3) ----
     cam = eval_views[0]["camera"]
-    for exact, want in ((True, ("raster_blend_fwd",)),
+    for exact, want in ((True, ("raster_blend_fwd", "env_cull")),
                         (False, RENDER_KERNELS)):
         before = dict(kernels.LAUNCHES)
         out = again.render_view(cam, exact_order=exact)
@@ -2467,8 +2562,8 @@ def traced_runs(kernels):
           + json.dumps(res["traced_stage_ms"]), flush=True)
     paths["traced_render"], paths["traced_train"], stats = traced_slice(
         "traced", kernels, base, env, cam, bcfg, batch,
-        {"trace_blend_fwd_geo": 1, "trace_blend_fwd": 1},
-        {"trace_blend_fwd": 2, "trace_blend_bwd": 2})
+        {"env_cull": 2, "trace_blend_fwd_geo": 1, "trace_blend_fwd": 1},
+        {"env_cull": 2, "trace_blend_fwd": 2, "trace_blend_bwd": 2})
     if "pair_overflow" in stats:
         raise AssertionError("a traced base pass reports raster pairs")
 
@@ -2572,9 +2667,10 @@ def traced_runs(kernels):
         del k3b, out, g, scene1, o1, d1, tmask1
     paths["bounce_render"], paths["bounce_train"], _ = traced_slice(
         "bounce", kernels, base, env, cam, mcfg, batch,
-        {K1_RENDER: 1, "trace_blend_fwd_wet": 2},
+        {K1_RENDER: 1, "env_cull": 2, "trace_blend_fwd_wet": 2},
         {"fill_forward": 1, K1_TRAIN: 1, "raster_blend_bwd": 1,
-         "trace_blend_fwd_wet": 2, "trace_blend_bwd": 2}, restart=True)
+         "env_cull": 2, "trace_blend_fwd_wet": 2, "trace_blend_bwd": 2},
+        restart=True)
     del base, env, batch
 
     # ---- c. the committed golden scenes through the kernels ----
@@ -4061,7 +4157,7 @@ def band_renders(kernels):
                                     bench.TRAIN_IT, cfg, *hooks,
                                     band=(b * h, BAND_H))
             rose = _launch_delta(kernels, before)
-            want = (K1_TRAIN, "trace_blend_fwd", "fill_forward")
+            want = (K1_TRAIN, "env_cull", "trace_blend_fwd", "fill_forward")
             if any(v != (k in want) for k, v in rose.items()):
                 raise AssertionError(f"band {b} of {n}: launches {rose}")
             for k in BAND_MAPS:
@@ -4746,6 +4842,7 @@ def main():
     k6_resources = kernels.segscan_resources()
     p3d_resources = {"fwd": kernels.project3d_fwd_resources(),
                      "bwd": kernels.project3d_bwd_resources()}
+    cull_resources = kernels.env_cull_resources()
     for name, res, threads in (
             *((key, res, 256) for key, res in k1_resources.items()),
             *((f"trace_blend_fwd ({cfg})", res, 256)
@@ -4754,7 +4851,9 @@ def main():
             ("fill_forward", k5_resources, 256),
             ("segscan", k6_resources, 256),
             ("project3d_fwd", p3d_resources["fwd"], 256),
-            ("project3d_bwd", p3d_resources["bwd"], 256)):
+            ("project3d_bwd", p3d_resources["bwd"], 256),
+            *((f"env_cull ({k})", r, 256)
+              for k, r in cull_resources["kernels"].items())):
         print(f"[build] {name}: {res['registers']} registers, "
               f"{res['shared_bytes']} B shared, {res['local_bytes']} B "
               f"spilled, {res['blocks_per_sm']} blocks of {threads} threads "
@@ -4816,7 +4915,7 @@ def main():
         med[dev] = forward_envgs(sb, se, sc, 10,
                                  scfg._replace(depth_ratio=1.0))
         rose = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-        if dev == "cuda" and any(v != (k in (K1_MED, "trace_blend_fwd"))
+        if dev == "cuda" and any(v != (k in (K1_MED, "env_cull", "trace_blend_fwd"))
                                  for k, v in rose.items()):
             raise AssertionError(f"median-depth render launches off: {rose}")
     errs = {k: float((getattr(med["cuda"], k).cpu()
@@ -4863,7 +4962,7 @@ def main():
           f"env slots {env_slots}, rgb std {std:.4f}, launches "
           + json.dumps({k: v for k, v in median_launches.items() if v}),
           flush=True)
-    if any(v != (k in (K1_MED, "trace_blend_fwd"))
+    if any(v != (k in (K1_MED, "env_cull", "trace_blend_fwd"))
            for k, v in median_launches.items()):
         raise AssertionError(f"median render launches off: "
                              f"{median_launches}")
@@ -5132,6 +5231,9 @@ def main():
 
     # ---- 9b. the 3DGS projection's kernels against the plain version ----
     p3d = project3d_run(kernels)
+
+    # ---- 9c. the env cull's kernels against the plain version ----
+    cull = env_cull_run(kernels)
 
     # ---- 10. small 3DGS run: CUDA kernels against the CPU plain path ----
     g = torch.Generator().manual_seed(1)
@@ -5566,6 +5668,18 @@ def main():
               layer_fwd_bwd_ms=p3d["layer_fwd_bwd_ms"],
               settings_ms={k: p3d[f"{k}_bwd_ms"] for k in PROJECT3D_SETTINGS},
               resources=p3d_resources["bwd"]),
+        entry("env_cull", "env_cull.cu",
+              "none (envgs_tpu/ops/tracer.py::cull_and_sort, jnp)", 0.0,
+              cull["cell"]["ms"], cull["cell"]["plain_ms"],
+              cull["cell"]["bound"], met=cull["cell"]["met"],
+              tiles_x_kc=cull["cell"]["tiles_x_kc"],
+              peak_bytes=cull["cell"]["peak"],
+              plain_peak_bytes=cull["cell"]["plain_peak"],
+              render_ms=cull["render"]["ms"],
+              render_plain_ms=cull["render"]["plain_ms"],
+              render_bound_ms=cull["render"]["bound"][0],
+              render_met=cull["render"]["met"],
+              resources=cull_resources),
         entry("segscan", "segscan.cu", "envgs_tpu/ops/segsum.py:30", k6_err,
               k6_ms, k6_plain_ms, k6_bound, resources=k6_resources),
         gather_entry("gather_rows", "scripts/tpu_micro_dmagather.py:49"),

@@ -12,8 +12,9 @@ blends (the surfel launches under the kernel's name, the gauss3d ones under
 `needs` and layout: `raster_blend_fwd_key`) and for the traced blend's
 forward (the render and training launches under its name, the geometry and
 forward-wet ones under `<name>_geo` and `<name>_wet`), and the 3DGS
-projection's forward and backward apart (`project3d_fwd`, `project3d_bwd`);
-each wrapper adds one where it launches its kernel and nowhere else.
+projection's forward and backward apart (`project3d_fwd`, `project3d_bwd`),
+the env cull's sequence of kernels as one (`env_cull`); each wrapper adds
+one where it launches its kernel and nowhere else.
 `ROW_OFF_LAUNCHES` counts, under the same keys, the raster blends' launches
 at a row offset other than 0 (a band of a larger image).
 """
@@ -63,7 +64,7 @@ LAUNCHES = {**{raster_blend_fwd_key(c[:3], c[3]): 0 for c in K1_CONFIGS},
             "trace_blend_fwd": 0, "trace_blend_fwd_geo": 0,
             "trace_blend_fwd_wet": 0, "trace_blend_bwd": 0, "fill_forward": 0,
             "segscan": 0, "gather_rows": 0, "gather_rows_win8": 0,
-            "project3d_fwd": 0, "project3d_bwd": 0}
+            "project3d_fwd": 0, "project3d_bwd": 0, "env_cull": 0}
 ROW_OFF_LAUNCHES = {k: 0 for k in LAUNCHES if k.startswith("raster_blend")}
 MODES = {"surfel": 0, "gauss3d": 1}  # geometry of the raster blends
 # the traced blend's forward configurations counted apart (LAUNCHES keys
@@ -74,9 +75,9 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[1] / "_build"
 _SOURCES = ("raster_blend_fwd.cu", "raster_blend_bwd.cu",
             "trace_blend_fwd.cu", "trace_blend_bwd.cu", "fill_forward.cu",
-            "segscan.cu", "gather_rows.cu", "project3d.cu")
+            "segscan.cu", "gather_rows.cu", "project3d.cu", "env_cull.cu")
 # included by sources, hashed with them
-_HEADERS = ("trace_blend.cuh", "project3d.cuh")
+_HEADERS = ("trace_blend.cuh", "project3d.cuh", "env_cull.cuh")
 # -fmad=false: the kernels round every product and sum on its own, as the
 # plain PyTorch versions' elementwise ops do, so the two agree to the last
 # bits on the card instead of only to a tolerance (the projection's 3-term
@@ -135,6 +136,14 @@ _ARGTYPES = {
     # out (4 ints)
     "project3d_fwd_resources": [_VP],
     "project3d_bwd_resources": [_VP],
+    # cmean, crad, cact, cand, order, apex, axis, tan_half, spread, tmask,
+    # pframe, pbox, pok, T, NC, Kc, P, cap, clist, calt, ints, offs, keys,
+    # alt, gauss, bounds, small, met, stream
+    "env_cull": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                 _VP, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                 _VP, _VP, _VP, _VP],
+    # out (5 kernels x 4 ints)
+    "env_cull_resources": [_VP],
 }
 _lib = None
 
@@ -634,3 +643,82 @@ def project3d_bwd_resources() -> dict:
     """What the projection's backward was compiled to, as
     raster_blend_fwd_resources."""
     return _resources("project3d_bwd_resources")
+
+
+ENV_CULL_KERNELS = ("coarse", "refine_count", "refine_write", "sort_chunks",
+                    "sort_candidates")
+
+
+def env_cull(cmean, crad, cact, cand, order, apex, axis, tan_half, spread,
+             tile_mask, probe_frame, probe_box, probe_ok, Kc: int, P: int,
+             cap: int):
+    """The env cull (csrc/env_cull.cu) over NC Morton chunks and T ray
+    tiles: chunk spheres cmean (NC, 3), crad (NC,), cact (NC,) bool; the
+    candidate table cand (NC, 8, 64) (mx my mz rad nx ny nz rc) and order
+    (NC * 64,) int32 pool indices (P for none); the tiles' apex, axis (T,
+    3), tan_half, spread (T,), tile_mask (T,) bool, probe_frame (T, 2, 3),
+    probe_box (T, 4, 10) and probe_ok (T,) bool, or None for no probe; Kc
+    chunks a tile, P pool slots, cap output slots (a multiple of 1024) ->
+    (gauss_idx (cap,) int32, tile_bounds (T + 1,) int32, dropped () int32,
+    cut () int32, met () int64: the (tile, chunk) pairs that met). See
+    ops/tracer.py::cull_and_sort for the contract. Sizes every buffer from
+    T, Kc, NC and cap: nothing waits for the card."""
+    NC = cmean.shape[0]
+    T = apex.shape[0]
+    _check("cmean", cmean, torch.float32, shape=(NC, 3))
+    dev = cmean.device
+    _check("crad", crad, torch.float32, cmean, (NC,))
+    _check("cact", cact, torch.bool, cmean, (NC,))
+    _check("cand", cand, torch.float32, cmean, (NC, 8, 64))
+    _check("order", order, torch.int32, cmean, (NC * 64,))
+    _check("apex", apex, torch.float32, cmean, (T, 3))
+    _check("axis", axis, torch.float32, cmean, (T, 3))
+    _check("tan_half", tan_half, torch.float32, cmean, (T,))
+    _check("spread", spread, torch.float32, cmean, (T,))
+    _check("tile_mask", tile_mask, torch.bool, cmean, (T,))
+    _check("probe_frame", probe_frame, torch.float32, cmean, (T, 2, 3))
+    _check("probe_box", probe_box, torch.float32, cmean, (T, 4, 10))
+    if probe_ok is not None:
+        _check("probe_ok", probe_ok, torch.bool, cmean, (T,))
+    Kcap = max(min(Kc, NC), 1)
+    if not 1 <= Kc or cap % 1024 or not 0 <= cap < 2 ** 31 - Kc * 64:
+        raise ValueError(f"Kc={Kc}, cap={cap}: Kc >= 1 and the slots, a "
+                         "multiple of 1024, must be int32 offsets")
+
+    def empty(n, dtype):
+        return torch.empty(n, dtype=dtype, device=dev)
+
+    clist, calt = empty(T * Kcap, torch.int64), empty(T * Kcap, torch.int64)
+    ints = empty(4 * T, torch.int32)
+    offs = empty(2 * (T + 1), torch.int64)
+    # a tile's keys sit at its slot offset, which starts within the budget
+    nb = cap + Kc * 64
+    keys, alt = empty(nb, torch.int64), empty(nb, torch.int64)
+    gauss = torch.full((cap,), P, dtype=torch.int32, device=dev)
+    bounds = torch.zeros(T + 1, dtype=torch.int32, device=dev)
+    small = torch.zeros(2, dtype=torch.int32, device=dev)  # dropped, cut
+    met = torch.zeros(1, dtype=torch.int64, device=dev)
+    if T:
+        _launch("env_cull", dev, *(t.data_ptr() for t in (
+            cmean, crad, cact, cand, order, apex, axis, tan_half, spread,
+            tile_mask, probe_frame, probe_box)), _ptr(probe_ok), T, NC, Kc,
+            P, cap, *(t.data_ptr() for t in (
+                clist, calt, ints, offs, keys, alt, gauss, bounds, small,
+                met)), _stream(cmean))
+    return gauss, bounds, small[0], small[1], met[0]
+
+
+def env_cull_resources() -> dict:
+    """What the env cull's kernels were compiled to: each of
+    ENV_CULL_KERNELS's registers, static shared bytes, resident blocks per
+    SM and local bytes under `kernels`, and the refine's (the write pass)
+    at the top level, as raster_blend_fwd_resources."""
+    out = (ctypes.c_int * (4 * len(ENV_CULL_KERNELS)))()
+    err = _load().env_cull_resources(out)
+    if err != 0:
+        raise RuntimeError(f"env_cull_resources: CUDA error {err}")
+    per = {name: dict(registers=out[4 * i], shared_bytes=out[4 * i + 1],
+                      blocks_per_sm=out[4 * i + 2],
+                      local_bytes=out[4 * i + 3])
+           for i, name in enumerate(ENV_CULL_KERNELS)}
+    return dict(per["refine_write"], kernels=per)

@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from envgs_tpu_torch import kernels
 from envgs_tpu_torch.ops.common import (
     ALPHA_MAX,
     ALPHA_MIN,
@@ -51,9 +52,8 @@ RTH = 16  # tile height in rays
 RTW = 16  # tile width in rays
 NRAY = RTH * RTW
 NQUAD = 4  # probe boxes per tile (2x2 spatial quadrants of the ray grid)
-# elements of one (tiles, candidates) plane of a cull block: 64 MB in f32.
-# The bench scene (6435 tiles x 2048 candidates) then culls in one block;
-# its render peaked at 3.1 GiB of device memory (H100 80GB HBM3, 700 W)
+# elements of one (tiles, candidates) plane of a block of the plain cull:
+# 64 MB in f32
 _CULL_BLOCK_ELEMS = 1 << 24
 # elements of one (tiles, rays, candidates) array of an exact-order block:
 # 128 MB in f32; the blend holds a few dozen such arrays at once
@@ -210,12 +210,18 @@ def coarse_radial(idx: ChunkIndex, apex, axis, tan_half, spread,
                   tmask) -> torch.Tensor:
     """The coarse pass over a block of B tiles: (B, NC) distance from each
     tile's apex to each chunk sphere's centre where the sphere meets the
-    tile's cone, inf elsewhere (inactive chunks, masked-out tiles)."""
-    cmeanT = idx.cmean.T
-    cm2 = torch.sum(idx.cmean * idx.cmean, dim=-1)
-    proj = axis @ cmeanT - torch.sum(axis * apex, -1, keepdim=True)
-    d2 = (cm2[None, :] - 2.0 * (apex @ cmeanT)
-          + torch.sum(apex * apex, -1, keepdim=True))
+    tile's cone, inf elsewhere (inactive chunks, masked-out tiles). Its dot
+    products are sums written out left to right, as the kernel writes them
+    (csrc/env_cull.cuh): a matrix product would sum in the library's own
+    order, which differs between devices."""
+    cx, cy, cz = idx.cmean.unbind(-1)
+    ax0, ax1, ax2 = axis[:, 0:1], axis[:, 1:2], axis[:, 2:3]
+    ap0, ap1, ap2 = apex[:, 0:1], apex[:, 1:2], apex[:, 2:3]
+    cm2 = cx * cx + cy * cy + cz * cz
+    proj = (ax0 * cx + ax1 * cy + ax2 * cz) - (ax0 * ap0 + ax1 * ap1
+                                               + ax2 * ap2)
+    d2 = ((cm2 - 2.0 * (ap0 * cx + ap1 * cy + ap2 * cz))
+          + (ap0 * ap0 + ap1 * ap1 + ap2 * ap2))
     d2 = torch.clamp(d2, min=0.0)
     axis_dist = torch.sqrt(torch.clamp(d2 - proj * proj, min=0.0))
     slack = spread[:, None] + idx.crad[None, :] * (1.0 + tan_half[:, None])
@@ -231,7 +237,8 @@ def _block_cull(idx: ChunkIndex, packed_cand, cand_idx, Kc: int, P: int,
     """Cull and radially sort the candidates of a block of B tiles:
     (cid_sorted (B, Kc*CHUNK) int64, keep (B, Kc*CHUNK) bool, cut (B,)
     int32: the chunks whose sphere met the tile's cone past the Kc nearest
-    it keeps). pok None: no direction-space footprint rejection."""
+    it keeps, met (B,) int64: the chunks that met it). pok None: no
+    direction-space footprint rejection."""
     B = apex.shape[0]
     C = Kc * CHUNK
     radial = coarse_radial(idx, apex, axis, tan_half, spread, tmask)
@@ -240,6 +247,7 @@ def _block_cull(idx: ChunkIndex, packed_cand, cand_idx, Kc: int, P: int,
     idc = srt.indices[:, :Kc]
     cvalid = srt.values[:, :Kc] < float("inf")
     cut = (srt.values[:, Kc:] < float("inf")).sum(-1, dtype=torch.int32)
+    met = cvalid.sum(-1) + cut
     # ---- refine: exact per-splat cone test on the candidates ----
     pc = packed_cand[idc]  # (B, Kc, 8, CHUNK)
 
@@ -316,38 +324,14 @@ def _block_cull(idx: ChunkIndex, packed_cand, cand_idx, Kc: int, P: int,
     else:
         o = torch.sort(rad_key, dim=-1, stable=True).indices
         cid_sorted = torch.gather(cid, 1, o)
-    return cid_sorted, keep_s, cut
+    return cid_sorted, keep_s, cut, met
 
 
-def cull_and_sort(
-    tiles: RayTiles, scene: TraceScene, radius3: torch.Tensor,
-    per_tile_cap: int = 4096, tile_block: int | None = None,
-    total_pair_cap: int | None = None,
-    tile_mask: torch.Tensor | None = None,
-    probe: bool = True,
-):
-    """Hierarchical cone culling -> chunk-aligned radially sorted slots.
-
-    Returns (gauss_idx (cap_aligned,) int32 pool indices with sentinel P,
-    tile_bounds (T+1,) int32 64-aligned, dropped () int32 slots cut by
-    `total_pair_cap`, cut () int32 chunks cut by `per_tile_cap`: summed
-    over the tiles, the chunks whose bounding sphere met a tile's cone
-    beyond the per_tile_cap // CHUNK nearest it keeps; 0 = no tile lost a
-    candidate to the cap). Tiles are culled `tile_block` at a time; each
-    tile's result is independent of the blocking. The default takes as
-    many tiles as keep each (tiles, candidates) plane within
-    _CULL_BLOCK_ELEMS: each block is a long chain of small torch ops, so
-    fewer blocks mean fewer launches, and launches bound the render.
-    probe=False switches the direction-space footprint rejection off."""
-    dev = scene.mean.device
-    P = scene.mean.shape[0]
-    T = tiles.n_tiles
+def _cull_tables(scene: TraceScene, radius3: torch.Tensor):
+    """What both versions of the cull read: the chunk index and the (NC, 8,
+    CHUNK) candidate table (mx my mz rad nx ny nz rc in Morton order)."""
     idx = build_chunk_index(scene, radius3)
     NC = idx.cmean.shape[0]
-    Kc = max(min(per_tile_cap // CHUNK, NC), 1)
-    K = Kc * CHUNK
-    tile_block = tile_block or max(1, _CULL_BLOCK_ELEMS // K)
-    cand_idx = idx.order.reshape(NC, CHUNK)
     # plane-footprint tables (sentinel row P -> zeros): splat normal and the
     # contribution radius rc = sigma_max * sqrt(2 ln(op / ALPHA_MIN))
     nrm1 = torch.cat([scene.normal, scene.normal.new_zeros((1, 3))], dim=0)
@@ -358,9 +342,44 @@ def cull_and_sort(
     nrm_s = nrm1[order]
     rc_s = rc1[order]
     packed_cand = torch.stack(
-        [idx.mean_s[:, 0], idx.mean_s[:, 1], idx.mean_s[:, 2], idx.rad_s,
-         nrm_s[:, 0], nrm_s[:, 1], nrm_s[:, 2], rc_s],
-        dim=0).reshape(8, NC, CHUNK).permute(1, 0, 2)  # (NC, 8, CHUNK)
+        [x.reshape(NC, CHUNK) for x in (
+            idx.mean_s[:, 0], idx.mean_s[:, 1], idx.mean_s[:, 2], idx.rad_s,
+            nrm_s[:, 0], nrm_s[:, 1], nrm_s[:, 2], rc_s)], dim=1)
+    return idx, packed_cand
+
+
+def _slot_budget(T: int, K: int, total_pair_cap: int | None) -> int:
+    """The output's slots: room for every tile's K candidates and a
+    chunk of padding, rounded to 1024, at most total_pair_cap rounded."""
+    cap_aligned = -(-(T * K + T * CHUNK) // 1024) * 1024
+    if total_pair_cap is not None:
+        cap_aligned = min(cap_aligned, -(-total_pair_cap // 1024) * 1024)
+    return cap_aligned
+
+
+def cull_and_sort_torch(
+    tiles: RayTiles, scene: TraceScene, radius3: torch.Tensor,
+    per_tile_cap: int = 4096, tile_block: int | None = None,
+    total_pair_cap: int | None = None,
+    tile_mask: torch.Tensor | None = None,
+    probe: bool = True,
+):
+    """The plain version of cull_and_sort (its contract), a chain of torch
+    ops: tiles are culled `tile_block` at a time; each tile's result is
+    independent of the blocking. The default takes as many tiles as keep
+    each (tiles, candidates) plane within _CULL_BLOCK_ELEMS: each block is
+    a long chain of small torch ops, so fewer blocks mean fewer launches.
+    Its time and memory are O(tiles x per_tile_cap): every candidate slot
+    is refined and sorted, and the sorted slots sit in one (T, K) plane."""
+    dev = scene.mean.device
+    P = scene.mean.shape[0]
+    T = tiles.n_tiles
+    idx, packed_cand = _cull_tables(scene, radius3)
+    NC = idx.cmean.shape[0]
+    Kc = max(min(per_tile_cap // CHUNK, NC), 1)
+    K = Kc * CHUNK
+    tile_block = tile_block or max(1, _CULL_BLOCK_ELEMS // K)
+    cand_idx = idx.order.reshape(NC, CHUNK)
     if tile_mask is None:
         tile_mask = torch.ones(T, dtype=torch.bool, device=dev)
     # each block's sorted slots written in place, as int32 (pool indices
@@ -368,9 +387,10 @@ def cull_and_sort(
     idmat = torch.empty((T, K), dtype=torch.int32, device=dev)
     counts = torch.empty(T, dtype=torch.int32, device=dev)
     cut = torch.zeros((), dtype=torch.int32, device=dev)
+    met = torch.zeros((), dtype=torch.int64, device=dev)
     for b0 in range(0, T, tile_block):
         sl = slice(b0, min(b0 + tile_block, T))
-        cs, ks, ct = _block_cull(
+        cs, ks, ct, mt = _block_cull(
             idx, packed_cand, cand_idx, Kc, P, tiles.apex[sl],
             tiles.axis[sl], tiles.tan_half[sl], tiles.spread[sl],
             tile_mask[sl], tiles.probe_frame[sl], tiles.probe_box[sl],
@@ -378,13 +398,14 @@ def cull_and_sort(
         idmat[sl] = cs
         counts[sl] = ks.sum(-1, dtype=torch.int32)
         cut += ct.sum(dtype=torch.int32)
+        met += mt.sum()
+    count("env.met", met)
     padded = -(-counts // CHUNK) * CHUNK
     poffs = torch.cat([counts.new_zeros(1),
                        torch.cumsum(padded, 0, dtype=torch.int32)])
-    cap_aligned = -(-(T * K + T * CHUNK) // 1024) * 1024
+    cap_aligned = _slot_budget(T, K, total_pair_cap)
     dropped = torch.zeros((), dtype=torch.int32, device=dev)
     if total_pair_cap is not None:
-        cap_aligned = min(cap_aligned, -(-total_pair_cap // 1024) * 1024)
         # tiles past the budget lose their tail slots (their range clamps
         # to the cap); count what was dropped so truncation is observable
         dropped = torch.clamp(poffs[-1] - cap_aligned, min=0)
@@ -401,6 +422,76 @@ def cull_and_sort(
     valid = (i < coffs[-1])[:, None]
     gauss_aligned = torch.where(valid, gathered, P).reshape(-1)
     return gauss_aligned.to(torch.int32), poffs, dropped, cut
+
+
+def use_kernel(tiles: RayTiles, scene: TraceScene, radius3: torch.Tensor,
+               tile_mask: torch.Tensor | None = None) -> bool:
+    """The cull's dispatch rule: False (the plain version) where every
+    tensor it reads is on the CPU, True (the kernels) where every one is
+    on the card; a mix of the two raises ValueError."""
+    tensors = {f"tiles.{k}": getattr(tiles, k) for k in (
+        "apex", "axis", "tan_half", "spread", "probe_frame", "probe_box",
+        "probe_ok")}
+    tensors.update({f"scene.{k}": getattr(scene, k) for k in (
+        "mean", "valid", "normal", "opacity")}, radius3=radius3)
+    if tile_mask is not None:
+        tensors["tile_mask"] = tile_mask
+    off = [k for k, t in tensors.items() if not t.is_cuda]
+    if len(off) == len(tensors):
+        return False
+    if off:
+        raise ValueError(f"the cull's tensors are on two devices: {off} on "
+                         "the CPU, the rest on the card")
+    return True
+
+
+def cull_and_sort(
+    tiles: RayTiles, scene: TraceScene, radius3: torch.Tensor,
+    per_tile_cap: int = 4096, tile_block: int | None = None,
+    total_pair_cap: int | None = None,
+    tile_mask: torch.Tensor | None = None,
+    probe: bool = True,
+):
+    """Hierarchical cone culling -> chunk-aligned radially sorted slots.
+
+    Returns (gauss_idx (cap_aligned,) int32 pool indices with sentinel P,
+    tile_bounds (T+1,) int32 64-aligned, dropped () int32 slots cut by
+    `total_pair_cap`, cut () int32 chunks cut by `per_tile_cap`: summed
+    over the tiles, the chunks whose bounding sphere met a tile's cone
+    beyond the per_tile_cap // CHUNK nearest it keeps; 0 = no tile lost a
+    candidate to the cap). probe=False switches the direction-space
+    footprint rejection off. Counts `env.met`, the (tile, chunk) pairs
+    whose sphere met a tile's cone before the cap, on the open span.
+
+    Each tile keeps the Kc = per_tile_cap // CHUNK nearest chunks its cone
+    meets (ties to the lower chunk index), refines their candidates (the
+    sphere test and the probe) and orders the kept ones: where P < 2^18 by
+    (radial quantized to the tile's largest, pool index), else by radial,
+    ties to the chunk's coarse rank and then its lane. On CUDA tensors the
+    kernels of csrc/env_cull.cu do it at a cost that follows the chunks
+    each tile meets, and nothing waits for the card; on CPU tensors the
+    plain version, `cull_and_sort_torch`, whose alone `tile_block` is
+    (`use_kernel`). Their outputs are equal, integer for integer."""
+    if not use_kernel(tiles, scene, radius3, tile_mask):
+        return cull_and_sort_torch(tiles, scene, radius3, per_tile_cap,
+                                   tile_block, total_pair_cap, tile_mask,
+                                   probe)
+    P = scene.mean.shape[0]
+    T = tiles.n_tiles
+    idx, packed_cand = _cull_tables(scene, radius3)
+    NC = idx.cmean.shape[0]
+    Kc = max(min(per_tile_cap // CHUNK, NC), 1)
+    if tile_mask is None:
+        tile_mask = torch.ones(T, dtype=torch.bool, device=scene.mean.device)
+    gauss, bounds, dropped, cut, met = kernels.env_cull(
+        idx.cmean, idx.crad, idx.cact, packed_cand, idx.order,
+        *(x.contiguous() for x in (tiles.apex, tiles.axis, tiles.tan_half,
+                                   tiles.spread, tile_mask,
+                                   tiles.probe_frame, tiles.probe_box)),
+        tiles.probe_ok.contiguous() if probe else None, Kc, P,
+        _slot_budget(T, Kc * CHUNK, total_pair_cap))
+    count("env.met", met)
+    return gauss, bounds, dropped, cut
 
 
 def tile_mask_of(ray_mask: torch.Tensor) -> torch.Tensor:
@@ -562,8 +653,9 @@ def trace_rays(
     PyTorch, no kernel), every output filled, no gradient and no wet.
     per_tile_cap: candidates a ray tile keeps (default_per_tile_cap when
     None); the chunks it cuts come back as TraceOutput.cut_chunks. Its
-    stages are the spans env.tiles, env.cull (counters env.pairs, the
-    slots used; env.slots, the slot budget; env.cut) and env.blend of
+    stages are the spans env.tiles, env.cull (counters env.met, the
+    (tile, chunk) pairs that met before the cap; env.pairs, the slots
+    used; env.slots, the slot budget; env.cut) and env.blend of
     utils/timer.py, a traced base pass's too."""
     need_dist, need_wet = bool(needs[0]), bool(needs[1])
     need_geo = bool(needs[2]) if len(needs) > 2 else True

@@ -170,8 +170,7 @@ def test_the_cells_cap_on_its_scene_at_full_size():
     full size, one view's reflected rays: at the configured cap nothing is
     cut or dropped; at the JAX package's 2048 chunks are cut; at the least
     power of two that cuts nothing the outputs equal those at twice it
-    (kept at or under the configured cap: the cull holds a (tiles, cap)
-    int32 plane of slot indices, 13 GB at 2^19)."""
+    (kept at or under the configured cap)."""
     if not torch.cuda.is_available():
         pytest.skip("the cell's scene at full size needs the card")
     import json

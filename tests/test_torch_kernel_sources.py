@@ -126,6 +126,11 @@ def test_every_launch_count_is_reachable_from_a_wrapper(monkeypatch):
                           8, 8, 1.0, 0.3, False)
     kernels.project3d_bwd(means, quats, means, means[:, 0], None, cam, 8, 8,
                           1.0, 0.3, False, means, None, None, None)
+    f, b = torch.zeros(2), torch.ones(2, dtype=torch.bool)
+    kernels.env_cull(torch.zeros(1, 3), f[:1], b[:1], torch.zeros(1, 8, 64),
+                     torch.zeros(64, dtype=torch.int32), means[:2],
+                     means[:2], f, f, b, torch.zeros(2, 2, 3),
+                     torch.zeros(2, 4, 10), b, 1, 64, 1024)
     assert sorted(seen) == sorted(kernels.LAUNCHES)
 
 

@@ -239,7 +239,7 @@ def test_median_render_launches_the_med_configuration(cuda):
         if dev.type == "cuda":
             torch.cuda.synchronize()
             assert _rose(before) == {"raster_blend_fwd_med": 1,
-                                     "trace_blend_fwd": 1}
+                                     "trace_blend_fwd": 1, "env_cull": 1}
     for k in ("rgb_map", "dpt_map", "surf_norm_map"):
         err = float((getattr(outs["cuda"], k).cpu()
                      - getattr(outs["cpu"], k)).abs().max())
@@ -415,9 +415,10 @@ def test_traced_base_and_bounces_match_cpu(cuda, extra):
     from envgs_tpu_torch.models.envgs import forward_envgs
 
     launched = {"use_base_tracing": {"trace_blend_fwd_geo": 1,
-                                     "trace_blend_fwd": 1},
+                                     "trace_blend_fwd": 1, "env_cull": 2},
                 "max_trace_depth": {"raster_blend_fwd": 1,
-                                    "trace_blend_fwd_wet": 2}}[next(iter(extra))]
+                                    "trace_blend_fwd_wet": 2,
+                                    "env_cull": 2}}[next(iter(extra))]
     outs = {}
     for dev in (cuda, torch.device("cpu")):
         base, env, cam, cfg = _scene(dev)
@@ -1027,7 +1028,8 @@ def test_served_frame_launches_k1_and_k3_once(cuda, tmp_path):
     before = dict(kernels.LAUNCHES)
     asyncio.run(WS.RenderServer(runner).handle(conn))
     torch.cuda.synchronize()
-    assert _rose(before) == {"raster_blend_fwd": 1, "trace_blend_fwd": 1}
+    assert _rose(before) == {"raster_blend_fwd": 1, "trace_blend_fwd": 1,
+                             "env_cull": 1}
     hello, jpeg, stats = conn.sent
     assert json.loads(hello)["H"] == 64 and "stats" in json.loads(stats)
     assert jpeg == WS.encode_jpeg(WS.typed_map(runner.render_view(cam),
@@ -1126,7 +1128,7 @@ def test_band_render_equals_the_full_rows_on_the_card(cuda):
                              band=(16, cam.H))
         torch.cuda.synchronize()
     assert _rose(before) == {TRAIN_KEY: 1, "trace_blend_fwd": 1,
-                             "fill_forward": 1}
+                             "fill_forward": 1, "env_cull": 1}
     for k in ("acc_map", "dpt_map", "norm_map", "spec_map", "dist_map",
               "dif_rgb_map"):
         assert torch.equal(getattr(band, k), getattr(full, k)[16:48]), k

@@ -261,5 +261,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         "raster_blend_bwd",
         "raster_blend_bwd_gauss3d", "trace_blend_fwd", "trace_blend_fwd_geo",
         "trace_blend_fwd_wet", "trace_blend_bwd", "fill_forward", "segscan",
-        "gather_rows", "gather_rows_win8", "project3d_fwd", "project3d_bwd"}
+        "gather_rows", "gather_rows_win8", "project3d_fwd", "project3d_bwd",
+        "env_cull"}
     assert not any(kernels.LAUNCHES.values())

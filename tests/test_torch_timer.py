@@ -43,8 +43,8 @@ PARENT = {"train.forward": "train.step", "render": "train.forward",
           "env.blend": "render.env", "train.backward": "train.step"}
 COUNTS = {"gs3d": {"bin.pairs", "bin.kept", "bin.slots"}}
 COUNTS["envgs"] = COUNTS["gs3d"]
-COUNTS["envgs_refl"] = COUNTS["gs3d"] | {"env.pairs", "env.slots",
-                                         "env.cut"}
+COUNTS["envgs_refl"] = COUNTS["gs3d"] | {"env.met", "env.pairs",
+                                         "env.slots", "env.cut"}
 FAMILIES = ("gs3d", "envgs", "envgs_refl")
 
 
@@ -155,7 +155,7 @@ def test_a_profiled_step_records_its_tree_and_counters(family):
         assert c["bin.slots"] == 32768  # the cap rounded to the layout's
         if "env.cut" in c:  # the 64-surfel env set is one chunk: none cut
             assert 0 < c["env.pairs"] <= c["env.slots"]
-            assert c["env.cut"] == 0
+            assert c["env.cut"] == 0 < c["env.met"]
 
 
 @pytest.mark.parametrize("family", FAMILIES)
