@@ -27,8 +27,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.distributed as dist
 
-from envgs_tpu_torch.models import gaussians as G
-from envgs_tpu_torch.models.camera_opt import CameraResiduals, apply_residual
+from envgs_tpu_torch.models.camera_opt import apply_residual
 from envgs_tpu_torch.models.envgs import EnvGSConfig, EnvGSOutput, forward_envgs
 from envgs_tpu_torch.ops.raster import depth_to_normal
 from envgs_tpu_torch.parallel.collectives import (
@@ -37,17 +36,18 @@ from envgs_tpu_torch.parallel.collectives import (
     make_axis,
     ppermute,
 )
-from envgs_tpu_torch.train.optimizer import (
-    LRConfig,
-    lr_tree_for,
-    sparse_adam_update,
-)
+from envgs_tpu_torch.train.optimizer import LRConfig
 from envgs_tpu_torch.train.supervisor import LossConfig, compute_losses
 from envgs_tpu_torch.train.trainer import (
     Batch,
     CamOptConfig,
     CamOptState,
     TrainState,
+    apply_grads,
+    camera_step,
+    step_grads,
+    step_leaves,
+    without_camera,
 )
 from envgs_tpu_torch.utils.camera import Camera
 
@@ -137,56 +137,6 @@ def pmean_stats(stats: dict, axis: Axis) -> dict:
     return dict(zip(keys, vals.unbind(0)))
 
 
-def gradient_step(state: TrainState, leaves: list, loss_share: torch.Tensor,
-                  grad_axis: Axis, lr_base: LRConfig, lr_env: LRConfig,
-                  it: int, aux: tuple, n_bp: int, n_ep: int):
-    """The gradients of this rank's share of the objective with respect to
-    `leaves` (both pools' present params, then the four hooks, then any
-    more), summed over `grad_axis` in one all-reduce; sparse Adam on both
-    pools and the densification statistics from the summed hooks and the
-    reduced aux (base wet, base radii, base visibility, env wet).
-    -> (new state, the summed gradients list)."""
-    base, env = state.base, state.env
-    grads = torch.autograd.grad(loss_share, leaves, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g
-             for g, x in zip(grads, leaves)]
-    grads = sum_flat(grads, grad_axis)
-    g_base = G.fill_params(base.params, grads[:n_bp])
-    g_env = G.fill_params(env.params, grads[n_bp:n_bp + n_ep])
-    g_m2z, g_e3z, g_wet_b, g_wet_e = grads[n_bp + n_ep:n_bp + n_ep + 4]
-    base_wet, base_radii, base_vis, env_wet = aux
-    # one of {forward wet, gradient-lane wet} is exact zeros per backend
-    base_wet = base_wet + g_wet_b
-    env_wet = env_wet + g_wet_e
-    new_bp, opt_base = sparse_adam_update(
-        base.params, g_base, state.opt_base, lr_tree_for(it, lr_base))
-    new_ep, opt_env = sparse_adam_update(
-        env.params, g_env, state.opt_env, lr_tree_for(it, lr_env))
-    b_stats = G.accumulate_stats(
-        base.stats, g_m2z, (base_vis > 0) | (base_wet > 0),
-        weight=base_wet, radii=base_radii)
-    e_stats = G.accumulate_stats(env.stats, g_e3z, env_wet > 0,
-                                 weight=env_wet)
-    new_state = TrainState(base._replace(params=new_bp, stats=b_stats),
-                           env._replace(params=new_ep, stats=e_stats),
-                           opt_base, opt_env, state.gen)
-    return new_state, grads
-
-
-def hooks_and_leaves(state: TrainState, m2z_w: int):
-    """Fresh leaves of both pools' params and the four zeros hooks ->
-    (base params, env params, hooks, leaves list)."""
-    dev = state.base.params.xyz.device
-    leaf = lambda x: x.detach().requires_grad_(True)  # noqa: E731
-    bparams = G.map_params(leaf, state.base.params)
-    eparams = G.map_params(leaf, state.env.params)
-    zeros = lambda *s: torch.zeros(s, device=dev, requires_grad=True)  # noqa: E731
-    hooks = (zeros(state.base.cap, m2z_w), zeros(state.env.cap, 3),
-             zeros(state.base.cap), zeros(state.env.cap))
-    leaves = [*G.present(bparams), *G.present(eparams), *hooks]
-    return bparams, eparams, hooks, leaves
-
-
 def make_sharded_train_step(
     mesh: Mesh,
     cam: Camera,
@@ -229,14 +179,10 @@ def make_sharded_train_step(
                   mark: Callable[[str], None] | None = None,
                   grads_out: dict | None = None):
         row0 = band_axis.index * band_h
-        bparams, eparams, hooks, leaves = hooks_and_leaves(state, m2z_w)
-        n_bp, n_ep = len(G.present(bparams)), len(G.present(eparams))
+        bparams, eparams, hooks, cres, leaves = step_leaves(
+            state, m2z_w, cam_state)
         camera = Camera(H, W, K, R, T, cam.znear, cam.zfar)
-        cres = None
-        if cam_opt.enabled:
-            cres = CameraResiduals(*(x.detach().requires_grad_(True)
-                                     for x in cam_state.res))
-            leaves += list(cres)
+        if cres is not None:
             camera = apply_residual(camera, cres, int(view_idx))
         bcam = Camera(band_h, W, camera.K, camera.R, camera.T, cam.znear,
                       cam.zfar)
@@ -252,52 +198,29 @@ def make_sharded_train_step(
             bg_brightness=model_cfg.bg_brightness, lpips_fn=lpips_fn,
             band=(band_axis, n_bands, H))
         stats = pmean_stats(stats, band_axis)
-        sums = sum_flat([out.base_wet.detach(),
-                         out.base_visibility.to(torch.float32),
-                         out.env_wet.detach()], band_axis)
+        wet_b, vis_b, wet_e = sum_flat([out.base_wet.detach(),
+                                        out.base_visibility.to(torch.float32),
+                                        out.env_wet.detach()], band_axis)
         radii, = sum_flat([out.base_radii.detach()], band_axis,
                           dist.ReduceOp.MAX)
-        aux = (sums[0], radii, sums[1], sums[2])
         if mark:
             mark("forward")
-        new_state, grads = gradient_step(
-            state, leaves, loss / n_bands, band_axis, lr_base, lr_env, it,
-            aux, n_bp, n_ep)
-        if grads_out is not None:
-            grads_out.update(
-                base=G.fill_params(bparams, grads[:n_bp]),
-                env=G.fill_params(eparams, grads[n_bp:n_bp + n_ep]),
-                means2d=grads[n_bp + n_ep], env_means3d=grads[n_bp + n_ep + 1],
-                wet_base=grads[n_bp + n_ep + 2],
-                wet_env=grads[n_bp + n_ep + 3])
+        # this rank's share of the objective; the gradients summed over the
+        # bands in one all-reduce. One of {forward wet, gradient-lane wet}
+        # is exact zeros per backend
+        g = step_grads(loss / n_bands, leaves, bparams, eparams,
+                       reduce=lambda gs: sum_flat(gs, band_axis))
+        new_state = apply_grads(state, g, it, lr_base, lr_env, vis_b > 0,
+                                wet_b + g.wet_base, radii, None,
+                                wet_e + g.wet_env)
         if mark:
             mark("backward")
-        if cam_opt.enabled:
-            g_cam = CameraResiduals(*grads[n_bp + n_ep + 4:])
-            if cam_opt.freeze_extri:
-                g_cam = g_cam._replace(se3=torch.zeros_like(g_cam.se3))
-            if cam_opt.freeze_intri:
-                g_cam = g_cam._replace(intr=torch.zeros_like(g_cam.intr))
-            if grads_out is not None:
-                grads_out["cam"] = g_cam
-            f32 = lambda v: float(torch.tensor(v, dtype=torch.float32))  # noqa: E731
-            new_res, new_copt = sparse_adam_update(
-                cam_state.res, g_cam, cam_state.opt,
-                CameraResiduals(f32(cam_opt.extri_lr), f32(cam_opt.intri_lr)),
-                eps=1e-15)
-            cam_state = CamOptState(new_res, new_copt)
+        if cres is not None:
+            cam_state, g_cam = camera_step(cam_state, g.cam, cam_opt)
+            g = g._replace(cam=g_cam)
+        g.write(grads_out)
         if mark:
             mark("optimizer")
         return new_state, cam_state, stats
 
-    if cam_opt.enabled:
-        return step_impl
-
-    def step(state: TrainState, batch: Batch, K, R, T, it: int,
-             mark: Callable[[str], None] | None = None,
-             grads_out: dict | None = None):
-        new_state, _, stats = step_impl(state, None, batch, K, R, T, 0, it,
-                                        mark, grads_out)
-        return new_state, stats
-
-    return step
+    return step_impl if cam_opt.enabled else without_camera(step_impl)

@@ -53,14 +53,18 @@ from envgs_tpu_torch.parallel.collectives import (
 from envgs_tpu_torch.parallel.sharding import (
     Mesh,
     band_surface_normal,
-    gradient_step,
-    hooks_and_leaves,
     pmean_stats,
     sum_flat,
 )
 from envgs_tpu_torch.train.optimizer import LRConfig
 from envgs_tpu_torch.train.supervisor import LossConfig, compute_losses
-from envgs_tpu_torch.train.trainer import Batch, TrainState
+from envgs_tpu_torch.train.trainer import (
+    Batch,
+    TrainState,
+    apply_grads,
+    step_grads,
+    step_leaves,
+)
 from envgs_tpu_torch.utils.camera import Camera
 
 
@@ -324,8 +328,7 @@ def make_splat_sharded_train_step(
     def step(state: TrainState, batch: Batch, K, R, T, it: int,
              mark: Callable[[str], None] | None = None,
              grads_out: dict | None = None):
-        bparams, eparams, hooks, leaves = hooks_and_leaves(state, 2)
-        n_bp, n_ep = len(G.present(bparams)), len(G.present(eparams))
+        bparams, eparams, hooks, _, leaves = step_leaves(state, 2)
         camera = Camera(H, W, K, R, T, cam.znear, cam.zfar)
         K_full = camera.K
         row0 = 0
@@ -355,28 +358,22 @@ def make_splat_sharded_train_step(
                                                  dist.ReduceOp.MAX)
         # the composed per-splat outputs are the same on every slab: reduce
         # over the bands alone
+        wet_b, vis_b, wet_e = (out.base_wet.detach(), out.base_visibility,
+                               out.env_wet.detach())
+        radii = out.base_radii.detach()
         if b_axis is not None:
             wet_b, vis_b, wet_e = sum_flat(
-                [out.base_wet.detach(), out.base_visibility.to(torch.float32),
-                 out.env_wet.detach()], b_axis)
-            radii = band_reduce(out.base_radii.detach(), dist.ReduceOp.MAX)
-        else:
-            wet_b, vis_b, wet_e = (out.base_wet.detach(),
-                                   out.base_visibility.to(torch.float32),
-                                   out.env_wet.detach())
-            radii = out.base_radii.detach()
+                [wet_b, vis_b.to(torch.float32), wet_e], b_axis)
+            vis_b = vis_b > 0
+            radii = band_reduce(radii, dist.ReduceOp.MAX)
         if mark:
             mark("forward")
-        new_state, grads = gradient_step(
-            state, leaves, loss / n_all, mesh.world, lr_base, lr_env, it,
-            (wet_b, radii, vis_b, wet_e), n_bp, n_ep)
-        if grads_out is not None:
-            grads_out.update(
-                base=G.fill_params(bparams, grads[:n_bp]),
-                env=G.fill_params(eparams, grads[n_bp:n_bp + n_ep]),
-                means2d=grads[n_bp + n_ep], env_means3d=grads[n_bp + n_ep + 1],
-                wet_base=grads[n_bp + n_ep + 2],
-                wet_env=grads[n_bp + n_ep + 3])
+        g = step_grads(loss / n_all, leaves, bparams, eparams,
+                       reduce=lambda gs: sum_flat(gs, mesh.world))
+        new_state = apply_grads(state, g, it, lr_base, lr_env, vis_b,
+                                wet_b + g.wet_base, radii, None,
+                                wet_e + g.wet_env)
+        g.write(grads_out)
         if mark:
             mark("backward")
             mark("optimizer")

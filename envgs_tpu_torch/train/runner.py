@@ -24,6 +24,7 @@ rank's stride of the eval views, writes the other ranks' files under
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import shutil
@@ -36,28 +37,8 @@ import numpy as np
 import torch
 
 from envgs_tpu_torch.models import gaussians as G
-from envgs_tpu_torch.models.envgs import (
-    EnvGSConfig,
-    _pool_colors,
-    _pool_colors_at,
-    forward_envgs,
-    reflect_rays,
-    render_base,
-)
-from envgs_tpu_torch.ops.binning import bin_splats
+from envgs_tpu_torch.models.envgs import EnvGSConfig, forward_envgs
 from envgs_tpu_torch.ops.lpips import default_weight_path, lpips_fn
-from envgs_tpu_torch.ops.common import ROWCULL_LOWPASS_R, prepare_splats
-from envgs_tpu_torch.ops.raster import _pack_table
-from envgs_tpu_torch.ops.raster_blend import CHUNK, TILE, blend_tiles
-from envgs_tpu_torch.ops.trace_blend import trace_blend
-from envgs_tpu_torch.ops.tracer import (
-    _pack_scene_table,
-    build_ray_tiles,
-    cull_and_sort,
-    default_per_tile_cap,
-    splat_radius3,
-)
-from envgs_tpu_torch.ops.tracer_ref import prepare_trace_scene
 from envgs_tpu_torch.parallel.multihost import (
     allsum_hosts,
     is_main_process,
@@ -92,62 +73,12 @@ from envgs_tpu_torch.utils.camera import (
     camera_path_interpolate,
     make_camera,
 )
-from envgs_tpu_torch.utils.timer import ProfilerSession, Timer
+from envgs_tpu_torch.utils.timer import ProfilerSession, Timer, read_spans
 
 
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def render_stage_ms(base: G.GaussianPool, env: G.GaussianPool, cam: Camera,
-                    cfg: EnvGSConfig) -> dict:
-    """Host-clock ms (the device waited for after each stage) of the four
-    stages that carry a radial-order render of (base, env, cam): bin
-    (binning of the base pass), raster_blend, cull (the env pass's
-    cull_and_sort) and trace_blend, each fed the real output of the one
-    before it, as forward_envgs runs them."""
-    dev = base.params.xyz.device
-    ms = {}
-
-    def timed(name, fn):
-        _sync(dev)
-        t0 = time.perf_counter()
-        res = fn()
-        _sync(dev)
-        ms[name] = (time.perf_counter() - t0) * 1e3
-        return res
-
-    with torch.no_grad():
-        colors = torch.cat([_pool_colors(base, cam.center), base.get_specular,
-                            base.get_roughness], dim=-1)
-        prep = prepare_splats(base.params.xyz, base.params.rotation,
-                              base.get_scaling, base.get_opacity[:, 0], colors,
-                              cam, scale_modifier=cfg.scale_modifier,
-                              active=base.stats.active)
-        bins = timed("bin", lambda: bin_splats(
-            prep, cam.H, cam.W, TILE, cfg.pair_cap, align=CHUNK,
-            lowpass_r=ROWCULL_LOWPASS_R))
-        packed = _pack_table(prep, bins.order)
-        timed("raster_blend", lambda: blend_tiles(
-            packed, bins.gauss_idx, bins.tile_bounds, colors.shape[-1],
-            bins.tiles_x, bins.tiles_y))
-        ref_o, ref_d = reflect_rays(
-            cam, render_base(base, cam, cfg._replace(render_mode=True)))
-        scene = prepare_trace_scene(
-            env.params.xyz, env.params.rotation, env.get_scaling,
-            env.get_opacity[:, 0], _pool_colors_at(env, ref_o),
-            active=env.stats.active, scale_modifier=cfg.scale_modifier)
-        tiles = build_ray_tiles(ref_o, ref_d)
-        gidx, bounds, *_ = timed("cull", lambda: cull_and_sort(
-            tiles, scene, splat_radius3(scene),
-            per_tile_cap=default_per_tile_cap(scene.mean.shape[0]),
-            total_pair_cap=cfg.env_pair_cap))
-        packed_env = _pack_scene_table(scene)
-        timed("trace_blend", lambda: trace_blend(
-            packed_env, gidx, tiles.rays, bounds, -(-cam.W // TILE),
-            -(-cam.H // TILE)))
-    return ms
 
 
 class Runner:
@@ -568,10 +499,11 @@ class Runner:
 
         exact_order (default True): render with the tracer's exact per-ray
         blend order instead of the training path's per-tile radial order.
-        The summary also carries `tracer_order` and `stage_ms`, the
-        per-stage times of one radial-order render of the first view
-        (`render_stage_ms`; None where the config leaves the kernels'
-        default path: a ref backend, base tracing, multi-bounce).
+        The summary also carries `tracer_order` and `stage_ms`, the ms of
+        each span of one radial-order render_view of the first view, keyed
+        by span name ("render", "render.bin", "env.cull", ...; the
+        spans of utils/timer.py, read by read_spans): device ms where
+        CUDA events were recorded, else host ms.
 
         Under several processes each rank renders its stride of the views
         (rank i the views i, i + world, ...), ranks other than 0 write
@@ -606,15 +538,17 @@ class Runner:
         finally:
             if vis:
                 vis.summarize()
+        # the stages of one radial-order render of the first view, from its
+        # own spans: under a CPU-activity profiler unless one records
+        # already (the train loop's window)
+        prof = (contextlib.nullcontext() if torch.autograd._profiler_enabled()
+                else torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]))
+        with prof:
+            self.render_view(first_cam, exact_order=False)
+        root = read_spans()[-1]
+        stage_ms = root["device_ms"] or root["host_ms"]
         mc = self.model_cfg
-        # the stages of the kernels' default path (rasterized base, one env
-        # trace); other configurations are timed as whole renders only
-        default_path = (mc.raster_backend, mc.tracer_backend) == (
-            "pallas", "tiled") and not (mc.use_base_tracing
-                                        or mc.max_trace_depth > 0)
-        stage_ms = (render_stage_ms(self.state.base, self.state.env,
-                                    first_cam, mc)
-                    if default_path else None)
         exact = (exact_order and mc.tracer_backend == "tiled"
                  or mc.tracer_backend == "ref")
         summary = ev.summarize(extra={

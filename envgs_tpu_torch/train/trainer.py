@@ -8,6 +8,9 @@ camera residuals), masked sparse Adam on both pools, and the
 densification statistics. The hooks' gradients are the screen-space
 (base) and world-space (env) densification gradients and the per-splat
 wet of each pass, so no `.grad` is retained and no forward wet is built.
+`step_leaves`, `step_grads`, `apply_grads` and `camera_step` are these
+parts; the band and slab steps of parallel/ are built on them too, so the
+leaf order is known here alone.
 
 `make_maintenance` returns the host-side function that applies every event
 due at an iteration, before that iteration's forward: SH one-ups,
@@ -133,6 +136,123 @@ class CamOptConfig(NamedTuple):
     freeze_intri: bool = False
 
 
+class StepGrads(NamedTuple):
+    """A step's gradients, split from autograd's flat list (step_grads):
+    both pools' parameters, the four zeros hooks' (the position hooks' and
+    the wet hooks') and, with camera optimisation, the view residuals'."""
+
+    base: G.GaussianParams
+    env: G.GaussianParams
+    means2d: torch.Tensor
+    env_means3d: torch.Tensor
+    wet_base: torch.Tensor
+    wet_env: torch.Tensor
+    cam: CameraResiduals | None = None
+
+    def write(self, grads_out: dict | None):
+        """Every gradient into a step's `grads_out` under its field's name
+        (`cam` only with camera optimisation); None writes nothing."""
+        if grads_out is not None:
+            grads_out.update((k, v) for k, v in self._asdict().items()
+                             if v is not None)
+
+
+def step_leaves(state: TrainState, m2z_w: int,
+                cam_state: CamOptState | None = None):
+    """Fresh leaves of both pools' params, the four zeros hooks ((P, m2z_w)
+    position, (Pe, 3) env position, (P,) and (Pe,) wet) and, with
+    `cam_state`, the camera residuals -> (base params, env params, hooks,
+    residuals or None, leaves): the list a step differentiates, in the one
+    order step_grads splits (base present params, env present params, the
+    hooks, the residuals)."""
+    dev = state.base.params.xyz.device
+    leaf = lambda x: x.detach().requires_grad_(True)  # noqa: E731
+    bparams = G.map_params(leaf, state.base.params)
+    eparams = G.map_params(leaf, state.env.params)
+    zeros = lambda *s: torch.zeros(s, device=dev, requires_grad=True)  # noqa: E731
+    hooks = (zeros(state.base.cap, m2z_w), zeros(state.env.cap, 3),
+             zeros(state.base.cap), zeros(state.env.cap))
+    cres = (None if cam_state is None
+            else CameraResiduals(*map(leaf, cam_state.res)))
+    leaves = [*G.present(bparams), *G.present(eparams), *hooks,
+              *(cres or ())]
+    return bparams, eparams, hooks, cres, leaves
+
+
+def step_grads(loss: torch.Tensor, leaves: list, bparams, eparams,
+               reduce: Callable[[list], list] | None = None) -> StepGrads:
+    """The gradients of `loss` with respect to step_leaves' `leaves`, zeros
+    where one is unused; `reduce` (the band and slab steps' all-reduce)
+    maps the flat list before it is split."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, leaves)]
+    if reduce is not None:
+        grads = reduce(grads)
+    nb, ne = len(G.present(bparams)), len(G.present(eparams))
+    g_cam = grads[nb + ne + 4:]
+    return StepGrads(G.fill_params(bparams, grads[:nb]),
+                     G.fill_params(eparams, grads[nb:nb + ne]),
+                     *grads[nb + ne:nb + ne + 4],
+                     CameraResiduals(*g_cam) if g_cam else None)
+
+
+def apply_grads(state: TrainState, g: StepGrads, it: int, lr_base: LRConfig,
+                lr_env: LRConfig, base_vis: torch.Tensor,
+                base_wet: torch.Tensor, base_radii: torch.Tensor,
+                env_vis: torch.Tensor | None, env_wet: torch.Tensor
+                ) -> TrainState:
+    """Sparse Adam on both pools, then the densification statistics: a
+    splat counts as seen where its visibility holds (env_vis None: nowhere)
+    or its wet is positive -> the new train state."""
+    base, env = state.base, state.env
+    new_bp, opt_base = sparse_adam_update(
+        base.params, g.base, state.opt_base, lr_tree_for(it, lr_base))
+    new_ep, opt_env = sparse_adam_update(
+        env.params, g.env, state.opt_env, lr_tree_for(it, lr_env))
+    b_stats = G.accumulate_stats(
+        base.stats, g.means2d, base_vis | (base_wet > 0), weight=base_wet,
+        radii=base_radii)
+    env_seen = env_wet > 0 if env_vis is None else env_vis | (env_wet > 0)
+    e_stats = G.accumulate_stats(env.stats, g.env_means3d, env_seen,
+                                 weight=env_wet)
+    return TrainState(base._replace(params=new_bp, stats=b_stats),
+                      env._replace(params=new_ep, stats=e_stats),
+                      opt_base, opt_env, state.gen)
+
+
+def camera_step(cam_state: CamOptState, g_cam: CameraResiduals,
+                cam_opt: CamOptConfig):
+    """The residuals' update: the freeze flags zero their gradients, then
+    Adam at eps 1e-15 with the float32 rates -> (new CamOptState, the
+    gradient it applied)."""
+    if cam_opt.freeze_extri:
+        g_cam = g_cam._replace(se3=torch.zeros_like(g_cam.se3))
+    if cam_opt.freeze_intri:
+        g_cam = g_cam._replace(intr=torch.zeros_like(g_cam.intr))
+    f32 = lambda v: float(torch.tensor(v, dtype=torch.float32))  # noqa: E731
+    new_res, new_opt = sparse_adam_update(
+        cam_state.res, g_cam, cam_state.opt,
+        CameraResiduals(f32(cam_opt.extri_lr), f32(cam_opt.intri_lr)),
+        eps=1e-15)
+    return CamOptState(new_res, new_opt), g_cam
+
+
+def without_camera(step_impl):
+    """The cam-off form of a step_impl(state, cam_state, batch, K, R, T,
+    view_idx, it, mark, grads_out): step(state, batch, K, R, T, it,
+    mark=None, grads_out=None) -> (new state, stats)."""
+
+    def step(state: TrainState, batch: Batch, K, R, T, it: int,
+             mark: Callable[[str], None] | None = None,
+             grads_out: dict | None = None):
+        new_state, _, stats = step_impl(state, None, batch, K, R, T, 0, it,
+                                        mark, grads_out)
+        return new_state, stats
+
+    return step
+
+
 def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
                     lr_base: LRConfig, lr_env: LRConfig,
                     has_norm: bool = False,
@@ -147,12 +267,14 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
     and optimized with the pools (Adam, eps 1e-15, the two freeze flags).
     `mark(name)`, when given, is called as each stage ends ("forward",
     "backward", "optimizer"), e.g. to record CUDA events; `grads_out`, a
-    dict, receives the step's gradients ("base", "env": GaussianParams;
-    "means2d", "env_means3d", "wet_base", "wet_env"; "cam" with camera
-    optimisation). `lpips_fn` (the perceptual loss) and `aux_cfg` (an
-    AuxLossConfig: the chained aux supervisors, on `batch.dpt` for the
-    depth prior) go to compute_losses."""
+    dict, receives the step's gradients (StepGrads.write). `lpips_fn` (the
+    perceptual loss) and `aux_cfg` (an AuxLossConfig: the chained aux
+    supervisors, on `batch.dpt` for the depth prior) go to
+    compute_losses."""
     H, W, znear, zfar = cam.H, cam.W, cam.znear, cam.zfar
+    # screen-space (raster) or world-space (traced base) densification
+    # gradients
+    m2z_w = 3 if model_cfg.use_base_tracing else 2
 
     def step_impl(state: TrainState, cam_state: CamOptState | None,
                   batch: Batch, K, R, T, view_idx: int, it: int,
@@ -160,29 +282,17 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
                   grads_out: dict | None = None):
         with span("train.step"):
             base, env = state.base, state.env
-            dev = base.params.xyz.device
-            leaf = lambda x: x.detach().requires_grad_(True)  # noqa: E731
-            bparams = G.map_params(leaf, base.params)
-            eparams = G.map_params(leaf, env.params)
-            zeros = lambda *s: torch.zeros(  # noqa: E731
-                s, device=dev, requires_grad=True)
-            # screen-space (raster) or world-space (traced base) densification
-            # gradients
-            m2z = zeros(base.cap, 3 if model_cfg.use_base_tracing else 2)
-            e3z = zeros(env.cap, 3)
-            wz_b, wz_e = zeros(base.cap), zeros(env.cap)
-
+            bparams, eparams, hooks, cres, leaves = step_leaves(
+                state, m2z_w, cam_state)
             camera = Camera(H, W, K, R, T, znear, zfar)
-            cres = None
-            if cam_opt.enabled:
-                cres = CameraResiduals(*map(leaf, cam_state.res))
+            if cres is not None:
                 camera = apply_residual(camera, cres, int(view_idx))
             # the forward and backward spans close where `mark` is called:
             # both time one interval
             with span("train.forward"):
                 out = forward_envgs(base._replace(params=bparams),
                                     env._replace(params=eparams), camera, it,
-                                    model_cfg, m2z, e3z, wz_b, wz_e)
+                                    model_cfg, *hooks)
                 loss, stats = compute_losses(
                     out, batch.rgb, batch.msk,
                     batch.norm if has_norm else None, camera.R, it, loss_cfg,
@@ -192,57 +302,21 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
                 mark("forward")
 
             with span("train.backward"):
-                bleaves, eleaves = G.present(bparams), G.present(eparams)
-                leaves = [*bleaves, *eleaves, m2z, e3z, wz_b, wz_e,
-                          *(cres or ())]
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-                grads = [torch.zeros_like(x) if g is None else g
-                         for g, x in zip(grads, leaves)]
-                nb, ne = len(bleaves), len(eleaves)
-                g_base = G.fill_params(bparams, grads[:nb])
-                g_env = G.fill_params(eparams, grads[nb:nb + ne])
-                g_m2z, g_e3z, g_wet_b, g_wet_e = grads[nb + ne:nb + ne + 4]
-                if grads_out is not None:
-                    grads_out.update(base=g_base, env=g_env, means2d=g_m2z,
-                                     env_means3d=g_e3z, wet_base=g_wet_b,
-                                     wet_env=g_wet_e)
+                g = step_grads(loss, leaves, bparams, eparams)
             if mark:
                 mark("backward")
 
             # one of {forward wet, gradient-lane wet} is exact zeros (the
             # kernels' paths use the lane; the ref backends and multi-bounce
             # tracing keep the forward wet)
-            wet_b = g_wet_b + out.base_wet.detach()
-            wet_e = g_wet_e + out.env_wet.detach()
-            new_bp, opt_base = sparse_adam_update(
-                base.params, g_base, state.opt_base, lr_tree_for(it, lr_base))
-            new_ep, opt_env = sparse_adam_update(
-                env.params, g_env, state.opt_env, lr_tree_for(it, lr_env))
-            if cam_opt.enabled:
-                g_cam = CameraResiduals(*grads[nb + ne + 4:])
-                if cam_opt.freeze_extri:
-                    g_cam = g_cam._replace(se3=torch.zeros_like(g_cam.se3))
-                if cam_opt.freeze_intri:
-                    g_cam = g_cam._replace(intr=torch.zeros_like(g_cam.intr))
-                if grads_out is not None:
-                    grads_out["cam"] = g_cam
-                f32 = lambda v: float(  # noqa: E731
-                    torch.tensor(v, dtype=torch.float32))
-                new_res, new_copt = sparse_adam_update(
-                    cam_state.res, g_cam, cam_state.opt,
-                    CameraResiduals(f32(cam_opt.extri_lr),
-                                    f32(cam_opt.intri_lr)),
-                    eps=1e-15)
-                cam_state = CamOptState(new_res, new_copt)
-            b_stats = G.accumulate_stats(
-                base.stats, g_m2z, out.base_visibility | (wet_b > 0),
-                weight=wet_b, radii=out.base_radii.detach())
-            e_stats = G.accumulate_stats(
-                env.stats, g_e3z, out.env_visibility | (wet_e > 0),
-                weight=wet_e)
-            new_state = TrainState(base._replace(params=new_bp, stats=b_stats),
-                                   env._replace(params=new_ep, stats=e_stats),
-                                   opt_base, opt_env, state.gen)
+            new_state = apply_grads(
+                state, g, it, lr_base, lr_env, out.base_visibility,
+                g.wet_base + out.base_wet.detach(), out.base_radii.detach(),
+                out.env_visibility, g.wet_env + out.env_wet.detach())
+            if cres is not None:
+                cam_state, g_cam = camera_step(cam_state, g.cam, cam_opt)
+                g = g._replace(cam=g_cam)
+            g.write(grads_out)
             stats["num_pts"] = base.stats.active.sum()
             stats["env_num_pts"] = env.stats.active.sum()
             # capacity truncation counters: pairs past the raster budget (none
@@ -258,17 +332,7 @@ def make_train_step(cam: Camera, model_cfg: EnvGSConfig, loss_cfg: LossConfig,
                 mark("optimizer")
             return new_state, cam_state, stats
 
-    if cam_opt.enabled:
-        return step_impl
-
-    def step(state: TrainState, batch: Batch, K, R, T, it: int,
-             mark: Callable[[str], None] | None = None,
-             grads_out: dict | None = None):
-        new_state, _, stats = step_impl(state, None, batch, K, R, T, 0, it,
-                                        mark, grads_out)
-        return new_state, stats
-
-    return step
+    return step_impl if cam_opt.enabled else without_camera(step_impl)
 
 
 # ---------------------------------------------------------------------------

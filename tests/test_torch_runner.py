@@ -24,10 +24,12 @@ from envgs_tpu_torch import cli
 from envgs_tpu_torch.data import synthetic
 from envgs_tpu_torch.models import envgs as tenv
 from envgs_tpu_torch.models import gaussians as tg
+from envgs_tpu_torch.ops.raster_blend import CHUNK
 from envgs_tpu_torch.train import optimizer as topt
 from envgs_tpu_torch.train import supervisor as tsup
 from envgs_tpu_torch.train import trainer as ttrain
 from envgs_tpu_torch.train.runner import Runner
+from envgs_tpu_torch.utils.timer import read_spans
 from torch_threads import one_thread  # noqa: F401
 
 H = W = 32
@@ -306,8 +308,7 @@ def test_smoke_entry_point_on_cpu(tmp_path, monkeypatch, capsys):
     assert np.isfinite(s["psnr_mean"]) and s["psnr_mean"] > 10
     assert np.isfinite(s["ssim_mean"]) and np.isnan(s["lpips_mean"])
     assert s["tracer_order"] == "exact"
-    assert set(s["stage_ms"]) == {"bin", "raster_blend", "cull",
-                                  "trace_blend"}
+    assert {"render.bin", "env.cull", "env.blend"} <= set(s["stage_ms"])
     assert len(on_disk["frames"]) == 1  # view 0 of 4 is held out
     model_dir = tmp_path / "data" / "trained_model" / "smoke"
     assert {"latest.npz", "8.npz", "base.ply", "env.ply"} <= {
@@ -315,6 +316,30 @@ def test_smoke_entry_point_on_cpu(tmp_path, monkeypatch, capsys):
     assert (tmp_path / "data" / "result" / "smoke" / "RENDER"
             / "frame0000_camera0000.png").exists()
     assert "iter 7/8" in capsys.readouterr().out
+
+
+def test_stage_ms_follows_the_served_render(tmp_path):
+    """metrics.json's stage_ms is read from the spans of one radial-order
+    render_view of the first view, the render the runner serves: at an
+    env_per_tile_cap of one chunk the env cull of that render cuts chunks
+    (env.cut > 0 in the root stage_ms was read from), and the times are
+    keyed by span name."""
+    scene = synthetic.make_scene(n_views=1, H=H, W=W, device="cpu")
+    views = [dict(rgb=scene.images[0], msk=scene.masks[0],
+                  norm=scene.normals[0], camera=scene.cams[0])]
+    runner = Runner(
+        views, scene.gt_base, scene.gt_env,
+        tenv.EnvGSConfig(env_per_tile_cap=CHUNK, **MODEL),
+        tsup.LossConfig(**LOSS), ttrain.ScheduleConfig(**SCHED),
+        tg.DensifyConfig(**DENS), tg.DensifyConfig(**DENS), topt.LRConfig(),
+        topt.LRConfig(), exp_name="cap", out_root=str(tmp_path),
+        resume=False, record=False)
+    stage_ms = runner.test(save_images=False)["summary"]["stage_ms"]
+    root = read_spans()[-1]
+    assert root["name"] == "render"
+    assert stage_ms == (root["device_ms"] or root["host_ms"])
+    assert {"render.bin", "env.cull", "env.blend"} <= set(stage_ms)
+    assert root["counts"]["env.cut"] > 0
 
 
 def test_unported_modes_and_options_raise(tmp_path, monkeypatch):
